@@ -1,0 +1,32 @@
+"""PyTorch port of the KG-embedding system in ``repro``, for NVIDIA GPUs.
+
+The JAX package ``repro`` is the reference; this package mirrors its file
+layout and answers the same calls with the same numbers (the parity tests
+in ``tests/test_torch_*.py`` hold each module against its counterpart).
+It imports ``torch`` and never ``jax``, nor anything of ``repro``.
+
+Ported so far: the serving and evaluation path — ``KnowledgeBase`` save /
+load, top-k queries, and the paper's three-task evaluation — with the
+entity-ranking sweep (``kernels/rank_topk.py``) as a hand-written CUDA
+kernel for Hopper.  Training is not ported yet (ROADMAP.md, queue 1).
+
+Entry points that create tensors take a ``device``; left out, it is the
+current CUDA device, and without a GPU they raise (:func:`resolve_device`)
+instead of running on the CPU unasked.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point places its tensors on: ``device`` when
+    given, else ``cuda``.  Raises when no GPU is present and no device was
+    named — pass ``device="cpu"`` to run on the CPU on purpose."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch entry points default to the GPU, and no CUDA device "
+            "is available: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")

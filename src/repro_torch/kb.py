@@ -1,0 +1,235 @@
+"""``KnowledgeBase``: the persistent, serveable KG-embedding artifact
+(port of ``repro.kb``).
+
+Model + embedding tables + graph metadata as one object:
+
+    from repro_torch import kg
+
+    kb = kg.KnowledgeBase.load("my_kb")        # tables on the GPU
+    top = kb.query_tails(h, r, k=10, filtered=True)
+    best = kb.query_relations(h, t, k=3)
+    e = kb.score(h, r, t)
+    metrics = kg.evaluate(kb, engine="device")  # the paper's protocol
+
+The on-disk format is the reference's (``train/checkpoint.py``), and
+``fingerprint()`` hashes the same bytes the same way: an artifact saved
+by either package loads in the other with the same fingerprint.
+Incremental updates and delta chains (``update`` / ``load_chain``) are
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import eval as kg_eval
+from repro_torch.core.models import KGModel, Params, get_model
+from repro_torch.data.kg import KG
+from repro_torch.serve.kg_engine import KGQueryEngine, QueryResult
+from repro_torch.train import checkpoint as ckpt_lib
+
+ARTIFACT_KIND = "knowledge_base"
+
+
+@dataclasses.dataclass
+class KnowledgeBase:
+    """A trained KG embedding as an artifact (module docstring).
+
+    ``params`` are tensors on one device.  ``graph`` is optional: without
+    it the artifact still scores and serves raw top-k, but filtered
+    queries and ``evaluate`` need the splits."""
+
+    model: KGModel
+    params: Params
+    graph: Optional[KG] = None
+    norm: str = "l1"
+    meta: Dict = dataclasses.field(default_factory=dict)
+    _engines: Dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    _fingerprint: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.model = get_model(self.model)
+        missing = set(self.model.param_roles()) - set(self.params)
+        if missing:
+            raise ValueError(
+                f"params are missing tables {sorted(missing)} for model "
+                f"{self.model.name!r} (have {sorted(self.params)})")
+
+    # -- identity ----------------------------------------------------------
+
+    @property
+    def n_entities(self) -> int:
+        return int(self.params["ent"].shape[0])
+
+    @property
+    def n_relations(self) -> int:
+        return int(self.params["rel"].shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.params["ent"].shape[1])
+
+    def fingerprint(self) -> str:
+        """Content identity of this artifact: a short sha256 over the model
+        name, norm, every table's bytes (as numpy arrays, dtype and shape
+        included) and the graph's ``KG.fingerprint()`` digests — the
+        reference's recipe, so equal tables give the equal digest in both
+        packages.  Computed once and cached."""
+        if self._fingerprint is None:
+            h = hashlib.sha256()
+            h.update(f"{self.model.name}:{self.norm}".encode())
+            for name in sorted(self.params):
+                arr = np.ascontiguousarray(
+                    ckpt_lib._host(self.params[name]))
+                h.update(f":{name}:{arr.dtype}:{arr.shape}".encode())
+                h.update(arr.tobytes())
+            if self.graph is not None:
+                for key, val in sorted(self.graph.fingerprint().items()):
+                    h.update(f":{key}={val}".encode())
+            self._fingerprint = h.hexdigest()[:16]
+        return self._fingerprint
+
+    # -- persistence -------------------------------------------------------
+
+    def save(self, path: str, *, include_graph: bool = True,
+             step: int = 0, keep: int = 3) -> str:
+        """Persist atomically under ``path`` (checkpoint ``step_`` layout).
+        Returns the committed directory.  The manifest records model name,
+        per-table shapes, norm and the graph fingerprint; the graph splits
+        ship with the tables unless ``include_graph=False``."""
+        tree = {"params": self.params}
+        graph_fp = None
+        if include_graph and self.graph is not None:
+            tree["graph"] = {
+                "train": np.asarray(self.graph.train, np.int32),
+                "valid": np.asarray(self.graph.valid, np.int32),
+                "test": np.asarray(self.graph.test, np.int32),
+            }
+        if self.graph is not None:
+            graph_fp = self.graph.fingerprint()
+        extra = {
+            "kind": ARTIFACT_KIND,
+            "model": self.model.name,
+            "norm": self.norm,
+            "dim": self.dim,
+            "n_entities": (self.graph.n_entities if self.graph is not None
+                           else self.n_entities),
+            "n_relations": (self.graph.n_relations if self.graph is not None
+                            else self.n_relations),
+            "tables": {
+                name: list(arr.shape)
+                for name, arr in sorted(self.params.items())
+            },
+            "graph": graph_fp,
+            "fingerprint": self.fingerprint(),
+            "meta": self.meta,
+        }
+        return ckpt_lib.save(str(path), step, tree, extra=extra, keep=keep)
+
+    @classmethod
+    def load(cls, path: str, step: Optional[int] = None,
+             device=None) -> "KnowledgeBase":
+        """Restore a saved artifact (either package's) with its tables on
+        ``device`` (default: the GPU; raises without one unless ``device``
+        is given).  Raises a clear error when the directory holds something
+        else, the manifest names a model not ported, a stored table's shape
+        disagrees with the manifest, or the shipped graph fails its
+        fingerprint."""
+        device = resolve_device(device)
+        _, tree, extra = ckpt_lib.restore(
+            str(path), step=step, expect={"kind": ARTIFACT_KIND})
+        model = get_model(extra["model"])
+        stored = tree["params"]
+        for name, shape in (extra.get("tables") or {}).items():
+            if name not in stored:
+                raise ValueError(
+                    f"artifact at {path} is missing table {name!r} named "
+                    "in its manifest — truncated or corrupted save?")
+            if list(stored[name].shape) != list(shape):
+                raise ValueError(
+                    f"artifact table {name!r} has shape "
+                    f"{tuple(stored[name].shape)} but the manifest records "
+                    f"{tuple(shape)} — corrupted artifact?")
+        params = {name: torch.as_tensor(arr, device=device)
+                  for name, arr in stored.items()}
+        graph = None
+        if "graph" in tree:
+            g = tree["graph"]
+            graph = KG(int(extra["n_entities"]), int(extra["n_relations"]),
+                       g["train"], g["valid"], g["test"])
+            fp = extra.get("graph")
+            if fp is not None and graph.fingerprint() != fp:
+                raise ValueError(
+                    f"graph splits stored at {path} do not match the "
+                    "manifest fingerprint — corrupted artifact?")
+        return cls(model=model, params=params, graph=graph,
+                   norm=extra.get("norm", "l1"),
+                   meta=extra.get("meta") or {})
+
+    # -- serving -----------------------------------------------------------
+
+    def engine(self, *, chunk: Optional[int] = None) -> KGQueryEngine:
+        """The query engine over this artifact's tables, cached per
+        ``chunk``."""
+        if chunk not in self._engines:
+            kw = {} if chunk is None else {"chunk": chunk}
+            self._engines[chunk] = KGQueryEngine(
+                self.model, self.params, norm=self.norm, **kw)
+        return self._engines[chunk]
+
+    def _exclude(self, a, b, side: str) -> np.ndarray:
+        if self.graph is None:
+            raise ValueError(
+                "filtered=True needs the graph (known-neighbor masks); "
+                "this KnowledgeBase was loaded without one — re-save with "
+                "include_graph=True or pass filtered=False")
+        pairs = np.stack(np.broadcast_arrays(
+            np.atleast_1d(np.asarray(a, np.int64)),
+            np.atleast_1d(np.asarray(b, np.int64))), axis=1)
+        return self.graph.known_candidate_masks(pairs, side)
+
+    def query_tails(self, heads, rels, k: int = 10,
+                    filtered: bool = False, **engine_kw) -> QueryResult:
+        """Top-k tail completions of ``(h, r, ?)``.  ``filtered=True``
+        excludes the graph's already-known tails of each pair (serve
+        *new* links).  ``engine_kw`` (``chunk``) picks the engine."""
+        exclude = self._exclude(heads, rels, "tail") if filtered else None
+        return self.engine(**engine_kw).query_tails(
+            heads, rels, k=k, exclude=exclude)
+
+    def query_heads(self, tails, rels, k: int = 10,
+                    filtered: bool = False, **engine_kw) -> QueryResult:
+        """Top-k head completions of ``(?, r, t)`` (see query_tails)."""
+        exclude = self._exclude(rels, tails, "head") if filtered else None
+        return self.engine(**engine_kw).query_heads(
+            tails, rels, k=k, exclude=exclude)
+
+    def query_relations(self, heads, tails, k: int = 10,
+                        **engine_kw) -> QueryResult:
+        """Top-k relations linking ``(h, ?, t)``."""
+        return self.engine(**engine_kw).query_relations(heads, tails, k=k)
+
+    def score(self, heads, rels, tails, **engine_kw) -> np.ndarray:
+        """Energies of fully-specified triplets (lower = more plausible)."""
+        return self.engine(**engine_kw).score(heads, rels, tails)
+
+    # -- evaluation --------------------------------------------------------
+
+    def evaluate(self, *, filtered: bool = True, engine: str = "host",
+                 **engine_kw) -> dict:
+        """The paper's three-task protocol on this artifact's graph —
+        exactly ``repro_torch.kg.evaluate(kb)``."""
+        if self.graph is None:
+            raise ValueError(
+                "evaluate needs the graph's valid/test splits; this "
+                "KnowledgeBase was loaded without a graph")
+        return kg_eval.evaluate_all(
+            self.params, self.graph, norm=self.norm, filtered=filtered,
+            model=self.model, engine=engine, **engine_kw)

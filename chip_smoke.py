@@ -6,22 +6,41 @@
 1. Builds every kernel of the port from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together) and prints the build time.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   same inputs — ``rank_counts``: exact counts, L1 and L2, fp32 and bf16, at
-   the evaluation chunk (B = 256 queries, E = 14,951, k = 50) and at a
-   Freebase-scale table (B = 4,096, E = 1,000,000) — and times the kernel,
-   the plain version and one PyTorch library call computing the same
-   function (``torch.cdist`` + compare + sum, split in two calls at
-   E = 1e6, whose 4.1e9 outputs one call's grid cannot hold; timed only,
-   never used by the port), beside the least time the card could take.
-3. Main path, through the entry points a user calls: a TransE
-   ``KnowledgeBase`` (dim 50, L1, seeded random tables) over a synthetic
-   graph with FB15k's entity, relation and triplet counts; save -> load;
-   filtered top-k tail/head queries, relation queries and scores for 1,024
-   pairs; ``rank()``; ``kg.evaluate(kb, engine="device")``.  The kernels'
-   launch counters are zeroed just before and read just after.  Checks:
-   fingerprints survive the round trip, answers are well formed and agree
-   with the host reference protocol on a slice of the test split, and the
-   kernel path agrees with the plain-scorer path on the whole split.
+   same inputs, and times the kernel, the plain version and PyTorch library
+   calls computing the same function (timed only, never used by the port)
+   beside the least time the card could take.  ``rank_counts``: exact
+   counts, L1 and L2, fp32 and bf16, at the evaluation chunk (B = 256
+   queries, E = 14,951, k = 50) and at a Freebase-scale table (B = 4,096,
+   E = 1,000,000); library call ``torch.cdist`` + compare + sum, split in
+   two calls at E = 1e6, whose 4.1e9 outputs one call's grid cannot hold.
+   ``transe_score`` forward and backward (kernel times from
+   ``torch.profiler``, as the wrappers sync for their id checks): equal
+   bits (max_abs_err 0), L1 and
+   L2, fp32 and bf16, at the training step's shape (4 workers x 256
+   triplets over the stacked FB15k tables, 4 x 14,951 entity rows) and at
+   2**20 triplets over a 1,000,000-row table; the backward run twice must
+   give the same bits.  Library calls timed beside them: gathers +
+   ``torch.linalg.vector_norm`` + ``clamp`` (forward) and autograd of the
+   same (backward).
+3. Training path, through ``kg.fit`` over a synthetic graph with FB15k's
+   entity, relation and triplet counts: TransE at ``kg.make_configs``'
+   defaults (dim 50, L1, margin 1, lr 0.01, per-epoch normalization,
+   uniform negatives, 4 workers, batch 256, balanced split), SGD with the
+   ``average`` Reduce and BGD, a few epochs each, from the seeded init.
+   The ``transe_score`` counters are zeroed just before and read just
+   after.  Checks: both kernels launched once per step, as the schedule
+   predicts; each paradigm's loss fell; the SGD-trained filtered mean rank
+   beats the init's; a same-seed rerun of one epoch gives the same bits;
+   one SGD epoch on the CPU (plain versions) and on the card (kernels) from
+   the same params and draws agree (tolerance below).
+4. Serving path, on the SGD-trained artifact, through the entry points a
+   user calls: save -> load; filtered top-k tail/head queries, relation
+   queries and scores for 1,024 pairs; ``rank()``;
+   ``kg.evaluate(kb, engine="device")``.  The ``rank_counts`` counter is
+   zeroed just before and read just after.  Checks: fingerprints survive
+   the round trip, answers are well formed and agree with the host
+   reference protocol on a slice of the test split, and the kernel path
+   agrees with the plain-scorer path on the whole split.
 
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -29,6 +48,7 @@ result, without a CUDA device, outside a checkout of the repository, or when
 any phase fails.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,6 +64,21 @@ PROBE_TRIPLETS = 60000
 N_QUERY_PAIRS = 1024
 HOST_CHECK_ROWS = 512
 KERNEL_CASES = ((14951, 256), (1_000_000, 4096))   # (E, B)
+# transe_score cases: (W, B, E, R); W = 1 is one unstacked table
+TRANSE_CASES = ((4, 256, FB15K["n_entities"], FB15K["n_relations"]),
+                (1, 1 << 20, 1_000_000, FB15K["n_relations"]))
+TRAIN = dict(n_workers=4, batch_size=256)   # kg.make_configs' defaults
+SGD_EPOCHS, BGD_EPOCHS = 4, 3
+# One SGD epoch on the CPU (plain versions) against the card (kernels),
+# from the same params and draws.  The kernels equal their plain versions
+# bitwise, and every other operation of a step is an elementwise IEEE op,
+# an in-order sum or a correctly rounded root (util.sqrt_rn) on both
+# devices, so the params are expected to agree bitwise; the mean of a
+# step's pair losses reduces in another order on each device, so the
+# reported loss may differ in the last ulps.  The gates allow for one ulp
+# somewhere flipping an L1 sign, which moves one entry by
+# 2 * lr / B = 7.8e-5: params within 1e-4, loss within rtol 1e-5.
+CPU_EPOCH_PARAM_TOL, CPU_EPOCH_LOSS_RTOL = 1e-4, 1e-5
 DEVICE = "cuda"
 # NVIDIA H100 data sheet, dense: fp32 outside the tensor cores, HBM rate
 PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100": (67e12, 3.35e12)}
@@ -84,6 +119,60 @@ def cuda_ms(torch, fn, reps, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(torch, fn, reps, name):
+    """Mean device milliseconds of one launch of the CUDA kernel whose name
+    holds ``name``, over ``reps`` calls of ``fn`` (``torch.profiler``,
+    device activity only; one warm-up call first).  The mean is over the
+    launches the profiler recorded: it has been seen to drop a few of 50
+    records.  Fails if it recorded none, or more than one per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                name in ev.key:
+            us += getattr(ev, "self_device_time_total", None) or \
+                ev.self_cuda_time_total
+            count += ev.count
+    if not 0 < count <= reps:
+        fail(f"the profiler saw {count} launches of {name!r} in {reps} "
+             "calls")
+    return us / 1e3 / count
+
+
+def profile_busy(torch, fn):
+    """Wall seconds of ``fn`` (ending in a synchronize) under
+    ``torch.profiler`` with device activity only, the device's busy
+    seconds within it, and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None) or \
+                ev.self_cuda_time_total
+            if us > 0:
+                kernels.append((us, ev.count, ev.key))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels) / 1e6
+    return {"wall_s": wall_s, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall_s,
+            "launches": sum(k[1] for k in kernels),
+            "top": [{"kernel": key[:90], "launches": n, "ms": us / 1e3}
+                    for us, n, key in kernels[:10]]}
 
 
 def wall(torch, fn):
@@ -169,6 +258,172 @@ def kernel_phase(torch, rates):
     return cases
 
 
+def bits_equal(a, b):
+    """Same dtype, shape and bits (NaN payloads and signed zeros too)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(torch.equal(a.contiguous().view(ints),
+                            b.contiguous().view(ints)))
+
+
+def max_err(got, want):
+    return max(float((a.float() - b.float()).abs().max()) if a.numel()
+               else 0.0 for a, b in zip(got, want))
+
+
+def transe_bounds(n, k, itemsize, norm, dense_rows, rates):
+    """Least milliseconds of one transe_score forward and one backward
+    kernel over ``n`` triplets: the larger of bytes over the memory rate
+    and fp32 operations over the fp32 rate, each ``(ms, "bytes"|
+    "operations")``.
+
+    Forward bytes: five k-rows per triplet, the (n, 5) int32 ids, three
+    fp32 outputs.  Operations: u and v (2 each per column), |x| or x² and
+    the add into the sum (2 each per column), the hinge (3), and for L2
+    two adds and two roots.  Backward bytes: the five rows, the ids, four
+    fp32 per-triplet inputs (g, loss, d_pos, d_neg), the sorted scatter
+    rows and their order (2 x 5n int32), and the dense gradient, each of
+    its ``dense_rows`` rows written once (the kernel writes the untouched
+    rows' zeros too).  Operations: u and v (4 per column), their signs or
+    quotients (2), the scaling (2), gu + gv (1), one add per contribution
+    (5), and the scale per triplet (1)."""
+    flops, bw = rates
+    row = k * itemsize
+    out = []
+    for nbytes, ops in (
+            (n * (5 * row + 5 * 4 + 3 * 4),
+             n * (8 * k + 3 + (4 if norm == "l2" else 0))),
+            (n * (5 * row + 5 * 4 + 4 * 4 + 2 * 5 * 4) + dense_rows * row,
+             n * (14 * k + 1))):
+        t_bytes, t_ops = nbytes / bw, ops / flops
+        out.append((max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def transe_library(torch, ent, rel, idx, norm):
+    """One PyTorch formulation of the forward (gathers, vector_norm, clamp)
+    on flat tables and worker-offset ids, and a closure timing autograd
+    of it (the backward).  Timed only; the port never calls it."""
+    from repro_torch.util import worker_offsets
+
+    k = ent.shape[-1]
+    flat_e = ent.detach().reshape(-1, k).requires_grad_()
+    flat_r = rel.detach().reshape(-1, k).requires_grad_()
+    ix = idx.long()
+    if ent.dim() == 3:
+        eo, ro = worker_offsets(ix, ent.shape[1], rel.shape[1])
+        ix = ix + torch.stack([eo, ro, eo, eo, eo], dim=-1)
+    ix = ix.reshape(-1, 5)
+    p = 1 if norm == "l1" else 2
+
+    def fwd():
+        h, t, nh, nt = (flat_e[ix[:, c]].float() for c in (0, 2, 3, 4))
+        r = flat_r[ix[:, 1]].float()
+        d_pos = torch.linalg.vector_norm(h + r - t, ord=p, dim=-1)
+        d_neg = torch.linalg.vector_norm(nh + r - nt, ord=p, dim=-1)
+        return torch.clamp(1.0 + d_pos - d_neg, min=0.0)
+
+    with torch.enable_grad():
+        out = fwd()
+    g = torch.full_like(out, 1.0 / idx.shape[-2])
+
+    def bwd():
+        return torch.autograd.grad(out, [flat_e, flat_r], grad_outputs=g,
+                                   retain_graph=True)
+
+    def nograd_fwd():
+        with torch.no_grad():
+            return fwd()
+
+    return nograd_fwd, bwd
+
+
+def transe_kernel_phase(torch, rates):
+    """``transe_score`` forward and backward against their plain versions
+    (equal bits), the backward twice (equal bits), and the times."""
+    from repro_torch.kernels import ref, transe_score as ts
+
+    cases = []
+    for W, B, E, R in TRANSE_CASES:
+        g = torch.Generator(device=DEVICE).manual_seed(E + B)
+        lead = (W,) if W > 1 else ()
+        bound = 6.0 / DIM ** 0.5           # the TransE init range
+        ent32 = (torch.rand(*lead, E, DIM, generator=g, device=DEVICE)
+                 * 2 - 1) * bound
+        rel32 = torch.randn(*lead, R, DIM, generator=g, device=DEVICE)
+        rel32 = rel32 / rel32.norm(dim=-1, keepdim=True)
+        idx = torch.stack(
+            [torch.randint(0, n, (*lead, B), generator=g, device=DEVICE)
+             for n in (E, R, E, E, E)], dim=-1).to(torch.int32).contiguous()
+        n = W * B
+        small = n <= 4096
+        for norm in ("l1", "l2"):
+            for dtype in (torch.float32, torch.bfloat16):
+                ent, rel = ent32.to(dtype), rel32.to(dtype)
+                fwd = ts.transe_score(ent, rel, idx, margin=1.0, norm=norm)
+                gs = torch.full(idx.shape[:-1], 1.0 / B, device=DEVICE)
+                bwd = ts.transe_score_bwd(ent, rel, idx, gs, *fwd, norm=norm)
+                bwd2 = ts.transe_score_bwd(ent, rel, idx, gs, *fwd,
+                                           norm=norm)
+                want_f = ref.transe_score_ref(ent, rel, idx, 1.0, norm)
+                want_b = ref.transe_score_bwd_ref(ent, rel, idx, gs, *fwd,
+                                                  norm)
+                torch.cuda.synchronize()
+                reps = 50 if small else 5
+                lib_f, lib_b = transe_library(torch, ent, rel, idx, norm)
+                (fb, fby), (bb, bby) = transe_bounds(
+                    n, DIM, ent.element_size(), norm,
+                    ent.shape[:-1].numel() + rel.shape[:-1].numel(), rates)
+                case = {
+                    "W": W, "B": B, "E": E, "R": R, "k": DIM, "norm": norm,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "active_hinges": float((fwd[0] > 0).float().mean()),
+                    "fwd_max_abs_err": max_err(fwd, want_f),
+                    "fwd_bitwise": all(map(bits_equal, fwd, want_f)),
+                    "bwd_max_abs_err": max_err(bwd, want_b),
+                    "bwd_bitwise": all(map(bits_equal, bwd, want_b)),
+                    "bwd_repeat_bitwise": all(map(bits_equal, bwd, bwd2)),
+                    "fwd_ms": kernel_ms(torch, lambda: ts.transe_score(
+                        ent, rel, idx, margin=1.0, norm=norm), reps,
+                        "transe_score_fwd_kernel"),
+                    "bwd_ms": kernel_ms(torch, lambda: ts.transe_score_bwd(
+                        ent, rel, idx, gs, *fwd, norm=norm), reps,
+                        "transe_score_bwd_kernel"),
+                    # the wrappers' calls: id range checks (one host sync
+                    # each) and the backward's sorts included
+                    "fwd_call_ms": cuda_ms(torch, lambda: ts.transe_score(
+                        ent, rel, idx, margin=1.0, norm=norm), reps),
+                    "bwd_call_ms": cuda_ms(torch, lambda: ts.transe_score_bwd(
+                        ent, rel, idx, gs, *fwd, norm=norm), reps),
+                    "fwd_plain_ms": cuda_ms(torch, lambda: (
+                        ref.transe_score_ref(ent, rel, idx, 1.0, norm)),
+                        3 if small else 1, warmup=0),
+                    "bwd_plain_ms": cuda_ms(torch, lambda: (
+                        ref.transe_score_bwd_ref(ent, rel, idx, gs, *fwd,
+                                                 norm)),
+                        3 if small else 1, warmup=0),
+                    "fwd_library_ms": cuda_ms(torch, lib_f, reps),
+                    "bwd_library_ms": cuda_ms(torch, lib_b, reps),
+                    "fwd_bound_ms": fb, "fwd_bound_by": fby,
+                    "bwd_bound_ms": bb, "bwd_bound_by": bby,
+                }
+                print("transe_score " + json.dumps(case), flush=True)
+                cases.append(case)
+                del fwd, bwd, bwd2, want_f, want_b, lib_f, lib_b
+        del ent32, rel32, idx
+        torch.cuda.empty_cache()
+    bad = [c for c in cases if not (c["fwd_bitwise"] and c["bwd_bitwise"]
+                                    and c["bwd_repeat_bitwise"])]
+    if bad:
+        fail(f"transe_score kernels disagree with their plain versions or "
+             f"with themselves: {bad}")
+    return cases
+
+
 def build_graph():
     """The FB15k-size synthetic graph, its triplet count cut (and the cut
     printed) when the probe says the full size would take the host over
@@ -213,28 +468,131 @@ def check_topk(res, n, k, label, known=None):
                 fail(f"{label}: a known (excluded) id was served, query {i}")
 
 
-def main_path(torch):
+def training_path(torch, graph):
+    """The training main path (``kg.fit``, SGD then BGD), its checks, the
+    same-seed rerun and the CPU-against-card epoch.  Returns the SGD
+    result, the path's info, its kernel launches and the init's metrics."""
+    from repro_torch import kg
+    from repro_torch.core.models import KGConfig, get_model
+    from repro_torch.data import kg as kg_data
+    from repro_torch.kernels import transe_score as ts
+
+    info = {}
+    model = get_model("transe")
+    cfg = KGConfig(graph.n_entities, graph.n_relations, dim=DIM)
+    init = model.init_params(torch.Generator().manual_seed(0), cfg,
+                             device=DEVICE)           # fit's seed-0 init
+    init_kb = kg.KnowledgeBase(model="transe", params=init, graph=graph,
+                               norm="l1")
+    init_metrics, info["init_evaluate_s"] = wall(
+        torch, lambda: kg.evaluate(init_kb, engine="device"))
+    print("init metrics " + json.dumps(init_metrics), flush=True)
+    steps = len(graph.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
+    epoch_s = {"sgd": [], "bgd": []}
+
+    def timer(paradigm):
+        last = [time.perf_counter()]
+
+        def callback(epoch, loss):         # loss is a float: synchronized
+            now = time.perf_counter()
+            epoch_s[paradigm].append(now - last[0])
+            last[0] = now
+        return callback
+
+    ts.transe_score.launches = 0                      # --- training path ---
+    ts.transe_score_bwd.launches = 0
+    t_start = time.perf_counter()
+    sgd = kg.fit(graph, "transe", "sgd", strategy="average",
+                 epochs=SGD_EPOCHS, seed=0, callback=timer("sgd"),
+                 device=DEVICE, **TRAIN)
+    bgd = kg.fit(graph, "transe", "bgd", epochs=BGD_EPOCHS, seed=0,
+                 callback=timer("bgd"), device=DEVICE, **TRAIN)
+    launches = (ts.transe_score.launches,
+                ts.transe_score_bwd.launches)         # --- end ---
+    info["train_path_s"] = time.perf_counter() - t_start
+    info["steps_per_epoch"] = steps
+    info["epoch_s"] = epoch_s
+    info["loss_history"] = {"sgd": sgd.loss_history,
+                            "bgd": bgd.loss_history}
+    info["launches"] = dict(zip(("transe_score", "transe_score_bwd"),
+                                launches))
+    info["launches_per_epoch"] = {
+        name: n / (SGD_EPOCHS + BGD_EPOCHS)
+        for name, n in info["launches"].items()}
+    print("training " + json.dumps(info), flush=True)
+    predicted = steps * (SGD_EPOCHS + BGD_EPOCHS)
+    if launches != (predicted, predicted):
+        fail(f"transe_score launches {launches} on the training path; the "
+             f"schedule predicts {predicted} each (one per step)")
+    for name, res in (("sgd", sgd), ("bgd", bgd)):
+        hist = res.loss_history
+        if not all(map(math.isfinite, hist)) or not hist[-1] < hist[0]:
+            fail(f"{name} loss did not fall: {hist}")
+
+    # the same seed twice: the same bits
+    a = kg.fit(graph, epochs=1, seed=0, device=DEVICE, **TRAIN)
+    b = kg.fit(graph, epochs=1, seed=0, device=DEVICE, **TRAIN)
+    info["rerun_bitwise"] = a.loss_history == b.loss_history and all(
+        bits_equal(a.params[n], b.params[n]) for n in a.params)
+    if not info["rerun_bitwise"]:
+        fail("a same-seed rerun of one SGD epoch gave other bits")
+
+    # one SGD epoch on the CPU (plain versions) and on the card (kernels),
+    # from the same params and the same injected draws
+    part = kg_data.PARTITIONERS["balanced"](0, graph.train,
+                                            TRAIN["n_workers"])
+    pos = kg_data.epoch_batches(0, 0, part, TRAIN["batch_size"])
+    neg = model.make_negatives(torch.as_tensor(pos), cfg,
+                               generator=torch.Generator().manual_seed(1))
+    draws = lambda epoch: (neg.numpy(), None)
+    card, info["card_epoch_s"] = wall(torch, lambda: kg.fit(
+        graph, epochs=1, seed=0, params=init, draws=draws, device=DEVICE,
+        **TRAIN))
+    t0 = time.perf_counter()
+    host = kg.fit(graph, epochs=1, seed=0, device="cpu", draws=draws,
+                  params={n: t.cpu() for n, t in init.items()}, **TRAIN)
+    info["cpu_epoch_s"] = time.perf_counter() - t0
+    info["cpu_vs_card"] = {
+        "param_max_abs_err": max_err(
+            [card.params[n].cpu() for n in sorted(card.params)],
+            [host.params[n] for n in sorted(host.params)]),
+        "params_bitwise": all(bits_equal(card.params[n].cpu(),
+                                         host.params[n])
+                              for n in card.params),
+        "loss": [card.loss_history[0], host.loss_history[0]],
+        "param_tol": CPU_EPOCH_PARAM_TOL, "loss_rtol": CPU_EPOCH_LOSS_RTOL}
+    print("cpu vs card epoch " + json.dumps(info["cpu_vs_card"]),
+          flush=True)
+    # where an SGD epoch's time goes: the device's busy share and kernels
+    info["sgd_epoch_profile"] = profile_busy(torch, lambda: kg.fit(
+        graph, epochs=1, seed=0, params=init, draws=draws, device=DEVICE,
+        **TRAIN))
+    print("sgd epoch profile " + json.dumps(info["sgd_epoch_profile"]),
+          flush=True)
+    c = info["cpu_vs_card"]
+    if c["param_max_abs_err"] > CPU_EPOCH_PARAM_TOL or abs(
+            c["loss"][0] - c["loss"][1]) > CPU_EPOCH_LOSS_RTOL * abs(
+                c["loss"][1]):
+        fail(f"the CPU and card SGD epochs disagree: {c}")
+    return sgd, info, launches, init_metrics
+
+
+def serving_path(torch, graph, kb):
+    """The serving main path on ``kb``: save/load, queries, rank(),
+    evaluate, and the checks of the module docstring."""
     import numpy as np
 
     from repro_torch import kg
     from repro_torch.core import eval as host_eval
     from repro_torch.core import eval_device
-    from repro_torch.core.models import KGConfig, get_model
     from repro_torch.kernels import rank_topk
 
     info = {}
-    graph, info["graph"] = build_graph()
-    print("graph " + json.dumps(info["graph"]), flush=True)
-    cfg = KGConfig(graph.n_entities, graph.n_relations, dim=DIM)
-    params = get_model("transe").init_params(
-        torch.Generator().manual_seed(0), cfg, device=DEVICE)
     test = graph.test
     tails_known, heads_known = graph.eval_filter_candidates()
 
-    rank_topk.rank_counts.launches = 0                # --- main path ---
+    rank_topk.rank_counts.launches = 0                # --- serving path ---
     t_start = time.perf_counter()
-    kb = kg.KnowledgeBase(model="transe", params=params, graph=graph,
-                          norm="l1", meta={"seed": 0})
     fp = kb.fingerprint()
     with tempfile.TemporaryDirectory() as tmp:
         kb.save(tmp)
@@ -289,7 +647,7 @@ def main_path(torch):
         fail("kg.evaluate did not go through the rank_counts kernel")
     print("metrics " + json.dumps(metrics), flush=True)
     main_launches = rank_topk.rank_counts.launches    # --- end ---
-    info["main_path_s"] = time.perf_counter() - t_start
+    info["serving_path_s"] = time.perf_counter() - t_start
     info["metrics"] = metrics
     n_q = len(test)
     for key in ("entity_raw", "entity_filtered", "relation_prediction"):
@@ -367,8 +725,23 @@ def main():
               flush=True)
 
     cases = kernel_phase(torch, rates)
-    info, launches = main_path(torch)
-    info["build_s"] = build_s
+    ts_cases = transe_kernel_phase(torch, rates)
+    graph, graph_info = build_graph()
+    print("graph " + json.dumps(graph_info), flush=True)
+    sgd, train_info, ts_launches, init_metrics = training_path(torch, graph)
+    info, launches = serving_path(torch, graph, sgd.kb)
+    info.update(build_s=build_s, graph=graph_info, training=train_info,
+                init_metrics=init_metrics)
+    init_rank = init_metrics["entity_filtered"]["mean_rank"]
+    trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
+    print(f"filtered mean rank: init {init_rank}, SGD-trained "
+          f"{trained_rank}", flush=True)
+    # A weak gate: a few epochs at lr 0.01 barely move unit-norm rows.  The
+    # evidence that the updates are right is the CPU-against-card epoch
+    # above and the CPU tests against the reference.
+    if not trained_rank < init_rank:
+        fail(f"the SGD-trained filtered mean rank {trained_rank} does not "
+             f"beat the init's {init_rank}")
 
     main_case = next(c for c in cases if c["E"] == FB15K["n_entities"]
                      and c["norm"] == "l1" and c["dtype"] == "float32")
@@ -384,6 +757,28 @@ def main():
         "library_ms": main_case["library_ms"],
         "cases": cases,
     }]
+    # the training step's shape: 4 workers x 256 triplets, L1, fp32
+    step = next(c for c in ts_cases if c["W"] == TRAIN["n_workers"]
+                and c["norm"] == "l1" and c["dtype"] == "float32")
+    for kname, key, replaces, n in (
+            ("transe_score", "fwd", "src/repro/kernels/transe_score.py:54",
+             ts_launches[0]),
+            ("transe_score_bwd", "bwd", "src/repro/kernels/ops.py:68",
+             ts_launches[1])):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/transe_score.cu",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
+            "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
+            "bound_ms": step[f"{key}_bound_ms"],
+            "bound_by": step[f"{key}_bound_by"],
+            "library_ms": step[f"{key}_library_ms"],
+            "cases": [{k: v for k, v in c.items()
+                       if not k.startswith("fwd_" if key == "bwd"
+                                           else "bwd_")}
+                      for c in ts_cases],
+        })
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -391,7 +786,8 @@ def main():
               "w") as f:
         json.dump({"nvidia_smi": smi, "device": device, "kernels": kernels,
                    "main_path": info}, f, indent=1)
-    print(json.dumps({k: info[k] for k in info if k != "metrics"}),
+    print(json.dumps({k: info[k] for k in info
+                      if k not in ("metrics", "init_metrics", "training")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

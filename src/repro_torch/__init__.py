@@ -5,10 +5,14 @@ layout and answers the same calls with the same numbers (the parity tests
 in ``tests/test_torch_*.py`` hold each module against its counterpart).
 It imports ``torch`` and never ``jax``, nor anything of ``repro``.
 
-Ported so far: the serving and evaluation path — ``KnowledgeBase`` save /
-load, top-k queries, and the paper's three-task evaluation — with the
-entity-ranking sweep (``kernels/rank_topk.py``) as a hand-written CUDA
-kernel for Hopper.  Training is not ported yet (ROADMAP.md, queue 1).
+Ported so far: training on the host pipeline (``kg.fit``, the paper's SGD
+and BGD paradigms with simulated workers and the dense Reduce) and the
+serving and evaluation path — ``KnowledgeBase`` save / load, top-k
+queries, and the paper's three-task evaluation.  The reference's two
+Pallas kernels are hand-written CUDA kernels for Hopper: the
+entity-ranking sweep (``kernels/rank_topk.py``) and TransE's training
+step, forward and backward (``kernels/transe_score.py``).  What is not
+ported yet raises, naming its item in ROADMAP.md queue 1.
 
 Entry points that create tensors take a ``device``; left out, it is the
 current CUDA device, and without a GPU they raise (:func:`resolve_device`)

@@ -12,10 +12,13 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from repro_torch.core.models.base import (  # noqa: F401  (re-exported API)
+    EpochStats,
     KGConfig,
     KGModel,
     Params,
+    apply_gradients,
     dissimilarity,
+    pairwise_hinge,
 )
 from repro_torch.core.models.transe import TransE
 

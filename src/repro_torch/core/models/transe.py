@@ -8,7 +8,9 @@ The closed-form scorers build the per-query vector once (``q = h + r`` for
 the tail side, ``t - r`` for the head side) and sweep the entity table one
 embedding column at a time (``base.seq_distance``), so a ``(B, E)`` score
 matrix never passes through a ``(B, E, k)`` tensor.  ``fused_rank_counts``
-hands the sweep to the CUDA rank kernel (``kernels/rank_topk.py``).
+hands the sweep to the CUDA rank kernel (``kernels/rank_topk.py``), and
+``fused_pair_loss`` / ``fused_margin_loss`` the training step to the
+``transe_score`` kernels (``kernels/transe_score.py``).
 """
 from __future__ import annotations
 
@@ -29,15 +31,14 @@ class TransE(base.KGModel):
                     device=None) -> Params:
         """Uniform(-6/sqrt(k), 6/sqrt(k)) init; relations L2-normalized once
         (TransE Algorithm 1, lines 1-4).  Draws entities then relations
-        from ``generator`` (a CPU ``torch.Generator``)."""
+        from ``generator`` (a CPU ``torch.Generator``); the same bits on
+        every device."""
         device = resolve_device(device)
         ent = base.uniform_table(
             generator, cfg.n_entities, cfg.dim, cfg.dtype, device)
         rel = base.uniform_table(
             generator, cfg.n_relations, cfg.dim, cfg.dtype, device)
-        rel = rel / (torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
-                     + 1e-12)
-        return {"ent": ent, "rel": rel}
+        return {"ent": ent, "rel": base.unit_rows(rel)}
 
     def energy(
         self, params: Params, triplets: torch.Tensor, norm: str = "l1"
@@ -80,6 +81,22 @@ class TransE(base.KGModel):
         cols = params["rel"].t()                           # (k, R) view
         return seq_distance(
             lambda j: hmt[:, j, None] + cols[j][None, :], hmt.shape[1], norm)
+
+    # -- fused kernels (late imports: kernels/ops imports this package) -----
+
+    def fused_pair_loss(self, params: Params, pos, neg, *, margin: float,
+                        norm: str) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        return ops.transe_pair_loss(params, pos, neg, margin=margin,
+                                    norm=norm)
+
+    def fused_margin_loss(self, params: Params, pos, neg, *, margin: float,
+                          norm: str) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        return ops.transe_margin_loss(params, pos, neg, margin=margin,
+                                      norm=norm)
 
     def fused_rank_counts(
         self, params: Params, triplets: torch.Tensor, side: str, *,

@@ -5,12 +5,16 @@ numpy arrays, with the lazily built known-triplet structures both
 evaluation engines filter with.  ``synthetic_kg`` generates a graph whose
 triplets satisfy the TransE assumption ``z_h + g_r ≈ z_t`` by
 construction; ``load_tsv_dir`` reads the FB15k / WN18 release layout.
+The partitioners split the training triplets into the paper's balanced
+worker subsets, and ``epoch_batches`` cuts each epoch's minibatches.
 
 Everything here is numpy and byte-for-byte the reference's arithmetic, so
 the same arguments give the same arrays in both packages (the reference
 module imports jax, which is why the port keeps its own copy).  The one
 random draw that differs is ``KG.tc_negatives``: the reference draws with
-``jax.random``, the port with a seeded ``torch.Generator``.
+``jax.random``, the port with a seeded ``torch.Generator``.  ``KG.extend``
+and the on-device batching (``device_*``) are not ported yet (ROADMAP.md
+queue 1, items 14 and 9).
 """
 from __future__ import annotations
 
@@ -275,3 +279,131 @@ def synthetic_kg(
         triplets[n_valid + n_test :],
     )
     return KG(n_entities, n_relations, train, valid, test)
+
+
+# ---------------------------------------------------------------------------
+# Balanced partitioning (the paper's "several balanced subsets")
+# ---------------------------------------------------------------------------
+
+def partition_balanced(
+    seed: int, triplets: np.ndarray, n_workers: int
+) -> np.ndarray:
+    """Shuffle + round-robin split into ``n_workers`` equal subsets: a
+    dense ``(W, N//W, 3)`` array (the tail remainder is dropped so every
+    worker takes identical step counts, the paper's balance requirement)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(len(triplets))
+    per = len(triplets) // n_workers
+    idx = perm[: per * n_workers].reshape(n_workers, per)
+    return triplets[idx]
+
+
+def partition_stratified(
+    seed: int, triplets: np.ndarray, n_workers: int
+) -> np.ndarray:
+    """Relation-stratified balanced split: each worker sees (about) the
+    full relation distribution."""
+    rng = np.random.default_rng(seed)
+    order = np.lexsort((rng.random(len(triplets)), triplets[:, 1]))
+    per = len(triplets) // n_workers
+    chunks = [order[w::n_workers][:per] for w in range(n_workers)]
+    return triplets[np.stack(chunks)]
+
+
+def entity_degrees(triplets: np.ndarray, n_entities: int) -> np.ndarray:
+    """Per-entity degree (head + tail occurrences) over a triplet set."""
+    t = np.asarray(triplets)
+    deg = np.bincount(t[:, 0], minlength=n_entities)
+    deg += np.bincount(t[:, 2], minlength=n_entities)
+    return deg[:n_entities].astype(np.int64)
+
+
+def triplet_strata(
+    triplets: np.ndarray, n_entities: int, n_buckets: int = 8
+) -> np.ndarray:
+    """Quantile-bucket each triplet by its degree score ``deg[h] + deg[t]``
+    (int32 labels, ``(N,)``): the strata of the degree-stratified
+    partitioner.  Bucket edges are quantiles of this triplet set's scores,
+    so the labels are a pure function of the triplets."""
+    t = np.asarray(triplets)
+    if len(t) == 0:
+        return np.zeros((0,), np.int32)
+    deg = entity_degrees(t, n_entities)
+    score = deg[t[:, 0]] + deg[t[:, 2]]
+    edges = np.quantile(score, np.linspace(0, 1, n_buckets + 1)[1:-1])
+    return np.searchsorted(edges, score, side="right").astype(np.int32)
+
+
+def partition_degree_stratified(
+    seed: int, triplets: np.ndarray, n_workers: int, n_buckets: int = 8
+) -> np.ndarray:
+    """Degree-stratified balanced split: shuffle within each degree stratum
+    (:func:`triplet_strata`) and deal the strata round-robin, so every
+    worker gets the same hub/tail-entity mix."""
+    t = np.asarray(triplets)
+    n_entities = int(t[:, [0, 2]].max()) + 1 if len(t) else 0
+    strata = triplet_strata(t, n_entities, n_buckets)
+    rng = np.random.default_rng(seed)
+    order = np.lexsort((rng.random(len(t)), strata))
+    per = len(t) // n_workers
+    chunks = [order[w::n_workers][:per] for w in range(n_workers)]
+    return t[np.stack(chunks)]
+
+
+def partition_overlap_min(
+    seed: int, triplets: np.ndarray, n_workers: int
+) -> np.ndarray:
+    """Overlap-minimizing balanced split (greedy streaming): each triplet
+    goes to the worker already holding the most triplets on its head and
+    tail entities, minus a load penalty, under a hard cap of ``N // W`` per
+    worker; ties go to the lowest worker id.  O(N·W) on the host."""
+    t = np.asarray(triplets)
+    rng = np.random.default_rng(seed)
+    n_entities = int(t[:, [0, 2]].max()) + 1 if len(t) else 0
+    per = len(t) // n_workers
+    aff = np.zeros((n_entities, n_workers), np.float64)
+    load = np.zeros(n_workers, np.int64)
+    chunks: list = [[] for _ in range(n_workers)]
+    assigned = 0
+    for i in rng.permutation(len(t)):
+        if assigned == per * n_workers:
+            break
+        h, tl = int(t[i, 0]), int(t[i, 2])
+        score = aff[h] + aff[tl] - load / max(per, 1)
+        score[load >= per] = -np.inf
+        w = int(np.argmax(score))
+        chunks[w].append(i)
+        aff[h, w] += 1.0
+        aff[tl, w] += 1.0
+        load[w] += 1
+        assigned += 1
+    return t[np.array(chunks, dtype=np.int64)]
+
+
+#: Host partitioner registry: ``MapReduceConfig.partition`` values.
+PARTITIONERS = {
+    "balanced": partition_balanced,
+    "stratified": partition_stratified,
+    "degree": partition_degree_stratified,
+    "overlap": partition_overlap_min,
+}
+
+
+def epoch_batches(
+    seed: int,
+    epoch: int,
+    partitioned: np.ndarray,     # (W, N_w, 3)
+    batch_size: int,
+) -> np.ndarray:
+    """Deterministic minibatches for one epoch, ``(W, S, B, 3)`` int32: a
+    pure function of (seed, epoch).  ``S = N_w // batch_size``; the
+    trailing ``N_w % batch_size`` triplets of each worker's permutation sit
+    out of the epoch, and the per-epoch reshuffle rotates which."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+    W, N_w, _ = partitioned.shape
+    S = N_w // batch_size
+    out = np.empty((W, S, batch_size, 3), np.int32)
+    for w in range(W):
+        perm = rng.permutation(N_w)[: S * batch_size]
+        out[w] = partitioned[w][perm].reshape(S, batch_size, 3)
+    return out

@@ -22,7 +22,8 @@ CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
 
 #: kernel library name -> its source under csrc/
-SOURCES = {"rank_topk": "rank_topk.cu"}
+SOURCES = {"rank_topk": "rank_topk.cu",
+           "transe_score": "transe_score.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

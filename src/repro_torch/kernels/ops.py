@@ -1,13 +1,114 @@
-"""Model-aware dispatch onto the port's kernels (port of the evaluation
-half of ``repro.kernels.ops``).
+"""Model-aware dispatch onto the port's kernels (port of
+``repro.kernels.ops``).
 
-Models with a fused path (``supports_fused_kernel``, currently TransE)
-rank through the CUDA rank kernel; every other model scores candidates
-with its plain PyTorch ``candidate_energies``.
+Training: models with a fused path (``supports_fused_kernel``, currently
+TransE) take their margin loss through the ``transe_score`` kernels —
+forward and closed-form backward, as a ``torch.autograd.Function`` — and
+every other model takes torch autograd of its plain ``per_pair_loss``.
+CUDA tables launch the kernels; CPU tables take their plain versions.
+
+Evaluation: fused models rank through the CUDA rank kernel; every other
+model scores candidates with its plain PyTorch ``candidate_energies``.
+
+Batches may carry a leading worker axis: ``(W, B, 3)`` triplets against
+stacked ``(W, N, k)`` tables (see ``kernels/transe_score.py``), and the
+losses then carry it too.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.models import Params, get_model
+from repro_torch.kernels import transe_score as ts
+
+# ---------------------------------------------------------------------------
+# Fused TransE margin loss (training path)
+# ---------------------------------------------------------------------------
+
+
+def _pack_idx(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """``[h, r, t, nh, nt]`` int32 rows from ``(..., 3)`` pos/neg triplets
+    (a corruption keeps the relation)."""
+    return torch.stack([pos[..., 0], pos[..., 1], pos[..., 2],
+                        neg[..., 0], neg[..., 2]], dim=-1).to(torch.int32)
+
+
+class _FusedPairLoss(torch.autograd.Function):
+    """Per-pair hinge whose forward is the ``transe_score`` kernel and whose
+    backward is the ``transe_score_bwd`` kernel, fed the upstream gradient
+    of each pair (a mean over B arrives as ``g / B`` per pair, as in the
+    reference's ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, ent, rel, idx, margin, norm):
+        loss, d_pos, d_neg = ts.transe_score(
+            ent, rel, idx, margin=margin, norm=norm)
+        ctx.save_for_backward(ent, rel, idx, loss, d_pos, d_neg)
+        ctx.norm = norm
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        ent, rel, idx, loss, d_pos, d_neg = ctx.saved_tensors
+        d_ent, d_rel = ts.transe_score_bwd(
+            ent, rel, idx, g.float().contiguous(), loss, d_pos, d_neg,
+            norm=ctx.norm)
+        return d_ent, d_rel, None, None, None
+
+
+def fused_pair_loss(ent, rel, idx, margin: float, norm: str) -> torch.Tensor:
+    """Differentiable per-pair hinge ``idx.shape[:-1]`` through the
+    kernels."""
+    return _FusedPairLoss.apply(ent, rel, idx, margin, norm)
+
+
+def fused_margin_loss(ent, rel, idx, margin: float, norm: str
+                      ) -> torch.Tensor:
+    """Mean hinge over the batch axis (the reference's
+    ``fused_margin_loss``), differentiable through the kernels."""
+    return fused_pair_loss(ent, rel, idx, margin, norm).mean(-1)
+
+
+def transe_pair_loss(params: Params, pos, neg, *, margin: float = 1.0,
+                     norm: str = "l1") -> torch.Tensor:
+    """Fused replacement for TransE's ``per_pair_loss``."""
+    return fused_pair_loss(params["ent"], params["rel"], _pack_idx(pos, neg),
+                           margin, norm)
+
+
+def transe_margin_loss(params: Params, pos, neg, *, margin: float = 1.0,
+                       norm: str = "l1") -> torch.Tensor:
+    """Fused replacement for TransE's ``margin_loss``."""
+    return fused_margin_loss(params["ent"], params["rel"],
+                             _pack_idx(pos, neg), margin, norm)
+
+
+def kg_pair_loss(model, params: Params, pos, neg, *, margin: float = 1.0,
+                 norm: str = "l1") -> torch.Tensor:
+    """Model-dispatched per-pair hinge, differentiable: fused models take
+    their kernels (``fused_pair_loss``), others their plain
+    ``per_pair_loss``."""
+    model = get_model(model)
+    if model.supports_fused_kernel:
+        return model.fused_pair_loss(params, pos, neg, margin=margin,
+                                     norm=norm)
+    return model.per_pair_loss(params, pos, neg, margin=margin, norm=norm)
+
+
+def kg_margin_loss(model, params: Params, pos, neg, *, margin: float = 1.0,
+                   norm: str = "l1") -> torch.Tensor:
+    """Model-dispatched mean margin loss (``fused_margin_loss`` or
+    ``margin_loss``), differentiable."""
+    model = get_model(model)
+    if model.supports_fused_kernel:
+        return model.fused_margin_loss(params, pos, neg, margin=margin,
+                                       norm=norm)
+    return model.margin_loss(params, pos, neg, margin=margin, norm=norm)
+
+
+# ---------------------------------------------------------------------------
+# Entity-inference ranking (evaluation path)
+# ---------------------------------------------------------------------------
 
 
 def fused_eval_available(model, params: Params) -> bool:

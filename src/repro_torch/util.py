@@ -6,11 +6,85 @@ registry that lives for the whole *process*: a data-quality warning (the
 ``max_fanout`` eval truncation in ``data/kg.KG``) would fire for the first
 evaluation and be swallowed for every later one in the same process, even
 though each drops its own counts.  These are once-per-*call* reports.
+
+``ordered_index_add`` exists because ``index_add_`` on a CUDA tensor adds
+with float atomics, in an order that changes from run to run; ``sqrt_rn``
+because ``torch.sqrt`` of a float32 CPU tensor is not always correctly
+rounded (about 0.6 % of inputs come out one ulp off), while the card's and
+the CUDA kernels' (``__fsqrt_rn``) are.
 """
 from __future__ import annotations
 
 import sys
 import warnings
+
+import torch
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(x)`` correctly rounded to ``x``'s dtype on every device: the
+    root taken in float64 and rounded once to float32 is the correctly
+    rounded float32 root (float64 carries more than twice float32's bits),
+    the same bits as ``__fsqrt_rn`` on the card."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def exact_div(x: torch.Tensor, n) -> torch.Tensor:
+    """``x / n`` for a Python number ``n``, one correctly rounded division
+    on every device (a CUDA tensor divided by a Python scalar is multiplied
+    by its reciprocal instead, which differs in the last bit unless ``n``
+    is a power of two)."""
+    return x / torch.tensor(n, dtype=x.dtype, device=x.device)
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error an option of the reference that the port lacks raises,
+    naming the ROADMAP.md item that ports it."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
+        f"item {item})")
+
+
+def worker_offsets(ids: torch.Tensor, *sizes: int) -> tuple:
+    """For stacked ``(W, B, c)`` ids, one ``(W, 1)`` offset ``w·N`` per
+    table size ``N``: worker ``w``'s id plus its offset is its row of a
+    stacked ``(W, N, k)`` table viewed as ``(W·N, k)``.  This flat layout
+    lets one kernel launch, or one plain gather, serve all W workers, each
+    on its own rows."""
+    w = torch.arange(ids.shape[0], device=ids.device)[:, None]
+    return tuple(w * n for n in sizes)
+
+
+def ordered_index_add(
+    target: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor
+) -> torch.Tensor:
+    """``target`` with ``vals[i]`` added to row ``rows[i]`` for every ``i``,
+    out of place, each row's additions taken one at a time in the order of
+    ``rows`` (a sequential scatter-add, one rounding per addition), on any
+    device: the same bits on every run and on the CPU and the card.
+
+    The rows are sorted stably; pass ``p`` adds the ``p``-th contribution
+    of every row at once, so there are as many passes as the largest
+    number of contributions to one row."""
+    out = target.clone()
+    n = rows.numel()
+    if n == 0:
+        return out
+    srows, order = torch.sort(rows.reshape(-1), stable=True)
+    svals = vals.reshape((n,) + vals.shape[rows.dim():])[order]
+    pos = torch.arange(n, device=rows.device)
+    first = torch.ones(n, dtype=torch.bool, device=rows.device)
+    first[1:] = srows[1:] != srows[:-1]
+    seg_start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = pos - seg_start                  # place of i within its row's run
+    by_rank = torch.sort(rank, stable=True).indices
+    lo = 0
+    for c in torch.bincount(rank).tolist():
+        sel = by_rank[lo:lo + c]            # rows distinct within one pass
+        r = srows[sel]
+        out[r] = out[r] + svals[sel]
+        lo += c
+    return out
 
 
 def warn_fresh(msg: str, category: type = UserWarning,

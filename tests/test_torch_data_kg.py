@@ -124,3 +124,44 @@ def test_tc_negatives_port_draws(graphs):
             neg[:, 2] != pos[:, 2])
         np.testing.assert_array_equal(changed, 1)
         assert neg.min() >= 0 and neg[:, (0, 2)].max() < port.n_entities
+
+
+@pytest.mark.parametrize("name", sorted(ref_kg_lib.PARTITIONERS))
+@pytest.mark.parametrize("n_workers", [1, 3, 4])
+def test_partitioners_exact(graphs, name, n_workers):
+    """Every host partitioner splits the same triplets the same way."""
+    ref, _ = graphs
+    assert set(port_kg_lib.PARTITIONERS) == set(ref_kg_lib.PARTITIONERS)
+    want = ref_kg_lib.PARTITIONERS[name](5, ref.train, n_workers)
+    got = port_kg_lib.PARTITIONERS[name](5, ref.train, n_workers)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype
+    assert got.shape == (n_workers, len(ref.train) // n_workers, 3)
+
+
+@pytest.mark.parametrize("n_buckets", [2, 8])
+def test_degrees_and_strata_exact(graphs, n_buckets):
+    ref, _ = graphs
+    E = ref.n_entities
+    np.testing.assert_array_equal(
+        port_kg_lib.entity_degrees(ref.train, E),
+        ref_kg_lib.entity_degrees(ref.train, E))
+    got = port_kg_lib.triplet_strata(ref.train, E, n_buckets)
+    want = ref_kg_lib.triplet_strata(ref.train, E, n_buckets)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype == np.int32
+    assert port_kg_lib.triplet_strata(ref.train[:0], E).shape == (0,)
+
+
+@pytest.mark.parametrize("seed,epoch,batch_size", [(0, 0, 64), (0, 3, 64),
+                                                   (7, 1, 100)])
+def test_epoch_batches_exact(graphs, seed, epoch, batch_size):
+    """Batches are a pure function of (seed, epoch), equal in both
+    packages."""
+    ref, _ = graphs
+    part = ref_kg_lib.partition_balanced(seed, ref.train, 3)
+    want = ref_kg_lib.epoch_batches(seed, epoch, part, batch_size)
+    got = port_kg_lib.epoch_batches(seed, epoch, part, batch_size)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+    assert got.shape == (3, part.shape[1] // batch_size, batch_size, 3)

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import convert, resolve_device
+from repro_torch import convert, kg, resolve_device
 from repro_torch.core import models
+from repro_torch.data import kg as kg_data
 from repro_torch.kb import KnowledgeBase
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -42,7 +43,7 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    assert len(_port_modules()) >= 17
+    assert len(_port_modules()) >= 26
 
 
 def _imports(path):
@@ -87,3 +88,9 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KnowledgeBase.load(str(tmp_path))
     assert KnowledgeBase.load(str(tmp_path), device="cpu").n_entities == 4
+    graph = kg_data.synthetic_kg(0, n_entities=40, n_relations=2,
+                                 n_triplets=200)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kg.fit(graph, epochs=1, dim=4, batch_size=16, n_workers=2)
+    assert kg.fit(graph, epochs=1, dim=4, batch_size=16, n_workers=2,
+                  device="cpu").kb.params["ent"].device.type == "cpu"

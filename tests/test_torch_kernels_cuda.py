@@ -10,10 +10,11 @@ on a machine that has only PyTorch:
 import pytest
 import torch
 
+from repro_torch import kg
 from repro_torch.core import eval_device
 from repro_torch.core.models import KGConfig, get_model
 from repro_torch.data import kg as kg_data
-from repro_torch.kernels import ref, rank_topk
+from repro_torch.kernels import ref, rank_topk, transe_score
 
 
 @pytest.fixture
@@ -79,3 +80,144 @@ def test_device_eval_through_the_kernel(cuda):
                                             fused=False)
     for side in ("tail", "head"):
         assert (fused["raw_ranks"][side] == plain["raw_ranks"][side]).all()
+
+
+def _transe_inputs(dev, W, B, E, R, k, dtype, seed, hot=0):
+    """Stacked ``(W, E, k)`` tables (``W = 0``: unstacked) and ``(W, B, 5)``
+    ids; ``hot > 0`` draws entity ids from the first ``hot`` rows only, so
+    each of those rows collects many contributions (the scatter's hard
+    case)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lead = (W,) if W else ()
+    ent = torch.randn(*lead, E, k, generator=g, device=dev).to(dtype)
+    rel = torch.randn(*lead, R, k, generator=g, device=dev).to(dtype)
+    hi = hot or E
+    cols = [torch.randint(0, n, (*lead, B), generator=g, device=dev)
+            for n in (hi, R, hi, hi, hi)]
+    idx = torch.stack(cols, dim=-1).to(torch.int32).contiguous()
+    return ent, rel, idx
+
+
+def _assert_bitwise(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                  else torch.int32),
+                           b.view(torch.int16 if b.element_size() == 2
+                                  else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["l1", "l2"])
+@pytest.mark.parametrize("W,B,E,R,k,hot", [
+    (0, 77, 1000, 13, 50, 0),       # ragged batch (not a multiple of 32)
+    (0, 1, 64, 3, 7, 0),            # one triplet, k = 7
+    (0, 40, 300, 5, 256, 0),        # the widest k
+    (0, 500, 400, 4, 50, 3),        # three hot rows: long scatter runs
+    (4, 256, 2000, 30, 50, 0),      # stacked workers, the main path's shape
+])
+def test_transe_score_matches_plain(cuda, W, B, E, R, k, hot, norm, dtype):
+    """Forward and backward equal their plain versions bitwise: the same
+    fp32 operations in the same order, each row's scatter summed in the
+    order of ``ref.scatter_rows``; two backward runs give the same bits."""
+    ent, rel, idx = _transe_inputs(cuda, W, B, E, R, k, dtype, B + E + k,
+                                   hot)
+    before = (transe_score.transe_score.launches,
+              transe_score.transe_score_bwd.launches)
+    fwd = transe_score.transe_score(ent, rel, idx, margin=2.0, norm=norm)
+    if B > 1:                       # both active and inactive hinges
+        assert 0.2 < float((fwd[0] > 0).float().mean()) < 1
+    g = torch.full(idx.shape[:-1], 1.0 / B, device=cuda)
+    bwd = transe_score.transe_score_bwd(ent, rel, idx, g, *fwd, norm=norm)
+    again = transe_score.transe_score_bwd(ent, rel, idx, g, *fwd, norm=norm)
+    torch.cuda.synchronize()
+    assert (transe_score.transe_score.launches,
+            transe_score.transe_score_bwd.launches) == (
+                before[0] + 1, before[1] + 2)
+    _assert_bitwise(fwd, ref.transe_score_ref(ent, rel, idx, 2.0, norm))
+    _assert_bitwise(bwd, ref.transe_score_bwd_ref(ent, rel, idx, g, *fwd,
+                                                  norm))
+    _assert_bitwise(bwd, again)
+
+
+@pytest.mark.cuda
+def test_transe_score_bwd_writes_every_row(cuda):
+    """The backward writes every row of its gradients, +0.0 where no
+    triplet references one: memory the allocator hands back full of NaN
+    does not show through."""
+    ent, rel, idx = _transe_inputs(cuda, 2, 8, 3000, 40, 16, torch.float32,
+                                   9)
+    fwd = transe_score.transe_score(ent, rel, idx, norm="l1")
+    g = torch.full(idx.shape[:-1], 1.0 / 8, device=cuda)
+    want = ref.transe_score_bwd_ref(ent, rel, idx, g, *fwd, "l1")
+    torch.cuda.synchronize()
+    poison = [torch.full_like(t, float("nan")) for t in want]
+    del poison                      # the blocks go back to the allocator
+    got = transe_score.transe_score_bwd(ent, rel, idx, g, *fwd)
+    _assert_bitwise(got, want)
+    assert int((got[0] != 0).any(-1).sum()) <= 2 * 8 * 4
+
+
+@pytest.mark.cuda
+def test_transe_score_shared_table_per_worker_grads(cuda):
+    """A table expanded over workers with stride 0 (BGD) is read by every
+    worker and gives each worker's gradient in its own slice."""
+    ent, rel, idx = _transe_inputs(cuda, 3, 64, 200, 6, 16, torch.float32, 5)
+    ent, rel = ent[0], rel[0]
+    wide = (ent.expand(3, *ent.shape), rel.expand(3, *rel.shape))
+    fwd = transe_score.transe_score(*wide, idx, norm="l1")
+    g = torch.full(idx.shape[:-1], 1.0 / 64, device=cuda)
+    d_ent, d_rel = transe_score.transe_score_bwd(*wide, idx, g, *fwd)
+    for w in range(3):
+        one = transe_score.transe_score(ent, rel, idx[w], norm="l1")
+        _assert_bitwise(one, [t[w] for t in fwd])
+        _assert_bitwise(transe_score.transe_score_bwd(
+            ent, rel, idx[w], g[w], *one), (d_ent[w], d_rel[w]))
+
+
+@pytest.mark.cuda
+def test_transe_score_rejects_what_it_does_not_take(cuda):
+    ent, rel, idx = _transe_inputs(cuda, 0, 8, 20, 4, 8, torch.float32, 1)
+    with pytest.raises(ValueError, match="CPU"):
+        transe_score.transe_score(ent, rel.cpu(), idx)
+    with pytest.raises(TypeError, match="int32"):
+        transe_score.transe_score(ent, rel, idx.long())
+    with pytest.raises(IndexError, match="outside"):
+        transe_score.transe_score(ent, rel, idx * 10)
+    with pytest.raises(ValueError, match="k in"):
+        wide = torch.zeros(20, 257, device=cuda)
+        transe_score.transe_score(wide, torch.zeros(4, 257, device=cuda),
+                                  idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paradigm", ["sgd", "bgd"])
+def test_fit_trains_through_the_kernels(cuda, paradigm):
+    """``kg.fit`` on the card goes through both kernels, once per step each
+    (all workers in one launch), and matches the CPU run of the same draws:
+    the CPU takes the plain versions, whose scatter sums agree bitwise but
+    whose norms, means and merges run PyTorch's CPU reductions, so the two
+    agree to float32 rounding, 1e-5."""
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    kw = dict(dim=32, batch_size=128, n_workers=4, epochs=2, seed=3)
+    before = (transe_score.transe_score.launches,
+              transe_score.transe_score_bwd.launches)
+    card = kg.fit(graph, paradigm=paradigm, **kw)
+    steps = 2 * (len(graph.train) // 4 // 128)
+    assert (transe_score.transe_score.launches - before[0],
+            transe_score.transe_score_bwd.launches - before[1]) == (
+                steps, steps)
+    host = kg.fit(graph, paradigm=paradigm, device="cpu", **kw)
+    assert card.kb.params["ent"].is_cuda
+    for name in host.params:
+        torch.testing.assert_close(card.params[name].cpu(),
+                                   host.params[name], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(torch.tensor(card.loss_history),
+                               torch.tensor(host.loss_history),
+                               rtol=1e-5, atol=1e-5)
+    again = kg.fit(graph, paradigm=paradigm, **kw)
+    for name in card.params:
+        assert torch.equal(card.params[name], again.params[name])
+    assert card.loss_history == again.loss_history

@@ -14,7 +14,8 @@
    E = 1,000,000); library call ``torch.cdist`` + compare + sum, split in
    two calls at E = 1e6, whose 4.1e9 outputs one call's grid cannot hold.
    ``transe_score`` forward and backward (kernel times from
-   ``torch.profiler``, as the wrappers sync for their id checks): equal
+   ``torch.profiler``, as the wrappers sync for their id checks; the
+   backward's is the sum of its two kernels per call): equal
    bits (max_abs_err 0), L1 and
    L2, fp32 and bf16, at the training step's shape (4 workers x 256
    triplets over the stacked FB15k tables, 4 x 14,951 entity rows) and at
@@ -80,6 +81,10 @@ SGD_EPOCHS, BGD_EPOCHS = 4, 3
 # 2 * lr / B = 7.8e-5: params within 1e-4, loss within rtol 1e-5.
 CPU_EPOCH_PARAM_TOL, CPU_EPOCH_LOSS_RTOL = 1e-4, 1e-5
 DEVICE = "cuda"
+# the CUDA kernels of each transe_score wrapper call, timed as their sum
+TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
+                  "bwd": ("transe_score_bwd_grads_kernel",
+                          "transe_score_bwd_rows_kernel")}
 # NVIDIA H100 data sheet, dense: fp32 outside the tensor cores, HBM rate
 PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100": (67e12, 3.35e12)}
 
@@ -121,12 +126,13 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(torch, fn, reps, name):
-    """Mean device milliseconds of one launch of the CUDA kernel whose name
-    holds ``name``, over ``reps`` calls of ``fn`` (``torch.profiler``,
-    device activity only; one warm-up call first).  The mean is over the
-    launches the profiler recorded: it has been seen to drop a few of 50
-    records.  Fails if it recorded none, or more than one per call."""
+def kernel_ms(torch, fn, reps, names):
+    """Device milliseconds per call of ``fn`` in each CUDA kernel whose name
+    holds one of ``names``, ``{name: ms}``, over ``reps`` calls
+    (``torch.profiler``, device activity only; one warm-up call first):
+    for each name the mean over the launches the profiler recorded (it has
+    been seen to drop a few of 50 records).  Fails if it recorded no launch
+    of a name, or more than one per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -135,17 +141,20 @@ def kernel_ms(torch, fn, reps, name):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                name in ev.key:
-            us += getattr(ev, "self_device_time_total", None) or \
-                ev.self_cuda_time_total
-            count += ev.count
-    if not 0 < count <= reps:
-        fail(f"the profiler saw {count} launches of {name!r} in {reps} "
-             "calls")
-    return us / 1e3 / count
+    out = {}
+    for name in names:
+        us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                    name in ev.key:
+                us += getattr(ev, "self_device_time_total", None) or \
+                    ev.self_cuda_time_total
+                count += ev.count
+        if not 0 < count <= reps:
+            fail(f"the profiler saw {count} launches of {name!r} in {reps} "
+                 "calls")
+        out[name] = us / 1e3 / count
+    return out
 
 
 def profile_busy(torch, fn):
@@ -387,12 +396,14 @@ def transe_kernel_phase(torch, rates):
                     "bwd_max_abs_err": max_err(bwd, want_b),
                     "bwd_bitwise": all(map(bits_equal, bwd, want_b)),
                     "bwd_repeat_bitwise": all(map(bits_equal, bwd, bwd2)),
-                    "fwd_ms": kernel_ms(torch, lambda: ts.transe_score(
+                    "fwd_ms": sum(kernel_ms(torch, lambda: ts.transe_score(
                         ent, rel, idx, margin=1.0, norm=norm), reps,
-                        "transe_score_fwd_kernel"),
-                    "bwd_ms": kernel_ms(torch, lambda: ts.transe_score_bwd(
-                        ent, rel, idx, gs, *fwd, norm=norm), reps,
-                        "transe_score_bwd_kernel"),
+                        TRANSE_KERNELS["fwd"]).values()),
+                    # the backward's kernels, each per call, and their sum
+                    "bwd_kernels_ms": kernel_ms(
+                        torch, lambda: ts.transe_score_bwd(
+                            ent, rel, idx, gs, *fwd, norm=norm), reps,
+                        TRANSE_KERNELS["bwd"]),
                     # the wrappers' calls: id range checks (one host sync
                     # each) and the backward's sorts included
                     "fwd_call_ms": cuda_ms(torch, lambda: ts.transe_score(
@@ -410,7 +421,10 @@ def transe_kernel_phase(torch, rates):
                     "bwd_library_ms": cuda_ms(torch, lib_b, reps),
                     "fwd_bound_ms": fb, "fwd_bound_by": fby,
                     "bwd_bound_ms": bb, "bwd_bound_by": bby,
+                    # the backward's per-triplet (n, 2, k) fp32 gu, gv
+                    "bwd_scratch_bytes": n * 2 * DIM * 4,
                 }
+                case["bwd_ms"] = sum(case["bwd_kernels_ms"].values())
                 print("transe_score " + json.dumps(case), flush=True)
                 cases.append(case)
                 del fwd, bwd, bwd2, want_f, want_b, lib_f, lib_b
@@ -769,6 +783,7 @@ def main():
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/transe_score.cu",
             "replaces": replaces, "launches": n,
+            "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
             "bound_ms": step[f"{key}_bound_ms"],

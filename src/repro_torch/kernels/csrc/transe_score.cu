@@ -22,11 +22,12 @@
 // one table shared by all, as BGD's is) and scatters into rows w*N + id of
 // a dense (W, N, k) gradient.  One launch serves all W workers.
 //
-// What bounds it on an H100: bytes.  The forward reads five k-rows per
-// triplet and writes three floats, about 0.2 operations per byte at k = 50,
-// far under the card's fp32 ridge (~20 per byte); the backward also writes
-// every row of the dense gradient.  The designs below keep the loads
-// coalesced; they are simple first, and not yet fast.
+// What bounds it on an H100: bytes, gathered.  The forward reads five
+// k-rows per triplet and writes three floats, about 0.2 operations per
+// byte at k = 50, far under the card's fp32 ridge (~20 per byte); the
+// backward also writes every row of the dense gradient.  The rows are
+// gathered at random, so the designs below are about keeping many
+// independent loads in flight: no load waits on another that it need not.
 //
 // Exactness.  Sums run over j = 0 .. k-1 in order with __fadd_rn /
 // __fmul_rn / __fdiv_rn / __fsqrt_rn (and --fmad=false), the operations of
@@ -34,37 +35,85 @@
 // in the same order, so on the card the two agree bitwise; a warp-tree
 // reduction would not.
 //
-// Forward: a warp takes 32 triplets.  For each group of 32 columns its
-// lanes load the five rows of one triplet at a time, coalesced (lane j reads
-// column j), form u_j and v_j elementwise and stage them in shared memory;
-// then each lane sums its own triplet's staged columns in order.
+// Forward: a block takes tiles of `tile` triplets, tile = ceil(n / SMs) up
+// to 32, so a training step (1,024 triplets) spreads over every SM; the
+// grid is the SM count times the blocks an SM holds at once, each block
+// walking tiles.  Per tile: the block's threads load the tile's 5 * tile
+// ids into shared memory, coalesced, as each row's element offset (worker
+// stride included); the (triplet, column) grid is spread over all 256
+// threads, each loading V columns of the five rows at once (V elements of
+// 16 bytes or less, as the rows' alignment allows; V = 1 otherwise, e.g.
+// bf16 rows at odd k) and staging u and v in shared memory; then two
+// threads per triplet sum u and v over j in order.
 //
-// Backward: no float atomics, whose order changes from run to run.  The
-// wrapper sorts the scatter rows stably (entity contributions in the order
-// [h..., t..., nh..., nt...] over all triplets, relation contributions in
-// triplet order).  A warp owns a few consecutive rows of the dense gradient
-// (entity rows first, then relation rows): as many as hold about one
-// contribution in all, 1 to 8, so a step's sparse gradient takes a wave of
-// warps and a hot row is walked alone.  The warp finds its first row's run
-// in the sorted list with a 32-way search; for each of its rows it walks
-// the row's run in order, recomputing each contribution's gu / gv from the
-// five rows, adds them one at a time into per-lane column accumulators
-// (lane j holds columns j, j + 32, ...), and writes the row: exactly +0.0
-// where no triplet references it.  Every row is written once, by this
-// kernel, so the gradient needs no zero-fill.
+// Backward: no float atomics, whose order changes from run to run.  Two
+// launches, the plain version's two stages.  Phase 1, per triplet, writes
+// gu and gv once into an fp32 (n, 2, k) scratch, with the forward's tiles
+// and vector loads.  Phase 2, per gradient row, adds the contributions in
+// order: the wrapper sorts the scatter rows stably (entity contributions in
+// the order [h..., t..., nh..., nt...] over all triplets, relation
+// contributions in triplet order), and a warp owns up to 32 consecutive
+// rows of the dense gradient, about 128 contributions' worth; the
+// relation rows' warps come first, as their runs are the long ones.  The
+// warp finds its first row's run with a 32-way search, then walks its
+// rows' contributions 32 at a time: the lanes read 32 sorted rows and
+// contribution ids at once (the next 32 loaded ahead), then the scratch
+// rows of 16 / C contributions are loaded, all in flight, before their
+// in-order adds into per-lane column accumulators (lane j holds columns
+// j, j + 32, ...; C per lane).  A contribution is one scratch row (+-gu or
+// +-gv) or, for a relation, two (gu + gv).  Every row is written once,
+// exactly +0.0 where no triplet references it, so the gradient needs no
+// zero-fill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
-constexpr int kWarps = 4;                  // warps per block
+constexpr int kTileThreads = 256;          // threads of a tiled block
+constexpr int kMaxTile = 32;               // triplets per tile
+constexpr int kSmemBudget = 48 * 1024;     // static + dynamic, no opt-in
+constexpr int kWarps = 4;                  // warps per phase-2 block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = 32;                  // columns staged per pass
-constexpr int kMaxColsPerLane = 8;         // k <= 256 in the backward
-constexpr int64_t kMaxRowsPerWarp = 8;     // gradient rows per warp
+constexpr int kMaxColsPerLane = 8;         // k <= 256 in phase 2
+constexpr int64_t kMaxRowsPerWarp = 32;    // gradient rows per warp
+constexpr int64_t kWarpContributions = 128;  // 4 passes of 32 lanes
 constexpr unsigned kFull = 0xffffffffu;
+
+// What a launch reads and writes.  The forward writes loss / d_pos /
+// d_neg; the backward reads them.
+struct Batch {
+  const void* ent;
+  const void* rel;
+  const int* idx;
+  int64_t n, per_worker, ent_ws, rel_ws;
+  int k, tile;
+  float margin;
+  float* loss;
+  float* d_pos;
+  float* d_neg;
+  const float* g;                          // backward: upstream gradient
+  float* grads;                            // backward: (n, 2, k) gu, gv
+};
+
+// What phase 2 reads and writes: the sorted scatter rows and their
+// contribution ids (role * n + i for entities, i for relations).
+struct Scatter {
+  const float* grads;
+  const int* ent_rows;
+  const int* ent_perm;
+  const int* rel_rows;
+  const int* rel_perm;
+  int64_t ent_out_rows, rel_out_rows, ent_rpw, rel_rpw;
+  int n, k;
+  void* d_ent;
+  void* d_rel;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -75,268 +124,458 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// V consecutive elements, read with one load
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T x[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_vec(const T* p) {
+  return *reinterpret_cast<const Vec<T, V>*>(p);
+}
+
 // sign(x) as (x > 0) - (x < 0): +0 at zero and at NaN, like the plain version
 __device__ __forceinline__ float sgn(float x) {
   return __fsub_rn(x > 0.f ? 1.f : 0.f, x < 0.f ? 1.f : 0.f);
 }
 
-template <typename T, bool kL2>
-__global__ void __launch_bounds__(kThreads)
-transe_score_fwd_kernel(const T* __restrict__ ent, const T* __restrict__ rel,
-                        const int* __restrict__ idx, int64_t n,
-                        int64_t per_worker, int64_t ent_ws, int64_t rel_ws,
-                        int k, float margin, float* __restrict__ loss,
-                        float* __restrict__ d_pos, float* __restrict__ d_neg) {
-  __shared__ float su[kWarps][32][kCols + 1];
-  __shared__ float sv[kWarps][32][kCols + 1];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t base = ((int64_t)blockIdx.x * kWarps + warp) * 32;
-  if (base >= n) return;                   // the whole warp leaves together
-  const int m = n - base < 32 ? (int)(n - base) : 32;
-
-  float acc_u = 0.f, acc_v = 0.f;
-  for (int j0 = 0; j0 < k; j0 += kCols) {
-    const int cols = k - j0 < kCols ? k - j0 : kCols;
-    for (int i = 0; i < m; ++i) {
-      if (lane < cols) {
-        const int64_t tri = base + i;
-        const int* ti = idx + tri * 5;
-        const int64_t w = tri / per_worker;
-        const T* eb = ent + w * ent_ws;
-        const T* rb = rel + w * rel_ws;
-        const int j = j0 + lane;
-        const float h = to_f32(eb[(int64_t)ti[0] * k + j]);
-        const float r = to_f32(rb[(int64_t)ti[1] * k + j]);
-        const float t = to_f32(eb[(int64_t)ti[2] * k + j]);
-        const float nh = to_f32(eb[(int64_t)ti[3] * k + j]);
-        const float nt = to_f32(eb[(int64_t)ti[4] * k + j]);
-        su[warp][i][lane] = __fsub_rn(__fadd_rn(h, r), t);
-        sv[warp][i][lane] = __fsub_rn(__fadd_rn(nh, r), nt);
-      }
-    }
-    __syncwarp();
-    if (lane < m) {
-      for (int jj = 0; jj < cols; ++jj) {
-        const float x = su[warp][lane][jj];
-        const float y = sv[warp][lane][jj];
-        if (kL2) {
-          acc_u = __fadd_rn(acc_u, __fmul_rn(x, x));
-          acc_v = __fadd_rn(acc_v, __fmul_rn(y, y));
-        } else {
-          acc_u = __fadd_rn(acc_u, fabsf(x));
-          acc_v = __fadd_rn(acc_v, fabsf(y));
-        }
-      }
-    }
-    __syncwarp();
+// offs[5 p + c] = the element offset of column c's row of the tile's
+// triplet p, worker stride included; one coalesced pass over the ids.
+__device__ __forceinline__ void load_offsets(int64_t* offs, const Batch& b,
+                                             int64_t base, int m) {
+  for (int t = threadIdx.x; t < 5 * m; t += blockDim.x) {
+    const int p = t / 5;
+    const int col = t - 5 * p;
+    const int64_t w = (base + p) / b.per_worker;
+    offs[t] = w * (col == 1 ? b.rel_ws : b.ent_ws) +
+              (int64_t)b.idx[base * 5 + t] * b.k;
   }
-  if (lane < m) {
-    float dp = acc_u, dn = acc_v;
-    if (kL2) {
-      dp = __fsqrt_rn(__fadd_rn(dp, 1e-12f));
-      dn = __fsqrt_rn(__fadd_rn(dn, 1e-12f));
+}
+
+template <typename T, bool kL2, int V>
+__global__ void __launch_bounds__(kTileThreads)
+transe_score_fwd_kernel(Batch b) {
+  extern __shared__ float s[];             // 2 * tile rows of `stride`
+  __shared__ int64_t offs[kMaxTile * 5];
+  const T* ent = static_cast<const T*>(b.ent);
+  const T* rel = static_cast<const T*>(b.rel);
+  const int k = b.k;
+  const int stride = k | 1;                // odd: the summing threads'
+                                           // rows fall in distinct banks
+  const int vk = k / V;
+  const int64_t tiles = (b.n + b.tile - 1) / b.tile;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t base = tile * b.tile;
+    const int m = b.n - base < b.tile ? (int)(b.n - base) : b.tile;
+    load_offsets(offs, b, base, m);
+    __syncthreads();
+    for (int it = threadIdx.x; it < m * vk; it += kTileThreads) {
+      const int p = it / vk;
+      const int c = (it - p * vk) * V;
+      const int64_t* o = offs + 5 * p;
+      const Vec<T, V> h = load_vec<T, V>(ent + o[0] + c);
+      const Vec<T, V> r = load_vec<T, V>(rel + o[1] + c);
+      const Vec<T, V> t = load_vec<T, V>(ent + o[2] + c);
+      const Vec<T, V> nh = load_vec<T, V>(ent + o[3] + c);
+      const Vec<T, V> nt = load_vec<T, V>(ent + o[4] + c);
+      float* su = s + (2 * p) * stride + c;
+      float* sv = su + stride;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float re = to_f32(r.x[e]);
+        su[e] = __fsub_rn(__fadd_rn(to_f32(h.x[e]), re), to_f32(t.x[e]));
+        sv[e] = __fsub_rn(__fadd_rn(to_f32(nh.x[e]), re), to_f32(nt.x[e]));
+      }
     }
-    const int64_t b = base + lane;
-    d_pos[b] = dp;
-    d_neg[b] = dn;
-    loss[b] = fmaxf(__fsub_rn(__fadd_rn(margin, dp), dn), 0.f);
+    __syncthreads();
+    // thread 2p sums triplet p's u, thread 2p + 1 its v
+    float acc = 0.f;
+    if (threadIdx.x < 2 * m) {
+      const float* x = s + threadIdx.x * stride;
+      for (int j = 0; j < k; ++j)
+        acc = __fadd_rn(acc, kL2 ? __fmul_rn(x[j], x[j]) : fabsf(x[j]));
+      if (kL2) acc = __fsqrt_rn(__fadd_rn(acc, 1e-12f));
+    }
+    const float dn = __shfl_xor_sync(kFull, acc, 1);
+    if (threadIdx.x < 2 * m && (threadIdx.x & 1) == 0) {
+      const int64_t i = base + (threadIdx.x >> 1);
+      b.d_pos[i] = acc;
+      b.d_neg[i] = dn;
+      b.loss[i] = fmaxf(__fsub_rn(__fadd_rn(b.margin, acc), dn), 0.f);
+    }
+    __syncthreads();                       // s and offs are reused
+  }
+}
+
+template <typename T, bool kL2, int V>
+__global__ void __launch_bounds__(kTileThreads)
+transe_score_bwd_grads_kernel(Batch b) {
+  __shared__ int64_t offs[kMaxTile * 5];
+  __shared__ float scale[kMaxTile], den_u[kMaxTile], den_v[kMaxTile];
+  const T* ent = static_cast<const T*>(b.ent);
+  const T* rel = static_cast<const T*>(b.rel);
+  const int k = b.k;
+  const int vk = k / V;
+  const int64_t tiles = (b.n + b.tile - 1) / b.tile;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t base = tile * b.tile;
+    const int m = b.n - base < b.tile ? (int)(b.n - base) : b.tile;
+    load_offsets(offs, b, base, m);
+    for (int p = threadIdx.x; p < m; p += kTileThreads) {
+      const int64_t i = base + p;
+      scale[p] = __fmul_rn(b.g[i], b.loss[i] > 0.f ? 1.f : 0.f);
+      if (kL2) {
+        den_u[p] = __fadd_rn(b.d_pos[i], 1e-12f);
+        den_v[p] = __fadd_rn(b.d_neg[i], 1e-12f);
+      }
+    }
+    __syncthreads();
+    for (int it = threadIdx.x; it < m * vk; it += kTileThreads) {
+      const int p = it / vk;
+      const int c = (it - p * vk) * V;
+      const int64_t* o = offs + 5 * p;
+      const Vec<T, V> h = load_vec<T, V>(ent + o[0] + c);
+      const Vec<T, V> r = load_vec<T, V>(rel + o[1] + c);
+      const Vec<T, V> t = load_vec<T, V>(ent + o[2] + c);
+      const Vec<T, V> nh = load_vec<T, V>(ent + o[3] + c);
+      const Vec<T, V> nt = load_vec<T, V>(ent + o[4] + c);
+      Vec<float, V> gu, gv;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float re = to_f32(r.x[e]);
+        const float u = __fsub_rn(__fadd_rn(to_f32(h.x[e]), re),
+                                  to_f32(t.x[e]));
+        const float v = __fsub_rn(__fadd_rn(to_f32(nh.x[e]), re),
+                                  to_f32(nt.x[e]));
+        gu.x[e] = __fmul_rn(kL2 ? __fdiv_rn(u, den_u[p]) : sgn(u), scale[p]);
+        gv.x[e] =
+            __fmul_rn(-(kL2 ? __fdiv_rn(v, den_v[p]) : sgn(v)), scale[p]);
+      }
+      float* out = b.grads + (base + p) * 2 * k + c;
+      *reinterpret_cast<Vec<float, V>*>(out) = gu;
+      *reinterpret_cast<Vec<float, V>*>(out + k) = gv;
+    }
+    __syncthreads();                       // offs and the scalars are reused
   }
 }
 
 // The first position of the ascending rows[0, len) that holds a value
 // >= key (len if none), searched by the 32 lanes of a warp together: each
-// round the lanes probe 32 evenly spaced positions of [lo, hi) and a ballot
-// keeps the stretch that holds the answer.  Warp-uniform.
+// round the lanes probe 32 evenly spaced positions of [lo, hi) and the
+// count of those below the key keeps the stretch that holds the answer;
+// the last round probes every position left.  Warp-uniform.
 __device__ __forceinline__ int64_t warp_lower_bound(const int* rows,
                                                     int64_t len, int64_t key,
                                                     int lane) {
   int64_t lo = 0, hi = len;                // the answer lies in [lo, hi]
-  while (hi - lo > 32) {
-    const int64_t step = (hi - lo + 31) / 32;
+  for (;;) {
+    const bool last = hi - lo <= 32;       // warp-uniform
+    const int64_t step = last ? 1 : (hi - lo + 31) / 32;
     const int64_t probe = lo + lane * step;
-    const int below = __popc(
-        __ballot_sync(kFull, probe < hi && rows[probe] < key));
+    const int below =
+        __reduce_add_sync(kFull, probe < hi && rows[probe] < key ? 1 : 0);
+    if (last) return lo + below;
     const int64_t next = lo + below * step;  // the first probe not below
     if (next < hi) hi = next;
     if (below > 0) lo += (below - 1) * step + 1;
   }
-  const int64_t probe = lo + lane;
-  return lo + __popc(__ballot_sync(kFull, probe < hi && rows[probe] < key));
 }
 
-// role of a contribution: 0 h (+gu), 1 t (-gu), 2 nh (+gv), 3 nt (-gv),
-// 4 r (gu + gv)
-template <typename T, bool kL2>
-__global__ void __launch_bounds__(kThreads)
-transe_score_bwd_kernel(const T* __restrict__ ent, const T* __restrict__ rel,
-                        const int* __restrict__ idx, int64_t n,
-                        int64_t per_worker, int64_t ent_ws, int64_t rel_ws,
-                        int k, const float* __restrict__ g,
-                        const float* __restrict__ loss,
-                        const float* __restrict__ d_pos,
-                        const float* __restrict__ d_neg,
-                        const int* __restrict__ ent_rows,
-                        const int* __restrict__ ent_perm,
-                        const int* __restrict__ rel_rows,
-                        const int* __restrict__ rel_perm,
-                        int64_t ent_out_rows, int64_t rel_out_rows,
-                        int64_t ent_rpw, int64_t rel_rpw,
-                        T* __restrict__ d_ent, T* __restrict__ d_rel) {
-  const int lane = threadIdx.x & 31;
-  const int64_t wid = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int64_t ent_warps = (ent_out_rows + ent_rpw - 1) / ent_rpw;
-  if (wid >= ent_warps + (rel_out_rows + rel_rpw - 1) / rel_rpw) return;
-  const bool is_rel = wid >= ent_warps;   // warp-uniform from here on
-  const int* rows = is_rel ? rel_rows : ent_rows;
-  const int* perm = is_rel ? rel_perm : ent_perm;
-  const int64_t len = is_rel ? n : 4 * n;
-  const int64_t rpw = is_rel ? rel_rpw : ent_rpw;
-  const int64_t row0 = (is_rel ? wid - ent_warps : wid) * rpw;
-  const int64_t out_rows = is_rel ? rel_out_rows : ent_out_rows;
-  const int64_t row_end = row0 + rpw < out_rows ? row0 + rpw : out_rows;
-  T* const out_base = is_rel ? d_rel : d_ent;
-
-  int64_t q = warp_lower_bound(rows, len, row0, lane);
-  for (int64_t row = row0; row < row_end; ++row) {
-    float acc[kMaxColsPerLane];
+// Writes lane's columns of gradient row `row`.
+template <typename T, int C>
+__device__ __forceinline__ void write_row(T* out, int64_t row, int k,
+                                          const float (&acc)[C], int lane) {
 #pragma unroll
-    for (int c = 0; c < kMaxColsPerLane; ++c) acc[c] = 0.f;
-    for (; q < len && rows[q] == row; ++q) {
-      const int64_t cid = perm[q];
-      const int role = is_rel ? 4 : (int)(cid / n);
-      const int64_t tri = is_rel ? cid : cid - (int64_t)role * n;
-      const int* ti = idx + tri * 5;
-      const int64_t w = tri / per_worker;
-      const T* eb = ent + w * ent_ws;
-      const T* rb = rel + w * rel_ws;
-      const float scale = __fmul_rn(g[tri], loss[tri] > 0.f ? 1.f : 0.f);
-      const bool need_u = role == 0 || role == 1 || role == 4;
-      const bool need_v = role >= 2;
-      const float den_u = kL2 ? __fadd_rn(d_pos[tri], 1e-12f) : 0.f;
-      const float den_v = kL2 ? __fadd_rn(d_neg[tri], 1e-12f) : 0.f;
-#pragma unroll
-      for (int c = 0; c < kMaxColsPerLane; ++c) {
-        const int j = lane + 32 * c;
-        if (j < k) {
-          const float r = to_f32(rb[(int64_t)ti[1] * k + j]);
-          float gu = 0.f, gv = 0.f;
-          if (need_u) {
-            const float u = __fsub_rn(
-                __fadd_rn(to_f32(eb[(int64_t)ti[0] * k + j]), r),
-                to_f32(eb[(int64_t)ti[2] * k + j]));
-            gu = __fmul_rn(kL2 ? __fdiv_rn(u, den_u) : sgn(u), scale);
-          }
-          if (need_v) {
-            const float v = __fsub_rn(
-                __fadd_rn(to_f32(eb[(int64_t)ti[3] * k + j]), r),
-                to_f32(eb[(int64_t)ti[4] * k + j]));
-            gv = __fmul_rn(-(kL2 ? __fdiv_rn(v, den_v) : sgn(v)), scale);
-          }
-          float val;
-          switch (role) {
-            case 0: val = gu; break;
-            case 1: val = -gu; break;
-            case 2: val = gv; break;
-            case 3: val = -gv; break;
-            default: val = __fadd_rn(gu, gv); break;
-          }
-          acc[c] = __fadd_rn(acc[c], val);
-        }
-      }
-    }
-    T* out = out_base + row * k;
-#pragma unroll
-    for (int c = 0; c < kMaxColsPerLane; ++c) {
-      const int j = lane + 32 * c;
-      if (j < k) store(out + j, acc[c]);
-    }
+  for (int c = 0; c < C; ++c) {
+    const int j = lane + 32 * c;
+    if (j < k) store(out + row * k + j, acc[c]);
   }
 }
 
-// Gradient rows per warp: about one contribution per warp on average, so
-// clamp(rows / contributions, 1, kMaxRowsPerWarp).
+// C columns per lane (k <= 32 C); kAhead contributions' loads in flight.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+transe_score_bwd_rows_kernel(Scatter a) {
+  constexpr int kAhead = 16 / C;           // 2 x 16 values buffered
+  const int lane = threadIdx.x & 31;
+  const int64_t wid = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int64_t rel_warps = (a.rel_out_rows + a.rel_rpw - 1) / a.rel_rpw;
+  if (wid >= rel_warps + (a.ent_out_rows + a.ent_rpw - 1) / a.ent_rpw)
+    return;
+  const bool is_rel = wid < rel_warps;     // warp-uniform from here on
+  const int* rows = is_rel ? a.rel_rows : a.ent_rows;
+  const int* perm = is_rel ? a.rel_perm : a.ent_perm;
+  const int64_t len = is_rel ? a.n : 4 * (int64_t)a.n;
+  const int64_t rpw = is_rel ? a.rel_rpw : a.ent_rpw;
+  const int64_t row0 = (is_rel ? wid : wid - rel_warps) * rpw;
+  const int64_t out_rows = is_rel ? a.rel_out_rows : a.ent_out_rows;
+  const int64_t row_end = row0 + rpw < out_rows ? row0 + rpw : out_rows;
+  T* const out = static_cast<T*>(is_rel ? a.d_rel : a.d_ent);
+  const int k = a.k;
+
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  int64_t cur = row0;                      // the row being summed
+  int64_t qi = warp_lower_bound(rows, len, row0, lane) + lane;
+  int my_row = qi < len ? rows[qi] : INT32_MAX;
+  int my_cid = qi < len ? perm[qi] : 0;
+  for (;;) {
+    // 32 contributions, those of this warp's rows a prefix
+    const int m = __popc(__ballot_sync(kFull, my_row < row_end));
+    int next_row = INT32_MAX, next_cid = 0;
+    if (m == 32) {                         // the next 32, loaded ahead
+      qi += 32;
+      next_row = qi < len ? rows[qi] : INT32_MAX;
+      next_cid = qi < len ? perm[qi] : 0;
+    }
+    for (int i0 = 0; i0 < m; i0 += kAhead) {
+      // kAhead contributions' scratch loads first, all in flight, then
+      // their in-order adds: no arithmetic on a value between the loads
+      float x0[kAhead][C], x1[kAhead][C];
+      int row[kAhead];
+      bool neg[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        // past m, another warp's contribution (or id 0): loaded, not added
+        const int cid = __shfl_sync(kFull, my_cid, (i0 + u) & 31);
+        row[u] = __shfl_sync(kFull, my_row, (i0 + u) & 31);
+        const int role = is_rel ? 0 : (int)((unsigned)cid / (unsigned)a.n);
+        const float* x =
+            a.grads + ((int64_t)(cid - role * a.n) * 2 + (role >> 1)) * k;
+        neg[u] = role & 1;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int j = lane + 32 * c;
+          x0[u][c] = j < k ? x[j] : 0.f;               // gu, or gv
+          x1[u][c] = is_rel && j < k ? x[k + j] : 0.f;  // a relation's gv
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if (i0 + u < m) {                  // warp-uniform
+          if (row[u] != cur) {             // cur is done: write it and
+            write_row(out, cur, k, acc, lane);  // the rows skipped (+0.0)
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[c] = 0.f;
+            for (int64_t r = cur + 1; r < row[u]; ++r)
+              write_row(out, r, k, acc, lane);
+            cur = row[u];
+          }
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            acc[c] = __fadd_rn(acc[c], is_rel ? __fadd_rn(x0[u][c], x1[u][c])
+                                       : neg[u] ? -x0[u][c] : x0[u][c]);
+        }
+      }
+    }
+    if (m < 32) break;
+    my_row = next_row;
+    my_cid = next_cid;
+  }
+  write_row(out, cur, k, acc, lane);
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int64_t r = cur + 1; r < row_end; ++r) write_row(out, r, k, acc, lane);
+}
+
+// Gradient rows per warp: about kWarpContributions per warp on average,
+// clamp(kWarpContributions * rows / contributions, 1, kMaxRowsPerWarp):
+// fewer, longer walks pay the search fewer times.
 int64_t rows_per_warp(int64_t out_rows, int64_t contributions) {
-  const int64_t r = out_rows / contributions;
+  const int64_t r = kWarpContributions * out_rows / contributions;
   return r < 1 ? 1 : (r > kMaxRowsPerWarp ? kMaxRowsPerWarp : r);
+}
+
+// --- host side: launch shapes ---
+
+int sm_count() {
+  static std::mutex mu;
+  static std::map<int, int> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(dev);
+  if (it != cache.end()) return it->second;
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return cache[dev] = sms > 0 ? sms : 1;
+}
+
+// Blocks of `kernel` an SM holds at once with `smem` dynamic shared bytes.
+int blocks_per_sm(const void* kernel, int threads, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, int> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(kernel, dev, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                smem);
+  return cache[key] = blocks > 0 ? blocks : 1;
+}
+
+// Triplets per tile: ceil(n / SMs), so a small batch still reaches every
+// SM, up to `most`.
+int tile_size(int64_t n, int most) {
+  const int64_t t = (n + sm_count() - 1) / sm_count();
+  return t < 1 ? 1 : (t > most ? most : (int)t);
+}
+
+// Blocks for `tiles` tiles: one per tile, at most as many as the card
+// holds at once (the blocks then walk the tiles).
+unsigned tile_grid(int64_t tiles, const void* kernel, size_t smem) {
+  const int64_t most =
+      (int64_t)sm_count() * blocks_per_sm(kernel, kTileThreads, smem);
+  return (unsigned)(tiles < most ? tiles : most);
+}
+
+size_t fwd_smem(int tile, int k) { return sizeof(float) * 2 * tile * (k | 1); }
+
+// The forward: u and v staged in dynamic shared memory, 2 * tile rows.
+template <typename T, bool kL2, int V>
+struct Forward {
+  static cudaError_t run(Batch b, cudaStream_t s) {
+    const int most = (kSmemBudget - (int)sizeof(int64_t) * 5 * kMaxTile) /
+                     (int)fwd_smem(1, b.k);
+    b.tile = tile_size(b.n, most < kMaxTile ? most : kMaxTile);
+    const size_t smem = fwd_smem(b.tile, b.k);
+    const unsigned grid =
+        tile_grid((b.n + b.tile - 1) / b.tile,
+                  (const void*)transe_score_fwd_kernel<T, kL2, V>, smem);
+    transe_score_fwd_kernel<T, kL2, V><<<grid, kTileThreads, smem, s>>>(b);
+    return cudaGetLastError();
+  }
+};
+
+// Backward phase 1: gu, gv into b.grads.
+template <typename T, bool kL2, int V>
+struct Grads {
+  static cudaError_t run(Batch b, cudaStream_t s) {
+    b.tile = tile_size(b.n, kMaxTile);
+    const unsigned grid =
+        tile_grid((b.n + b.tile - 1) / b.tile,
+                  (const void*)transe_score_bwd_grads_kernel<T, kL2, V>, 0);
+    transe_score_bwd_grads_kernel<T, kL2, V><<<grid, kTileThreads, 0, s>>>(b);
+    return cudaGetLastError();
+  }
+};
+
+template <template <typename, bool, int> class Launch, typename T, bool kL2>
+cudaError_t by_width(int v, const Batch& b, cudaStream_t s) {
+  switch (v) {
+    case 1: return Launch<T, kL2, 1>::run(b, s);
+    case 2: return Launch<T, kL2, 2>::run(b, s);
+    case 4: return Launch<T, kL2, 4>::run(b, s);
+  }
+  if constexpr (sizeof(T) == 2)
+    if (v == 8) return Launch<T, kL2, 8>::run(b, s);
+  return cudaErrorInvalidValue;
+}
+
+// Launch<T, kL2, V> for the tables' dtype (0 fp32, 1 bf16), the norm
+// (0 L1, 1 L2) and the widest vector load the rows allow.
+template <template <typename, bool, int> class Launch>
+cudaError_t by_type(int dtype, int norm, const Batch& b, cudaStream_t s) {
+  const int itemsize = dtype == 0 ? 4 : 2;
+  int v = 16 / itemsize;             // elements per load: the most, up to
+  while (v > 1 && (b.k % v != 0 ||   // 16 bytes, that divides k and keeps
+                   (uintptr_t)b.ent % (v * itemsize) != 0 ||  // both tables'
+                   (uintptr_t)b.rel % (v * itemsize) != 0))   // rows aligned
+    v /= 2;                          // (worker strides are multiples of k)
+  if (dtype == 0)
+    return norm ? by_width<Launch, float, true>(v, b, s)
+                : by_width<Launch, float, false>(v, b, s);
+  return norm ? by_width<Launch, __nv_bfloat16, true>(v, b, s)
+              : by_width<Launch, __nv_bfloat16, false>(v, b, s);
+}
+
+// Backward phase 2 with C = the fewest of 1, 2, 4, 8 columns per lane.
+template <typename T>
+cudaError_t scatter_launch(const Scatter& a, unsigned blocks, cudaStream_t s) {
+  const int c = (a.k + 31) / 32;
+  void (*kernel)(Scatter) = c <= 1   ? transe_score_bwd_rows_kernel<T, 1>
+                            : c <= 2 ? transe_score_bwd_rows_kernel<T, 2>
+                            : c <= 4 ? transe_score_bwd_rows_kernel<T, 4>
+                                     : transe_score_bwd_rows_kernel<T, 8>;
+  kernel<<<blocks, kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+bool valid(long long per_worker, int k, int dtype, int norm) {
+  return k > 0 && k <= 32 * kMaxColsPerLane && per_worker > 0 &&
+         (dtype == 0 || dtype == 1) && (norm == 0 || norm == 1);
 }
 
 }  // namespace
 
 // loss, d_pos, d_neg: (n,) fp32.  idx: (n, 5) int32, worker w = i / per_worker
-// owns triplet i.  dtype: 0 = fp32, 1 = bf16; norm: 0 = L1, 1 = L2.
+// owns triplet i.  dtype: 0 = fp32, 1 = bf16; norm: 0 = L1, 1 = L2.  k <= 256.
 extern "C" int transe_score_fwd_launch(
     const void* ent, const void* rel, const void* idx, void* loss,
     void* d_pos, void* d_neg, long long n, long long per_worker,
     long long ent_ws, long long rel_ws, int k, int dtype, int norm,
     float margin, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (k <= 0 || per_worker <= 0 || (dtype != 0 && dtype != 1) ||
-      (norm != 0 && norm != 1))
-    return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ix = static_cast<const int*>(idx);
-  float* l = static_cast<float*>(loss);
-  float* dp = static_cast<float*>(d_pos);
-  float* dn = static_cast<float*>(d_neg);
-#define FWD(T, L2)                                                          \
-  transe_score_fwd_kernel<T, L2><<<(unsigned)blocks, kThreads, 0, s>>>(     \
-      static_cast<const T*>(ent), static_cast<const T*>(rel), ix, n,        \
-      per_worker, ent_ws, rel_ws, k, margin, l, dp, dn)
-  if (dtype == 0) {
-    if (norm == 0) FWD(float, false); else FWD(float, true);
-  } else {
-    if (norm == 0) FWD(__nv_bfloat16, false); else FWD(__nv_bfloat16, true);
-  }
-#undef FWD
-  return (int)cudaGetLastError();
+  if (!valid(per_worker, k, dtype, norm)) return (int)cudaErrorInvalidValue;
+  const Batch b{ent, rel, static_cast<const int*>(idx), n, per_worker,
+                ent_ws, rel_ws, k, 0, margin, static_cast<float*>(loss),
+                static_cast<float*>(d_pos), static_cast<float*>(d_neg),
+                nullptr, nullptr};
+  return (int)by_type<Forward>(dtype, norm, b,
+                               static_cast<cudaStream_t>(stream));
 }
 
-// g, loss, d_pos, d_neg: (n,) fp32.  ent_rows / ent_perm: (4n,) int32, the
-// stably sorted entity scatter rows and, for each, its contribution id
+// g, loss, d_pos, d_neg: (n,) fp32.  grads: (n, 2, k) fp32 scratch, written
+// here before it is read.  ent_rows / ent_perm: (4n,) int32, the stably
+// sorted entity scatter rows and, for each, its contribution id
 // role * n + i; rel_rows / rel_perm: (n,) int32, the same for relations
 // (contribution id i).  d_ent / d_rel: dense, ent_out_rows / rel_out_rows
 // rows of k values in the tables' type, every one written here (the
-// caller need not initialise them).  k <= 256.
+// caller need not initialise them).  Two launches on `stream`.
 extern "C" int transe_score_bwd_launch(
     const void* ent, const void* rel, const void* idx, const void* g,
-    const void* loss, const void* d_pos, const void* d_neg,
+    const void* loss, const void* d_pos, const void* d_neg, void* grads,
     const void* ent_rows, const void* ent_perm, const void* rel_rows,
     const void* rel_perm, void* d_ent, void* d_rel, long long n,
     long long per_worker, long long ent_ws, long long rel_ws,
     long long ent_out_rows, long long rel_out_rows, int k, int dtype,
     int norm, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (k <= 0 || k > 32 * kMaxColsPerLane || per_worker <= 0 ||
-      ent_out_rows <= 0 || rel_out_rows <= 0 ||
-      (dtype != 0 && dtype != 1) || (norm != 0 && norm != 1))
+  if (!valid(per_worker, k, dtype, norm) || ent_out_rows <= 0 ||
+      rel_out_rows <= 0 || n > 0x7fffffffLL / 4)  // int32 contribution ids
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the forward's outputs are read only
+  const Batch b{ent, rel, static_cast<const int*>(idx), n, per_worker,
+                ent_ws, rel_ws, k, 0, 0.f,
+                const_cast<float*>(static_cast<const float*>(loss)),
+                const_cast<float*>(static_cast<const float*>(d_pos)),
+                const_cast<float*>(static_cast<const float*>(d_neg)),
+                static_cast<const float*>(g), static_cast<float*>(grads)};
+  cudaError_t err = by_type<Grads>(dtype, norm, b, s);
+  if (err != cudaSuccess) return (int)err;
+
   const int64_t ent_rpw = rows_per_warp(ent_out_rows, 4 * n);
   const int64_t rel_rpw = rows_per_warp(rel_out_rows, n);
   const int64_t warps = (ent_out_rows + ent_rpw - 1) / ent_rpw +
                         (rel_out_rows + rel_rpw - 1) / rel_rpw;
   const int64_t blocks = (warps + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BWD(T, L2)                                                          \
-  transe_score_bwd_kernel<T, L2><<<(unsigned)blocks, kThreads, 0, s>>>(     \
-      static_cast<const T*>(ent), static_cast<const T*>(rel),               \
-      static_cast<const int*>(idx), n, per_worker, ent_ws, rel_ws, k,       \
-      static_cast<const float*>(g), static_cast<const float*>(loss),        \
-      static_cast<const float*>(d_pos), static_cast<const float*>(d_neg),   \
-      static_cast<const int*>(ent_rows), static_cast<const int*>(ent_perm), \
-      static_cast<const int*>(rel_rows), static_cast<const int*>(rel_perm), \
-      ent_out_rows, rel_out_rows, ent_rpw, rel_rpw,                         \
-      static_cast<T*>(d_ent), static_cast<T*>(d_rel))
-  if (dtype == 0) {
-    if (norm == 0) BWD(float, false); else BWD(float, true);
-  } else {
-    if (norm == 0) BWD(__nv_bfloat16, false); else BWD(__nv_bfloat16, true);
-  }
-#undef BWD
-  return (int)cudaGetLastError();
+  const Scatter a{static_cast<const float*>(grads),
+                  static_cast<const int*>(ent_rows),
+                  static_cast<const int*>(ent_perm),
+                  static_cast<const int*>(rel_rows),
+                  static_cast<const int*>(rel_perm),
+                  ent_out_rows, rel_out_rows, ent_rpw, rel_rpw,
+                  (int)n, k, d_ent, d_rel};
+  err = dtype == 0 ? scatter_launch<float>(a, (unsigned)blocks, s)
+                   : scatter_launch<__nv_bfloat16>(a, (unsigned)blocks, s);
+  return (int)err;
 }
 
 // The message of a CUDA error code, for the wrapper's exception.

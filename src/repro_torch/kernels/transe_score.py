@@ -18,8 +18,9 @@ gradients are dense ``(W, E, k)`` either way, one slice per worker.
 On CPU tensors the wrappers compute the plain versions
 (``ref.transe_score_ref``, ``ref.transe_score_bwd_ref``); on CUDA tensors
 they launch the kernels or raise — there is no fallback between the two.
-``transe_score.launches`` and ``transe_score_bwd.launches`` count kernel
-launches, so a run can show it went through the kernels.
+``transe_score.launches`` and ``transe_score_bwd.launches`` count the calls
+that launched their kernels (one forward kernel; the backward's two, one
+per phase), so a run can show it went through the kernels.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def _library() -> ctypes.CDLL:
             [p] * 6 + [i64] * 4 + [i32] * 3 + [ctypes.c_float, p])
         lib.transe_score_fwd_launch.restype = i32
         lib.transe_score_bwd_launch.argtypes = (
-            [p] * 13 + [i64] * 6 + [i32] * 3 + [p])
+            [p] * 14 + [i64] * 6 + [i32] * 3 + [p])
         lib.transe_score_bwd_launch.restype = i32
         lib.transe_score_error_string.argtypes = [i32]
         lib.transe_score_error_string.restype = ctypes.c_char_p
@@ -179,12 +180,16 @@ def transe_score_bwd(
         return (torch.zeros(ent.shape, dtype=ent.dtype, device=idx.device),
                 torch.zeros(rel.shape, dtype=rel.dtype, device=idx.device))
     out_rows = (ent.shape[:-1].numel(), rel.shape[:-1].numel())
-    if max(out_rows) >= 2**31:
+    if max(out_rows) >= 2**31 or 4 * n >= 2**31:
         raise ValueError(f"transe_score_bwd kernel takes int32 gradient "
-                         f"rows; got {out_rows} rows")
-    # the kernel writes every row, +0.0 where no triplet references it
+                         f"rows and contribution ids; got {out_rows} rows "
+                         f"and {n} triplets")
+    # the second launch writes every row, +0.0 where no triplet points
     d_ent = torch.empty(ent.shape, dtype=ent.dtype, device=idx.device)
     d_rel = torch.empty(rel.shape, dtype=rel.dtype, device=idx.device)
+    # each triplet's gu, gv: written by the first launch, read by the second
+    grads = torch.empty((n, 2, ent.shape[-1]), dtype=torch.float32,
+                        device=idx.device)
     ent_rows, rel_rows = ref.scatter_rows(ent, rel, idx)
     ent_rows, ent_perm = torch.sort(ent_rows, stable=True)
     rel_rows, rel_perm = torch.sort(rel_rows, stable=True)
@@ -196,8 +201,9 @@ def transe_score_bwd(
         err = lib.transe_score_bwd_launch(
             ent.data_ptr(), rel.data_ptr(), idx.data_ptr(), g.data_ptr(),
             loss.data_ptr(), d_pos.data_ptr(), d_neg.data_ptr(),
-            *(t.data_ptr() for t in sorted_ids), d_ent.data_ptr(),
-            d_rel.data_ptr(), n, per_worker, ent_ws, rel_ws, *out_rows,
+            grads.data_ptr(), *(t.data_ptr() for t in sorted_ids),
+            d_ent.data_ptr(), d_rel.data_ptr(), n, per_worker, ent_ws,
+            rel_ws, *out_rows,
             ent.shape[-1], _DTYPES[ent.dtype], _NORMS[norm], stream)
     _raise_on(err, lib, "transe_score_bwd")
     transe_score_bwd.launches += 1

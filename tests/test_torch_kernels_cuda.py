@@ -116,6 +116,10 @@ def _assert_bitwise(got, want):
     (0, 40, 300, 5, 256, 0),        # the widest k
     (0, 500, 400, 4, 50, 3),        # three hot rows: long scatter runs
     (4, 256, 2000, 30, 50, 0),      # stacked workers, the main path's shape
+    (4, 1027, 3000, 20, 50, 0),     # many tiles, a ragged last one
+    (0, 300, 500, 7, 1, 0),         # k = 1: one-element loads
+    (0, 300, 500, 7, 33, 0),        # k = 33: odd, scalar loads
+    (0, 65536, 5000, 1, 50, 0),     # one relation row takes every triplet
 ])
 def test_transe_score_matches_plain(cuda, W, B, E, R, k, hot, norm, dtype):
     """Forward and backward equal their plain versions bitwise: the same
@@ -157,6 +161,27 @@ def test_transe_score_bwd_writes_every_row(cuda):
     got = transe_score.transe_score_bwd(ent, rel, idx, g, *fwd)
     _assert_bitwise(got, want)
     assert int((got[0] != 0).any(-1).sum()) <= 2 * 8 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["l1", "l2"])
+def test_transe_score_bwd_back_to_back_batches(cuda, norm):
+    """Two different batches' backwards, one right after the other, each
+    equal their plain versions: the second may be handed the first's freed
+    per-triplet scratch and must not read anything the first left there."""
+    batches = [_transe_inputs(cuda, 0, B, 900, 11, 50, torch.float32, seed)
+               for B, seed in ((700, 1), (300, 2))]
+    plain = []
+    for ent, rel, idx in batches:
+        fwd = transe_score.transe_score(ent, rel, idx, margin=2.0, norm=norm)
+        g = torch.full(idx.shape[:-1], 1.0 / idx.shape[0], device=cuda)
+        plain.append((fwd, g, ref.transe_score_bwd_ref(ent, rel, idx, g,
+                                                       *fwd, norm)))
+    torch.cuda.synchronize()
+    got = [transe_score.transe_score_bwd(ent, rel, idx, g, *fwd, norm=norm)
+           for (ent, rel, idx), (fwd, g, _) in zip(batches, plain)]
+    for out, (_, _, want) in zip(got, plain):
+        _assert_bitwise(out, want)
 
 
 @pytest.mark.cuda

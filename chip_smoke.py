@@ -11,8 +11,15 @@
    beside the least time the card could take.  ``rank_counts``: exact
    counts, L1 and L2, fp32 and bf16, at the evaluation chunk (B = 256
    queries, E = 14,951, k = 50) and at a Freebase-scale table (B = 4,096,
-   E = 1,000,000); library call ``torch.cdist`` + compare + sum, split in
-   two calls at E = 1e6, whose 4.1e9 outputs one call's grid cannot hold.
+   E = 1,000,000), then on tie-stress inputs at the evaluation chunk (each
+   gold row planted exactly and one ulp off, so counts hang on single
+   ulps; under L2 the tensor-core screen must re-check some pairs in
+   order).  Per case: the kernels' own time (``torch.profiler``; L2 is a
+   per-row pre-pass and the main kernel), the wrapper call's (CUDA
+   events), the share of pairs the L2 screen re-checked, and the main
+   kernel's registers and shared memory; library call ``torch.cdist`` +
+   compare + sum, split in two calls at E = 1e6, whose 4.1e9 outputs one
+   call's grid cannot hold.
    ``transe_score`` forward and backward (kernel times from
    ``torch.profiler``, as the wrappers sync for their id checks; the
    backward's is the sum of its two kernels per call): equal
@@ -85,8 +92,18 @@ DEVICE = "cuda"
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
                   "bwd": ("transe_score_bwd_grads_kernel",
                           "transe_score_bwd_rows_kernel")}
-# NVIDIA H100 data sheet, dense: fp32 outside the tensor cores, HBM rate
-PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100": (67e12, 3.35e12)}
+# NVIDIA H100 data sheet, dense rates.  "fp32" counts an FMA as two
+# operations (SMs x 128 lanes x 2 x boost clock); "fp32_issue" is the FP32
+# instruction rate, one per lane a clock (SMs x 128 x clock: 132 x 128 x
+# 1.98 GHz on the SXM, 114 x 128 x 1.755 GHz on the PCIe card), the rate of
+# work that cannot contract into FMAs; "tf32" and "bf16" are the tensor
+# cores'; "bytes" the HBM rate.
+PEAKS = {
+    "H100 PCIe": {"fp32": 51e12, "fp32_issue": 25.6e12, "tf32": 378e12,
+                  "bf16": 756e12, "bytes": 2.0e12},
+    "H100": {"fp32": 67e12, "fp32_issue": 33.45e12, "tf32": 495e12,
+             "bf16": 989e12, "bytes": 3.35e12},
+}
 
 
 def fail(msg):
@@ -193,74 +210,173 @@ def wall(torch, fn):
 
 
 def rank_counts_bound(B, E, k, itemsize, norm, rates):
-    """Least milliseconds for one rank_counts call: the larger of its
-    bytes (each input read once, the output written once) over the memory
-    rate and its fp32 operations over the fp32 rate."""
-    flops, bw = rates
+    """Least milliseconds for one rank_counts call, ``(ms, "bytes"|
+    "operations")``: the larger of its bytes (each input read once, the
+    output written once) over the memory rate and its operations.
+
+    L1 runs on the CUDA cores, two FP32 instructions per element pair
+    (subtract, add of the absolute value: they cannot contract into an FMA)
+    and a compare per pair, at the FP32 instruction rate.  L2 is the larger
+    of the contraction ``2·B·E·k`` at the tensor cores' rate for the input
+    type (TF32 for fp32, bf16) and its CUDA-core work at the instruction
+    rate: at least 4 operations per pair of epilogue and the in-order sums
+    of squares, ``2·k·(B + E)``."""
     nbytes = (B + E) * k * itemsize + B * 4 + B * 4
-    if norm == "l1":                  # sub + add per element pair, compare
-        ops = 2 * B * E * k + B * E
-    else:                             # mul + add per pair, norms, epilogue
-        ops = 2 * B * E * k + 2 * k * (B + E) + 6 * B * E
-    t_bytes, t_ops = nbytes / bw, ops / flops
+    issue = rates["fp32_issue"]
+    if norm == "l1":
+        t_ops = (2 * B * E * k + B * E) / issue
+    else:
+        tensor = rates["tf32" if itemsize == 4 else "bf16"]
+        t_ops = max(2 * B * E * k / tensor,
+                    (4 * B * E + 2 * k * (B + E)) / issue)
+    t_bytes = nbytes / rates["bytes"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(torch, rates):
+def rank_inputs(torch, E, B, norm, dtype, seed=None):
+    """The kernel phase's inputs: a TransE-range table, queries ``h + r``
+    (unit-norm r), and gold distances to random rows, on the device."""
     from repro_torch.core.models import dissimilarity
+
+    g = torch.Generator(device=DEVICE).manual_seed(E if seed is None
+                                                   else seed)
+    bound = 6.0 / DIM ** 0.5           # the TransE init range
+    table = (torch.rand(E, DIM, generator=g, device=DEVICE) * 2 - 1) * bound
+    rel = torch.randn(B, DIM, generator=g, device=DEVICE)
+    rel = rel / rel.norm(dim=1, keepdim=True)
+    heads = torch.randint(0, E, (B,), generator=g, device=DEVICE)
+    golds = torch.randint(0, E, (B,), generator=g, device=DEVICE)
+    tab = table.to(dtype).contiguous()
+    q = (table[heads] + rel).to(dtype).contiguous()
+    gold = dissimilarity(q.float() - tab[golds].float(), norm).contiguous()
+    return q, tab, gold
+
+
+def plain_distance(torch, q, rows, norm):
+    """The plain version's distance of each query to its row (``(B, k)``
+    each), its operations in its order: in-order sums, L2 expanded."""
+    from repro_torch.kernels.ref import l2_distance
+
+    q, rows = q.float(), rows.float()
+    if norm == "l1":
+        d = (q[:, 0] - rows[:, 0]).abs()
+        for j in range(1, q.shape[1]):
+            d = d + (q[:, j] - rows[:, j]).abs()
+        return d
+    qq, qe, ee = q[:, 0] * q[:, 0], q[:, 0] * rows[:, 0], \
+        rows[:, 0] * rows[:, 0]
+    for j in range(1, q.shape[1]):
+        qq = qq + q[:, j] * q[:, j]
+        qe = qe + q[:, j] * rows[:, j]
+        ee = ee + rows[:, j] * rows[:, j]
+    return l2_distance(qq, qe, ee)
+
+
+def tie_stress_inputs(torch, E, B, norm, dtype, copies=8, seed=1):
+    """Inputs whose counts hang on single ulps: each query's gold row is
+    written into ``copies`` other rows of the table, half of them exact
+    copies and half one ulp off in one coordinate (up or down), and the
+    gold distance is the plain version's own arithmetic for the gold row.
+    So ``copies`` pairs a query sit exactly at, or one ulp from, its
+    threshold."""
+    q, tab, _ = rank_inputs(torch, E, B, norm, dtype, seed=seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    perm = torch.randperm(E, generator=g, device=DEVICE)
+    golds, slots = perm[:B], perm[B:B * (copies + 1)].view(B, copies)
+    src = tab[golds]                                         # (B, k)
+    rows = src[:, None, :].expand(B, copies, DIM).clone()
+    half = copies // 2
+    col = torch.randint(0, DIM, (B, copies - half), generator=g,
+                        device=DEVICE)
+    up = torch.rand(B, copies - half, generator=g, device=DEVICE) < 0.5
+    off = rows[:, half:, :]
+    ints = {2: torch.int16, 4: torch.int32}[tab.element_size()]
+    bits = off.gather(2, col[..., None]).view(ints)
+    # one ulp up or down in magnitude; a zero steps up only
+    zero = (bits == 0) | (bits == torch.iinfo(ints).min)
+    step = torch.where(up[..., None] | zero, 1, -1).to(ints)
+    off.scatter_(2, col[..., None], (bits + step).view(tab.dtype))
+    tab = tab.clone()
+    tab[slots.reshape(-1)] = rows.reshape(-1, DIM)
+    gold = plain_distance(torch, q, tab[golds], norm).contiguous()
+    return q, tab.contiguous(), gold
+
+
+def rank_case(torch, q, tab, gold, norm, rates, timed):
+    """One rank_counts case: counts against the plain version, the share of
+    pairs the L2 screen re-checked, the kernel's attributes and, if
+    ``timed``, the kernel's, the plain version's and the library call's
+    times beside the bound."""
     from repro_torch.kernels import rank_topk, ref
 
+    (B, k), E = q.shape, tab.shape[0]
+    rechecked = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    got = rank_topk.rank_counts(q, tab, gold, norm=norm,
+                                recheck_counter=rechecked)
+    want = ref.rank_counts_ref(q, tab, gold, norm)
+    torch.cuda.synchronize()
+    bound_ms, bound_by = rank_counts_bound(B, E, k, tab.element_size(), norm,
+                                           rates)
+    case = {
+        "B": B, "E": E, "k": k, "norm": norm,
+        "dtype": str(q.dtype).replace("torch.", ""),
+        "count_mismatches": int((got != want).sum()),
+        "max_abs_err": int((got - want).abs().max()),
+        "mean_count": float(want.float().mean()),
+        "rechecked_share": int(rechecked) / (B * E) if norm == "l2" else None,
+        "kernel": rank_topk.kernel_info(q.dtype, norm, k, B, E),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    if timed:
+        small = B * E < 1e8
+        call = lambda: rank_topk.rank_counts(q, tab, gold, norm=norm)
+        reps = 50 if small else 5
+        # the kernels' own device time per call (the profiler), and the
+        # wrapper call's (CUDA events: at the evaluation chunk that is set
+        # by the host's launch overhead, not the card)
+        case["kernels_ms"] = kernel_ms(torch, call, reps,
+                                       rank_topk.KERNELS[norm])
+        case["ms"] = sum(case["kernels_ms"].values())
+        case["call_ms"] = cuda_ms(torch, call, reps=reps)
+        case["plain_ms"] = cuda_ms(torch, lambda: ref.rank_counts_ref(
+            q, tab, gold, norm), reps=3 if small else 1, warmup=0)
+        qf, tf = q.float(), tab.float()
+        p = 1.0 if norm == "l1" else 2.0
+        # cdist's grid holds < 2**31 outputs: one call per part
+        parts = -(-B * E // 2**31)
+        case["library_ms"] = cuda_ms(torch, lambda: sum(
+            (torch.cdist(qf, t, p=p) < gold[:, None]).sum(1)
+            for t in tf.chunk(parts)),
+            reps=5 if small else 1, warmup=1 if small else 0)
+        case["library_calls"] = parts
+    return case
+
+
+def kernel_phase(torch, rates):
+    """rank_counts at every KERNEL_CASES shape, L1 and L2, fp32 and bf16,
+    timed; then the tie-stress inputs at the evaluation chunk, checked."""
     cases = []
     for E, B in KERNEL_CASES:
-        g = torch.Generator(device=DEVICE).manual_seed(E)
-        bound = 6.0 / DIM ** 0.5           # the TransE init range
-        table = (torch.rand(E, DIM, generator=g, device=DEVICE) * 2 - 1) \
-            * bound
-        rel = torch.randn(B, DIM, generator=g, device=DEVICE)
-        rel = rel / rel.norm(dim=1, keepdim=True)
-        heads = torch.randint(0, E, (B,), generator=g, device=DEVICE)
-        golds = torch.randint(0, E, (B,), generator=g, device=DEVICE)
-        small = E == KERNEL_CASES[0][0]
         for norm in ("l1", "l2"):
             for dtype in (torch.float32, torch.bfloat16):
-                tab = table.to(dtype).contiguous()
-                q = (table[heads] + rel).to(dtype).contiguous()
-                gold = dissimilarity(
-                    q.float() - tab[golds].float(), norm).contiguous()
-                got = rank_topk.rank_counts(q, tab, gold, norm=norm)
-                want = ref.rank_counts_ref(q, tab, gold, norm)
-                torch.cuda.synchronize()
-                mismatches = int((got != want).sum())
-                max_err = int((got - want).abs().max())
-                ms = cuda_ms(torch, lambda: rank_topk.rank_counts(
-                    q, tab, gold, norm=norm), reps=50 if small else 5)
-                plain_ms = cuda_ms(torch, lambda: ref.rank_counts_ref(
-                    q, tab, gold, norm), reps=3 if small else 1, warmup=0)
-                qf, tf = q.float(), tab.float()
-                p = 1.0 if norm == "l1" else 2.0
-                # cdist's grid holds < 2**31 outputs: one call per part
-                parts = -(-B * E // 2**31)
-                library_ms = cuda_ms(torch, lambda: sum(
-                    (torch.cdist(qf, t, p=p) < gold[:, None]).sum(1)
-                    for t in tf.chunk(parts)),
-                    reps=5 if small else 1, warmup=1 if small else 0)
-                bound_ms, bound_by = rank_counts_bound(
-                    B, E, DIM, tab.element_size(), norm, rates)
-                case = {
-                    "B": B, "E": E, "k": DIM, "norm": norm,
-                    "dtype": str(dtype).replace("torch.", ""),
-                    "count_mismatches": mismatches, "max_abs_err": max_err,
-                    "mean_count": float(want.float().mean()),
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                    "library_calls": parts,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                }
+                case = rank_case(torch, *rank_inputs(torch, E, B, norm, dtype),
+                                 norm, rates, timed=True)
                 print("rank_counts " + json.dumps(case), flush=True)
                 cases.append(case)
-                del got, want, qf, tf
-        del table
         torch.cuda.empty_cache()
+    E, B = KERNEL_CASES[0]
+    for norm in ("l1", "l2"):
+        for dtype in (torch.float32, torch.bfloat16):
+            case = rank_case(torch, *tie_stress_inputs(torch, E, B, norm,
+                                                       dtype),
+                             norm, rates, timed=False)
+            case["tie_stress"] = True
+            print("rank_counts " + json.dumps(case), flush=True)
+            cases.append(case)
+            if norm == "l2" and not case["rechecked_share"]:
+                fail(f"the L2 screen re-checked no pair of the tie-stress "
+                     f"inputs: {case}")
     bad = [c for c in cases if c["count_mismatches"]]
     if bad:
         fail(f"rank_counts kernel disagrees with its plain version: {bad}")
@@ -299,7 +415,7 @@ def transe_bounds(n, k, itemsize, norm, dense_rows, rates):
     rows' zeros too).  Operations: u and v (4 per column), their signs or
     quotients (2), the scaling (2), gu + gv (1), one add per contribution
     (5), and the scale per triplet (1)."""
-    flops, bw = rates
+    flops, bw = rates["fp32"], rates["bytes"]
     row = k * itemsize
     out = []
     for nbytes, ops in (
@@ -757,8 +873,11 @@ def main():
         fail(f"the SGD-trained filtered mean rank {trained_rank} does not "
              f"beat the init's {init_rank}")
 
+    from repro_torch.kernels import rank_topk
+
     main_case = next(c for c in cases if c["E"] == FB15K["n_entities"]
-                     and c["norm"] == "l1" and c["dtype"] == "float32")
+                     and c["norm"] == "l1" and c["dtype"] == "float32"
+                     and not c.get("tie_stress"))
     kernels = [{
         "name": "rank_counts", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rank_topk.cu",
@@ -766,9 +885,12 @@ def main():
         "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "ms": main_case["ms"], "call_ms": main_case["call_ms"],
+        "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "kernels": list(rank_topk.KERNELS["l1"]),
+        "kernel": main_case["kernel"],
         "cases": cases,
     }]
     # the training step's shape: 4 workers x 256 triplets, L1, fp32

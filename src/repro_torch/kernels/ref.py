@@ -127,6 +127,15 @@ def transe_score_bwd_ref(
             d_rel.reshape(rel.shape).to(rel.dtype))
 
 
+def l2_distance(qq: torch.Tensor, qe: torch.Tensor,
+                ee: torch.Tensor) -> torch.Tensor:
+    """The L2 epilogue of :func:`rank_counts_ref` (broadcasting):
+    ``sqrt(max(qq - 2·qe + ee, 0) + 1e-12)`` in fp32, one rounding per
+    operation, the root correctly rounded."""
+    d2 = qq - 2.0 * qe + ee
+    return sqrt_rn(d2.clamp_min(0.0) + 1e-12)
+
+
 def rank_counts_ref(
     queries: torch.Tensor,     # (B, k) — h+r (tail side) or t-r (head side)
     table: torch.Tensor,       # (E, k)
@@ -170,7 +179,6 @@ def rank_counts_ref(
             for j in range(1, k):
                 qe = qe + q[:, j, None] * cols[j][None, :]
                 ee = ee + cols[j] * cols[j]
-            d2 = qq[:, None] - 2.0 * qe + ee[None, :]
-            d = sqrt_rn(d2.clamp_min(0.0) + 1e-12)
+            d = l2_distance(qq[:, None], qe, ee[None, :])
         counts += (d < gold).sum(dim=1)
     return counts.to(torch.int32)

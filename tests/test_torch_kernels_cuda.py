@@ -28,12 +28,21 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm", ["l1", "l2"])
-@pytest.mark.parametrize("B,E,k", [(256, 14951, 50), (70, 1000, 7),
-                                   (3, 129, 256)])
+@pytest.mark.parametrize("B,E,k", [
+    (256, 14951, 50),      # the evaluation chunk at FB15k size
+    (70, 1000, 7),         # ragged query and table tiles, odd k
+    (3, 129, 256),         # the widest k: 6 L1 / 5 L2 column chunks
+    (5, 300, 1),           # k = 1
+    (1, 14951, 50),        # one query
+    (256, 100, 64),        # a table smaller than one tile
+    (129, 129, 129),       # one query and one row past a tile
+    (600, 20000, 50),      # 128-query tiles, several per block
+])
 def test_rank_counts_matches_plain(cuda, B, E, k, norm, dtype):
-    """Equal counts, not close ones: the kernel and its plain version do
-    the same fp32 operations in the same order.  Shapes: the evaluation
-    chunk at FB15k size; ragged query and table tiles; the widest k."""
+    """Equal counts, not close ones: under L1 the kernel and its plain
+    version do the same fp32 operations in the same order; under L2 the
+    kernel's tensor-core screen re-checks in that order every pair it
+    cannot decide.  Shapes on every edge of the tiling."""
     g = torch.Generator(device=cuda).manual_seed(B * E + k)
     q = torch.randn(B, k, generator=g, device=cuda).to(dtype)
     tab = torch.randn(E, k, generator=g, device=cuda).to(dtype)
@@ -48,6 +57,60 @@ def test_rank_counts_matches_plain(cuda, B, E, k, norm, dtype):
     want = ref.rank_counts_ref(q, tab, gold, norm)
     assert 0 < float(want.float().mean()) < E
     assert torch.equal(got, want)
+
+
+def _tie_stress(dev, B, E, k, norm, dtype, copies=8):
+    """Each query's gold row copied into ``copies`` other table rows, half
+    exactly and half one ulp off in one coordinate, and the gold distance
+    computed by the plain version's own arithmetic: pairs at, or one ulp
+    from, the threshold."""
+    g = torch.Generator(device=dev).manual_seed(B + k)
+    q = torch.randn(B, k, generator=g, device=dev).to(dtype)
+    tab = torch.randn(E, k, generator=g, device=dev).to(dtype)
+    perm = torch.randperm(E, generator=g, device=dev)
+    golds, slots = perm[:B], perm[B:B * (copies + 1)].view(B, copies)
+    rows = tab[golds][:, None, :].repeat(1, copies, 1)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    col = torch.randint(0, k, (B, copies // 2, 1), generator=g, device=dev)
+    off = rows[:, copies // 2:, :]
+    bits = off.gather(2, col).view(ints)
+    step = torch.where(torch.rand(bits.shape, generator=g, device=dev) < 0.5,
+                       1, -1).to(ints)
+    off.scatter_(2, col, (bits + step).view(dtype))
+    tab[slots.reshape(-1)] = rows.reshape(-1, k)
+    qf, gf = q.float(), tab[golds].float()
+    if norm == "l1":
+        gold = (qf[:, 0] - gf[:, 0]).abs()
+        for j in range(1, k):
+            gold = gold + (qf[:, j] - gf[:, j]).abs()
+    else:
+        qq, qe, ee = qf[:, 0] * qf[:, 0], qf[:, 0] * gf[:, 0], \
+            gf[:, 0] * gf[:, 0]
+        for j in range(1, k):
+            qq = qq + qf[:, j] * qf[:, j]
+            qe = qe + qf[:, j] * gf[:, j]
+            ee = ee + gf[:, j] * gf[:, j]
+        gold = ref.l2_distance(qq, qe, ee)
+    return q, tab, gold.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["l1", "l2"])
+def test_rank_counts_at_ties(cuda, norm, dtype):
+    """Counts hang on single ulps (planted exact and one-ulp copies of each
+    gold row): still the plain version's, and under L2 the screen sends
+    pairs to the in-order re-check (counted by ``recheck_counter``)."""
+    q, tab, gold = _tie_stress(cuda, 200, 5000, 50, norm, dtype)
+    rechecked = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = rank_topk.rank_counts(q, tab, gold, norm=norm,
+                                recheck_counter=rechecked)
+    want = ref.rank_counts_ref(q, tab, gold, norm)
+    assert torch.equal(got, want)
+    if norm == "l2":
+        assert int(rechecked) > 0
+    else:
+        assert int(rechecked) == 0
 
 
 @pytest.mark.cuda

@@ -153,3 +153,77 @@ def test_no_plain_version_off_the_cpu():
         rank_topk.rank_counts(torch.tensor(q, device="meta"),
                               torch.tensor(tab), torch.tensor(gold))
     assert rank_topk.rank_counts.launches == launches
+
+
+def _plain_sum_bound(abs_dot, k):
+    """``γ_k · Σ|q_j e_j|``, ``γ_k = k·u / (1 - k·u)``, ``u = 2⁻²⁴``: the
+    most an in-order fp32 sum of ``k`` rounded products can differ from
+    the exact dot product."""
+    u = 2.0 ** -24
+    return k * u / (1 - k * u) * abs_dot
+
+
+def _in_order_dot(q, e):
+    """``Σ_j q_j·e_j`` in fp32 over the last axis, j in order, one rounding
+    per operation: the plain version's ``qe``."""
+    acc = q[..., 0] * e[..., 0]
+    for j in range(1, q.shape[-1]):
+        acc = acc + q[..., j] * e[..., j]
+    return acc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 7, 50, 64, 129, 256])
+@pytest.mark.parametrize("spread", ["normal", "wide"])
+def test_l2_screen_margin_covers_the_plain_sum(k, dtype, spread):
+    """The plain version's in-order fp32 ``qe`` stays within the standard
+    bound ``γ_k·Σ|q_j e_j|`` of the exact dot product, and that bound
+    within the L2 screen's margin ``l2_screen_margin``: the margin's share
+    for the plain sum holds.  ``wide`` mixes magnitudes over 2**±20, so
+    terms cancel."""
+    rng = np.random.default_rng(k)
+    shape = (4000, k)
+    q, e = rng.normal(size=shape), rng.normal(size=shape)
+    if spread == "wide":
+        q *= 2.0 ** rng.integers(-20, 21, size=shape)
+        e *= 2.0 ** rng.integers(-20, 21, size=shape)
+    q32 = torch.tensor(q, dtype=torch.float32).to(getattr(torch, dtype))
+    e32 = torch.tensor(e, dtype=torch.float32).to(getattr(torch, dtype))
+    q32, e32 = q32.float(), e32.float()          # the kernel's fp32 values
+    plain = _in_order_dot(q32, e32).double()
+    q64, e64 = q32.double(), e32.double()
+    exact = (q64 * e64).sum(-1)
+    err = (plain - exact).abs()
+    share = _plain_sum_bound((q64 * e64).abs().sum(-1), k)
+    margin = rank_topk.l2_screen_margin(_in_order_dot(q32, q32),
+                                        _in_order_dot(e32, e32), k)
+    assert torch.all(err <= share)
+    assert torch.all(share <= margin)
+    if k > 1 or dtype == "float32":        # bf16 products are exact
+        assert float(err.max()) > 0        # the sums did round
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_l2_epilogue_is_monotone(seed):
+    """The plain L2 decision ``l2_distance(qq, x, ee) < gold`` never goes
+    from true back to false as ``x`` (the dot product) steps through
+    adjacent fp32 values, with ``qq``, ``ee`` and ``gold`` fixed: the
+    premise of the kernel's screen, which decides a pair from ``x ± δ``."""
+    rng = np.random.default_rng(seed)
+    qq, ee = (torch.tensor(v, dtype=torch.float32)
+              for v in rng.uniform(1.0, 30.0, size=2))
+    x0 = rng.uniform(-float(qq + ee), float(qq + ee)) / 2
+    gold = port_ref.l2_distance(qq, torch.tensor(x0, dtype=torch.float32), ee)
+    # 40,001 adjacent floats centred on x0, where the decision flips
+    x = torch.tensor([x0], dtype=torch.float32)
+    steps = torch.arange(-20000, 20001, dtype=torch.int64)
+    sign = -1 if x0 < 0 else 1          # bit patterns order by magnitude
+    bits = x.view(torch.int32).to(torch.int64) + sign * steps
+    xs = bits.to(torch.int32).view(torch.float32)
+    assert torch.all(xs[1:] > xs[:-1])              # adjacent, ascending
+    decided = port_ref.l2_distance(qq, xs, ee) < gold
+    flips = decided[1:].int() - decided[:-1].int()
+    assert torch.all(flips >= 0)
+    assert decided[0].item() is False and decided[-1].item() is True
+    # gold sits at x0's own distance, so x0 itself does not count
+    assert not bool(port_ref.l2_distance(qq, xs[20000], ee) < gold)

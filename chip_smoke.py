@@ -49,6 +49,23 @@
    the round trip, answers are well formed and agree with the host
    reference protocol on a slice of the test split, and the kernel path
    agrees with the plain-scorer path on the whole split.
+5. Training with evaluation and resume, at the training path's width,
+   through ``kg.fit``: run A, SGD for 4 epochs with ``eval_every=2`` and
+   async checkpoints every 2 epochs; run B, SGD for 2 epochs with a
+   checkpoint, then ``resume=True`` to 4; BGD for 1 epoch with a
+   checkpoint, then resumed to 3.  All three kernels' counters are zeroed
+   just before and read just after.  Checks: A, resumed B and the
+   untraced SGD run of the training path give the same bits (params and
+   loss history), as do the resumed BGD run and the training path's; A's
+   trace entries equal a later ``kg.evaluate`` exactly (the last entry,
+   and the best entry against ``best_params``), at epochs [1, 3] and merge
+   rounds [2, 4]; the steps on disk and each manifest's ``config``
+   (``resume_config``); ``transe_score`` forward and backward launched
+   once per step and ``rank_counts`` as two evaluations predict; a bf16
+   cast of A's artifact answers ``query_tails`` and ``score`` as the CPU
+   does and keeps its fingerprint off the card.  Reports epoch seconds,
+   each boundary evaluation's seconds, the seconds the loop waits in
+   ``save_async`` and in the final wait, and the resume's restore seconds.
 
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -600,8 +617,9 @@ def check_topk(res, n, k, label, known=None):
 
 def training_path(torch, graph):
     """The training main path (``kg.fit``, SGD then BGD), its checks, the
-    same-seed rerun and the CPU-against-card epoch.  Returns the SGD
-    result, the path's info, its kernel launches and the init's metrics."""
+    same-seed rerun and the CPU-against-card epoch.  Returns the SGD and
+    BGD results, the path's info, its kernel launches and the init's
+    metrics."""
     from repro_torch import kg
     from repro_torch.core.models import KGConfig, get_model
     from repro_torch.data import kg as kg_data
@@ -704,7 +722,7 @@ def training_path(torch, graph):
             c["loss"][0] - c["loss"][1]) > CPU_EPOCH_LOSS_RTOL * abs(
                 c["loss"][1]):
         fail(f"the CPU and card SGD epochs disagree: {c}")
-    return sgd, info, launches, init_metrics
+    return sgd, bgd, info, launches, init_metrics
 
 
 def serving_path(torch, graph, kb):
@@ -831,6 +849,210 @@ def serving_path(torch, graph, kb):
     return info, main_launches
 
 
+def same_run(a, b):
+    """Two TrainResults with the same loss history and the same bits."""
+    return a.loss_history == b.loss_history and all(
+        bits_equal(a.params[n], b.params[n]) for n in b.params)
+
+
+class StepTimer:
+    """Host seconds of each call to the methods named in ``targets``
+    (``{label: (owner, attribute)}``), timed by wrapping them for the
+    span of a ``with`` block; the calls themselves are unchanged."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.seconds = {label: [] for label in targets}
+        self._saved = {}
+
+    def __enter__(self):
+        for label, (owner, attr) in self.targets.items():
+            orig = getattr(owner, attr)
+            self._saved[label] = orig
+
+            def timed(*args, _orig=orig, _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*args, **kw)
+                finally:
+                    self.seconds[_label].append(time.perf_counter() - t0)
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._saved[label])
+        return False
+
+
+def eval_resume_path(torch, graph, sgd, bgd):
+    """Training with evaluation and resume (item 5 of the module
+    docstring).  Returns the path's info and its launches of each
+    kernel."""
+    import numpy as np
+
+    from repro_torch import kg
+    from repro_torch.core import eval_device, mapreduce
+    from repro_torch.core import trace as trace_lib
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    info = {"filter_index_cached_before": None in graph._filter_cands}
+    steps = len(graph.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
+    marks = []                     # (epoch, perf_counter) per callback
+
+    def callback(epoch, loss):     # loss is a float: synchronized
+        marks.append((epoch, time.perf_counter()))
+
+    timer = StepTimer({
+        "record": (trace_lib.TraceRecorder, "record"),
+        "save_async": (ckpt_lib.AsyncSaver, "save_async"),
+        "finish": (mapreduce._CheckpointWriter, "finish"),
+        "restore": (ckpt_lib, "restore"),
+    })
+    sgd_kw = dict(strategy="average", seed=0, device=DEVICE, **TRAIN)
+    bgd_kw = dict(seed=0, device=DEVICE, **TRAIN)
+    dirs = {name: tempfile.TemporaryDirectory() for name in "ABC"}
+    t_phase = time.perf_counter()
+    try:
+        ts.transe_score.launches = 0          # --- eval/resume path ---
+        ts.transe_score_bwd.launches = 0
+        rank_topk.rank_counts.launches = 0
+        with timer:
+            t0 = time.perf_counter()
+            a = kg.fit(graph, "transe", "sgd", epochs=SGD_EPOCHS,
+                       eval_every=2, ckpt_dir=dirs["A"].name,
+                       checkpoint_every=2, callback=callback, **sgd_kw)
+            info["run_a_s"] = time.perf_counter() - t0
+            a_marks, a_records = list(marks), len(timer.seconds["record"])
+            a_saves = list(timer.seconds["save_async"])
+            a_finish = list(timer.seconds["finish"])
+            kg.fit(graph, "transe", "sgd", epochs=2, ckpt_dir=dirs["B"].name,
+                   checkpoint_every=2, **sgd_kw)
+            t0 = time.perf_counter()
+            b = kg.fit(graph, "transe", "sgd", epochs=SGD_EPOCHS,
+                       ckpt_dir=dirs["B"].name, resume=True, **sgd_kw)
+            info["resume_b_s"] = time.perf_counter() - t0
+            kg.fit(graph, "transe", "bgd", epochs=1, ckpt_dir=dirs["C"].name,
+                   checkpoint_every=1, **bgd_kw)
+            c = kg.fit(graph, "transe", "bgd", epochs=BGD_EPOCHS,
+                       ckpt_dir=dirs["C"].name, resume=True, **bgd_kw)
+        launches = {"rank_counts": rank_topk.rank_counts.launches,
+                    "transe_score": ts.transe_score.launches,
+                    "transe_score_bwd": ts.transe_score_bwd.launches}
+        # --- end ---
+        on_disk = {name: sorted(int(e.split("_")[1])
+                                for e in os.listdir(d.name))
+                   for name, d in dirs.items()}
+        configs = {}
+        for name, d in dirs.items():
+            for step in on_disk[name]:
+                _, _, extra = ckpt_lib.restore(d.name, step=step)
+                configs[f"{name}{step}"] = extra["config"]
+    finally:
+        for d in dirs.values():
+            d.cleanup()
+
+    # epoch seconds of run A: between callbacks, less the evaluation and
+    # the save that ran at the boundary in between
+    rec, sav = timer.seconds["record"][:a_records], a_saves
+    boundary = {1: rec[0] + sav[0], 3: rec[1] + sav[1]}
+    epoch_s = []
+    for (e0, t0), (e1, t1) in zip(a_marks, a_marks[1:]):
+        epoch_s.append(t1 - t0 - boundary.get(e0, 0.0))
+    walls = [e.wall_clock for e in a.trace.entries]
+    info.update(
+        steps_per_epoch=steps,
+        epoch_s_after_first=epoch_s,
+        eval_s=rec, eval_wall_clock=walls,
+        eval_wall_clock_deltas=[walls[0]] + [
+            y - x for x, y in zip(walls, walls[1:])],
+        save_async_wait_s=sav, finish_wait_s=a_finish,
+        restore_s=timer.seconds["restore"],
+        steps_on_disk=on_disk, launches=launches,
+        loss_history={"A": a.loss_history, "B": b.loss_history,
+                      "C": c.loss_history},
+        trace_epochs=a.trace.epochs(),
+        merge_rounds=[e.merge_round for e in a.trace.entries],
+        best_epoch=a.best_epoch)
+
+    # checks: observing and resuming change nothing
+    info["bitwise"] = {"A_vs_untraced": same_run(a, sgd),
+                       "B_resumed_vs_untraced": same_run(b, sgd),
+                       "bgd_resumed_vs_untraced": same_run(c, bgd)}
+    print("eval/resume " + json.dumps(info), flush=True)
+    if not all(info["bitwise"].values()):
+        fail(f"a traced or resumed run gave other bits: {info['bitwise']}")
+    if info["trace_epochs"] != [1, 3] or info["merge_rounds"] != [2, 4]:
+        fail(f"trace epochs {info['trace_epochs']} and merge rounds "
+             f"{info['merge_rounds']}, expected [1, 3] and [2, 4]")
+    if on_disk != {"A": [2, 4], "B": [2, 4], "C": [1, 3]}:
+        fail(f"checkpoint steps on disk {on_disk}")
+    want_cfg = {
+        "sgd": mapreduce.resume_config(*kg.make_configs(
+            graph, "transe", "sgd", strategy="average", **TRAIN)),
+        "bgd": mapreduce.resume_config(*kg.make_configs(
+            graph, "transe", "bgd", **TRAIN))}
+    for key, cfg in configs.items():
+        if cfg != want_cfg["bgd" if key.startswith("C") else "sgd"]:
+            fail(f"manifest {key} holds config {cfg}")
+    info["runs_s"] = time.perf_counter() - t_phase
+    per_eval = 2 * eval_device._layout(len(graph.test),
+                                       eval_device.DEFAULT_CHUNK)[0]
+    predicted = {"rank_counts": 2 * per_eval,
+                 "transe_score": steps * (2 * SGD_EPOCHS + BGD_EPOCHS),
+                 "transe_score_bwd": steps * (2 * SGD_EPOCHS + BGD_EPOCHS)}
+    info["launches_predicted"] = predicted
+    if launches != predicted:
+        fail(f"launches {launches} on the eval/resume path; the schedule "
+             f"predicts {predicted}")
+
+    # the trace against later evaluations of the same params
+    last, info["posthoc_evaluate_s"] = wall(
+        torch, lambda: kg.evaluate(a.kb, engine="device"))
+    best = kg.evaluate(a.best_params, "transe", graph, engine="device")
+    info["trace_equals_evaluate"] = {
+        "last": last == a.trace.entries[-1].metrics,
+        "best": best == a.trace.best().metrics}
+    if not all(info["trace_equals_evaluate"].values()):
+        fail(f"trace entries differ from a later kg.evaluate: "
+             f"{info['trace_equals_evaluate']}")
+
+    # bf16 serving on the card, against the CPU
+    kb16 = kg.KnowledgeBase(
+        model="transe", graph=graph, norm="l1",
+        params={n: t.to(torch.bfloat16) for n, t in a.params.items()})
+    cpu16 = kg.KnowledgeBase(
+        model="transe", graph=graph, norm="l1",
+        params={n: t.cpu() for n, t in kb16.params.items()})
+    pairs = graph.test[:N_QUERY_PAIRS]
+    h, r, t = pairs[:, 0], pairs[:, 1], pairs[:, 2]
+    tails, info["bf16_query_tails_s"] = wall(
+        torch, lambda: kb16.query_tails(h, r, k=10))
+    check_topk(tails, len(pairs), 10, "bf16 query_tails")
+    scores = kb16.score(h, r, t)
+    few = slice(0, 64)
+    want = cpu16.query_tails(h[few], r[few], k=10)
+    info["bf16"] = {
+        "energies_dtype": str(tails.energies.dtype),
+        "tails_equal_cpu": bool(
+            np.array_equal(tails.ids[few], want.ids)
+            and np.array_equal(tails.energies[few], want.energies)),
+        "score_equal_cpu": bool(np.array_equal(
+            scores, cpu16.score(h, r, t))),
+        "fingerprint_equal_cpu": kb16.fingerprint() == cpu16.fingerprint(),
+        "fingerprint_differs_from_fp32": kb16.fingerprint()
+        != a.kb.fingerprint()}
+    print("bf16 serving " + json.dumps(info["bf16"]), flush=True)
+    if not (all(v for k, v in info["bf16"].items() if k != "energies_dtype")
+            and tails.energies.dtype == np.float32
+            and scores.dtype == np.float32
+            and np.all(np.isfinite(scores))):
+        fail(f"bf16 serving on the card: {info['bf16']}")
+    info["phase_s"] = time.perf_counter() - t_phase
+    return info, launches
+
+
 def main():
     import torch
 
@@ -858,10 +1080,12 @@ def main():
     ts_cases = transe_kernel_phase(torch, rates)
     graph, graph_info = build_graph()
     print("graph " + json.dumps(graph_info), flush=True)
-    sgd, train_info, ts_launches, init_metrics = training_path(torch, graph)
+    sgd, bgd, train_info, ts_launches, init_metrics = training_path(
+        torch, graph)
     info, launches = serving_path(torch, graph, sgd.kb)
+    resume_info, phase_launches = eval_resume_path(torch, graph, sgd, bgd)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
-                init_metrics=init_metrics)
+                init_metrics=init_metrics, eval_resume=resume_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -882,7 +1106,9 @@ def main():
         "name": "rank_counts", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rank_topk.cu",
         "replaces": "src/repro/kernels/rank_topk.py:65",
-        "launches": launches,
+        "launches": launches + phase_launches["rank_counts"],
+        "launches_by_path": {"serving": launches,
+                             "eval_resume": phase_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -904,7 +1130,9 @@ def main():
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/transe_score.cu",
-            "replaces": replaces, "launches": n,
+            "replaces": replaces, "launches": n + phase_launches[kname],
+            "launches_by_path": {"training": n,
+                                 "eval_resume": phase_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -924,7 +1152,8 @@ def main():
         json.dump({"nvidia_smi": smi, "device": device, "kernels": kernels,
                    "main_path": info}, f, indent=1)
     print(json.dumps({k: info[k] for k in info
-                      if k not in ("metrics", "init_metrics", "training")}),
+                      if k not in ("metrics", "init_metrics", "training",
+                                   "eval_resume")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

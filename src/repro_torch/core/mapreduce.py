@@ -26,8 +26,21 @@ seed gives the same run twice.  The reference draws from a ``jax.random``
 key chain instead; ``train(draws=...)`` takes an epoch's draws from the
 caller, which is how the parity tests replay the reference's.
 
+In-training evaluation and checkpoint/resume ride the Reduce boundaries,
+which on the host pipeline are every epoch: ``train(eval_loop=...)``
+evaluates every ``eval_every`` epochs and at the last one
+(``core/trace.py``: a ``TrainingTrace``, early stopping on ``patience``,
+the best params kept), and ``train(checkpoint=...)`` saves params and a
+manifest (:class:`CheckpointConfig`, through ``train/checkpoint.py``'s
+``AsyncSaver`` by default).  A resume (``start_epoch`` with the saved
+params and loss history) continues bit-identically: every epoch's
+batches and draws are a pure function of (seed, absolute epoch), so
+nothing needs replaying.  The manifest holds the reference's fields
+(:func:`resume_config` among them), so a checkpoint resumes in either
+package.
+
 Not ported yet, each raising and naming its ROADMAP.md item: the device
-pipeline and non-default ``EpochSchedule`` (item 9), the sparse transport
+pipeline and non-default ``EpochSchedule`` (item 9b), the sparse transport
 (item 11), the ``shard_map`` backend, sharded tables and staleness
 (item 12).
 """
@@ -43,9 +56,11 @@ from repro_torch import resolve_device
 from repro_torch.core import merge as merge_lib
 from repro_torch.core import models as kg_models
 from repro_torch.core import negative
+from repro_torch.core import trace as trace_lib
 from repro_torch.core.models.base import (
     EpochStats, KGConfig, KGModel, Params, apply_gradients)
 from repro_torch.data import kg as kg_lib
+from repro_torch.train import checkpoint as checkpoint_lib
 from repro_torch.util import exact_div, not_ported, warn_fresh
 
 #: an epoch's draws: its negatives (W, S, B, 3) and, for the ``random``
@@ -71,6 +86,93 @@ class EpochSchedule:
             raise not_ported(
                 "an EpochSchedule other than one epoch per block with a "
                 "Reduce every epoch (the device pipeline)", 9)
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Periodic training checkpoints at Reduce boundaries (``train()`` /
+    ``kg.fit(checkpoint_every=K, ckpt_dir=...)``).
+
+    ``every`` counts epochs between snapshots; ``None`` saves only the
+    final state.  The run's last epoch (including an early stop) is
+    always checkpointed, so a resume can always continue.  Saves go
+    through ``train/checkpoint.AsyncSaver`` by default — the loop pays the
+    device-to-host copy, a daemon thread the disk I/O; ``synchronous=True``
+    writes in line.
+
+    The manifest records model name, seed, graph fingerprint, epoch, the
+    loss history so far and :func:`resume_config` — everything
+    ``kg.fit(resume=True)`` needs to continue bit-identically, in either
+    package."""
+
+    ckpt_dir: str
+    every: Optional[int] = None
+    keep: int = 3
+    synchronous: bool = False
+
+    def __post_init__(self):
+        if self.every is not None and self.every < 1:
+            raise ValueError(f"every must be >= 1 (or None), got {self.every}")
+
+
+def resume_config(tcfg: KGConfig, cfg: "MapReduceConfig") -> dict:
+    """The manifest fields a resume must match for bit-identity: every
+    knob that shapes the training trajectory — partitioning, batching,
+    schedule, paradigm/pipeline/strategy, and the scalar hyperparameters.
+    The reference's dict, field for field: ``backend``, ``block_epochs``,
+    ``merge_transport``, ``table_sharding`` and ``touched_capacity`` are
+    absent, as there (each is proved not to change the trajectory)."""
+    return {
+        "paradigm": cfg.paradigm,
+        "pipeline": cfg.pipeline,
+        "n_workers": cfg.n_workers,
+        "batch_size": cfg.batch_size,
+        "partition": cfg.partition,
+        "staleness": cfg.staleness,
+        "strategy": cfg.strategy if cfg.paradigm == "sgd" else None,
+        "merge_every": cfg.schedule.merge_every,
+        "repartition_every": cfg.schedule.repartition_every,
+        "margin": tcfg.margin,
+        "norm": tcfg.norm,
+        "learning_rate": tcfg.learning_rate,
+        "normalize": tcfg.normalize,
+        "sampling": tcfg.sampling,
+    }
+
+
+class _CheckpointWriter:
+    """The training loop's checkpoint hook: owns the saver and the
+    manifest fields every save shares; the loop calls ``due`` / ``save``
+    at each boundary and ``finish`` at the end."""
+
+    def __init__(self, cfg: CheckpointConfig, base_extra: dict):
+        self.cfg = cfg
+        self.base = base_extra
+        self.saver = None if cfg.synchronous else checkpoint_lib.AsyncSaver()
+        self.last_saved: Optional[int] = None
+
+    def due(self, done: int, epochs: int, stopping: bool = False) -> bool:
+        if done == self.last_saved:
+            return False
+        return (
+            done == epochs
+            or stopping
+            or (self.cfg.every is not None and done % self.cfg.every == 0)
+        )
+
+    def save(self, done: int, params, history) -> None:
+        extra = dict(self.base, epoch=done, loss_history=list(history))
+        self.last_saved = done
+        if self.saver is None:
+            checkpoint_lib.save(self.cfg.ckpt_dir, done, params, extra=extra,
+                                keep=self.cfg.keep)
+        else:
+            self.saver.save_async(self.cfg.ckpt_dir, done, params,
+                                  extra=extra, keep=self.cfg.keep)
+
+    def finish(self) -> None:
+        if self.saver is not None:
+            self.saver.wait()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,10 +342,38 @@ class TrainResult:
     loss_history: list
     epochs_run: int
     model: str = "transe"
+    # in-training evaluation (eval_loop / kg.fit(eval_every=...)): the
+    # quality-vs-epoch trace, and — when keep_best — the params of the
+    # best-metric boundary (paper-style model selection)
+    trace: Optional[trace_lib.TrainingTrace] = None
+    best_params: Optional[Params] = None
+    best_epoch: Optional[int] = None
     # the persistent/serveable artifact view of this result — a
     # repro_torch.kb.KnowledgeBase assembled by kg.fit (None when train()
     # is driven directly below the facade)
     kb: Optional[object] = None
+
+
+def _make_recorder(
+    kg, tcfg: KGConfig, model: KGModel,
+    eval_loop: Optional[trace_lib.EvalLoopConfig],
+) -> Optional[trace_lib.TraceRecorder]:
+    if eval_loop is None:
+        return None
+    return trace_lib.TraceRecorder(
+        eval_loop, trace_lib.make_eval_fn(kg, model, tcfg.norm, eval_loop))
+
+
+def _finish_result(params, history, epochs_run, model,
+                   recorder) -> TrainResult:
+    if recorder is None:
+        return TrainResult(
+            params=params, loss_history=history, epochs_run=epochs_run,
+            model=model.name)
+    return TrainResult(
+        params=params, loss_history=history, epochs_run=epochs_run,
+        model=model.name, trace=recorder.finalize(),
+        best_params=recorder.best_params, best_epoch=recorder.best_epoch)
 
 
 def epoch_generator(seed: int, epoch: int, stream: int) -> torch.Generator:
@@ -281,6 +411,11 @@ def train(
     model: Optional[KGModel] = None,
     device=None,
     draws: Optional[Callable[[int], Draws]] = None,
+    eval_loop: Optional[trace_lib.EvalLoopConfig] = None,
+    checkpoint: Optional[CheckpointConfig] = None,
+    start_epoch: int = 0,
+    resume_fresh_init: bool = True,
+    prior_history: Optional[list] = None,
 ) -> TrainResult:
     """Training loop: balanced partitioning, deterministic batches,
     negative sampling, Map/Reduce epochs, loss history.
@@ -300,10 +435,32 @@ def train(
     numpy arrays, in place of the port's own draws.  ``callback(epoch,
     loss)`` fires every epoch.
 
+    In-training evaluation: ``eval_loop`` (a ``trace.EvalLoopConfig``, see
+    ``kg.fit(eval_every=...)``) runs the evaluation protocol after every
+    ``eval_every``-th epoch and after the last, records a
+    ``TrainingTrace`` on the result, keeps the best-metric params and
+    stops early on ``patience``.
+
+    Checkpoint/resume: ``checkpoint`` (a :class:`CheckpointConfig`) saves
+    params and manifest at epoch boundaries; ``start_epoch=N`` with the
+    checkpointed ``params`` resumes a run bit-identically, since batches
+    and draws are pure functions of (seed, absolute epoch) — ``draws``
+    too is called with absolute epochs.  ``prior_history`` (the
+    manifest's loss history) is prepended, so a resumed ``TrainResult``
+    matches the unbroken run's.  ``resume_fresh_init`` (whether the
+    original run drew its own init) changes nothing here; it is carried
+    into later manifests, where the reference's resume needs it to replay
+    its key chain.
+
     ``cfg.n_workers == 1`` reproduces single-thread Algorithm 1 (the
     paper's baseline) for the chosen model."""
     model = _resolve(cfg, model)
     device = resolve_device(device)
+    if start_epoch < 0 or (start_epoch and start_epoch >= epochs):
+        raise ValueError(
+            f"start_epoch={start_epoch} must be in [0, epochs={epochs}) — "
+            "resuming a checkpoint at or past the requested epoch count "
+            "has nothing left to train; raise epochs")
     partitioned = kg_lib.PARTITIONERS[cfg.partition](
         seed, kg.train, cfg.n_workers)
     n_w = partitioned.shape[1]
@@ -330,22 +487,45 @@ def train(
     if tcfg.sampling == "bern":
         head_prob = torch.as_tensor(
             negative.bernoulli_stats(kg.train, kg.n_relations), device=device)
+    caller_params = params is not None
     if params is None:
         params = model.init_params(
             torch.Generator().manual_seed(seed), tcfg, device=device)
     elif set(params) != set(model.param_roles()):
         raise ValueError(
             f"params have tables {sorted(params)} but model "
-            f"{model.name!r} expects {sorted(model.param_roles())}")
+            f"{model.name!r} expects {sorted(model.param_roles())} — "
+            "params from a different model?")
     else:
         params = {name: (p if isinstance(p, torch.Tensor)
                          else torch.tensor(np.asarray(p))).to(
                              device=device, dtype=tcfg.dtype)
                   for name, p in params.items()}
 
+    recorder = _make_recorder(kg, tcfg, model, eval_loop)
+    writer = None
+    if checkpoint is not None:
+        writer = _CheckpointWriter(checkpoint, {
+            "kind": "kg_train",
+            "model": model.name,
+            "seed": seed,
+            "paradigm": cfg.paradigm,
+            "pipeline": cfg.pipeline,
+            "dim": tcfg.dim,
+            "n_entities": tcfg.n_entities,
+            "n_relations": tcfg.n_relations,
+            # whether the ORIGINAL epoch-0 run drew its own init: what the
+            # reference's resume replays its key chain by
+            "fresh_init": (not caller_params if start_epoch == 0
+                           else resume_fresh_init),
+            "graph": kg.fingerprint(),
+            "config": resume_config(tcfg, cfg),
+        })
+
     epoch_fn = make_epoch_fn(cfg, tcfg, model)
-    history = []
-    for epoch in range(epochs):
+    history = list(prior_history or [])
+    epochs_run = epochs
+    for epoch in range(start_epoch, epochs):
         pos = torch.as_tensor(
             kg_lib.epoch_batches(seed, epoch, partitioned, cfg.batch_size),
             device=device)
@@ -363,5 +543,19 @@ def train(
         history.append(loss)
         if callback is not None:
             callback(epoch, loss)
-    return TrainResult(params=params, loss_history=history,
-                       epochs_run=epochs, model=model.name)
+        # every epoch ends in a Reduce, so any eval_every lands on a
+        # Reduce boundary; the final epoch is always evaluated
+        done = epoch + 1
+        stop = False
+        if recorder is not None and (
+            done % eval_loop.eval_every == 0 or done == epochs
+        ):
+            stop = recorder.record(epoch, done, loss, params)
+        if writer is not None and writer.due(done, epochs, stopping=stop):
+            writer.save(done, params, history)
+        if stop:
+            epochs_run = done
+            break
+    if writer is not None:
+        writer.finish()
+    return _finish_result(params, history, epochs_run, model, recorder)

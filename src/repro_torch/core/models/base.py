@@ -85,14 +85,31 @@ def _check_norm(norm: str) -> None:
         raise ValueError(f"norm must be 'l1' or 'l2', got {norm!r}")
 
 
-def _seq_sum(term: Callable[[int], torch.Tensor], k: int,
-             norm: str) -> torch.Tensor:
-    """``Σ_j term(j)`` in index order, then the L2 root when ``norm`` asks
-    for it."""
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` widened to float32 when it is half precision (its ``|x|`` and
+    ``x²`` are then exact), else ``x`` itself."""
+    return x.float() if x.dtype in _HALF else x
+
+
+def _seq_sum(term: Callable[[int], torch.Tensor], k: int) -> torch.Tensor:
+    """``Σ_j term(j)`` in index order, one rounding per addition."""
     acc = term(0)
     for j in range(1, k):
         acc = acc + term(j)
-    return acc if norm == "l1" else sqrt_rn(acc + 1e-12)
+    return acc
+
+
+def _finish(total: torch.Tensor, dtype, norm: str) -> torch.Tensor:
+    """A distance's sum rounded once to its inputs' ``dtype``, then the L2
+    root when ``norm`` asks for it.  Half-precision inputs are summed in
+    float32 from exact terms (:func:`_wide`), as the reference's
+    ``jnp.sum`` of bf16 is: a bf16 sum rounded at every addition would
+    move energies by an ulp and reorder top-k answers."""
+    total = total.to(dtype)
+    return total if norm == "l1" else sqrt_rn(total + 1e-12)
 
 
 def seq_distance(
@@ -101,16 +118,15 @@ def seq_distance(
     """L1 ``Σ_j |x_j|`` or L2 ``sqrt(Σ_j x_j² + 1e-12)`` of the vectors
     whose ``j``-th components ``part(j)`` returns, summed in index order
     ``j = 0 .. k-1`` with one rounding per operation (no fused
-    multiply-add)."""
+    multiply-add; half precision as in :func:`_finish`)."""
     _check_norm(norm)
-    if norm == "l1":
-        return _seq_sum(lambda j: part(j).abs(), k, norm)
+    first = part(0)
 
-    def square(j):
-        x = part(j)
-        return x * x
+    def term(j):
+        x = _wide(first if j == 0 else part(j))
+        return x.abs() if norm == "l1" else x * x
 
-    return _seq_sum(square, k, norm)
+    return _finish(_seq_sum(term, k), first.dtype, norm)
 
 
 def dissimilarity(x: torch.Tensor, norm: str) -> torch.Tensor:
@@ -118,16 +134,19 @@ def dissimilarity(x: torch.Tensor, norm: str) -> torch.Tensor:
     operations as :func:`seq_distance`, with the elementwise ``|x|`` or
     ``x²`` taken in one pass over ``x``."""
     _check_norm(norm)
-    terms = x.abs() if norm == "l1" else x * x
-    return _seq_sum(lambda j: terms[..., j], x.shape[-1], norm)
+    w = _wide(x)
+    terms = w.abs() if norm == "l1" else w * w
+    return _finish(_seq_sum(lambda j: terms[..., j], x.shape[-1]),
+                   x.dtype, norm)
 
 
 def unit_rows(x: torch.Tensor) -> torch.Tensor:
     """Row-wise L2 normalization (the constraint projection primitive),
     ``x / (sqrt(Σ_j x_j²) + 1e-12)`` with the squares summed in index
     order, so a projection gives the same bits on the CPU and the card."""
-    sq = x * x
-    norm = sqrt_rn(_seq_sum(lambda j: sq[..., j], x.shape[-1], "l1"))
+    w = _wide(x)
+    sq = w * w
+    norm = sqrt_rn(_seq_sum(lambda j: sq[..., j], x.shape[-1]).to(x.dtype))
     return x / (norm[..., None] + 1e-12)
 
 

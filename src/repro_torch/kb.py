@@ -81,14 +81,18 @@ class KnowledgeBase:
         name, norm, every table's bytes (as numpy arrays, dtype and shape
         included) and the graph's ``KG.fingerprint()`` digests — the
         reference's recipe, so equal tables give the equal digest in both
-        packages.  Computed once and cached."""
+        packages (a bf16 table hashes as the dtype name ``bfloat16`` and
+        its raw 2-byte values, as the reference's ``ml_dtypes`` array
+        does).  Computed once and cached."""
         if self._fingerprint is None:
             h = hashlib.sha256()
             h.update(f"{self.model.name}:{self.norm}".encode())
             for name in sorted(self.params):
-                arr = np.ascontiguousarray(
-                    ckpt_lib._host(self.params[name]))
-                h.update(f":{name}:{arr.dtype}:{arr.shape}".encode())
+                table = self.params[name]
+                arr = np.ascontiguousarray(ckpt_lib._host(table))
+                dtype = ("bfloat16" if table.dtype == torch.bfloat16
+                         else arr.dtype)
+                h.update(f":{name}:{dtype}:{arr.shape}".encode())
                 h.update(arr.tobytes())
             if self.graph is not None:
                 for key, val in sorted(self.graph.fingerprint().items()):
@@ -140,8 +144,9 @@ class KnowledgeBase:
         ``device`` (default: the GPU; raises without one unless ``device``
         is given).  Raises a clear error when the directory holds something
         else, the manifest names a model not ported, a stored table's shape
-        disagrees with the manifest, or the shipped graph fails its
-        fingerprint."""
+        disagrees with the manifest, a table is stored as raw bfloat16
+        bytes (``|V2``: the reference loads those but cannot serve them),
+        or the shipped graph fails its fingerprint."""
         device = resolve_device(device)
         _, tree, extra = ckpt_lib.restore(
             str(path), step=step, expect={"kind": ARTIFACT_KIND})
@@ -157,6 +162,14 @@ class KnowledgeBase:
                     f"artifact table {name!r} has shape "
                     f"{tuple(stored[name].shape)} but the manifest records "
                     f"{tuple(shape)} — corrupted artifact?")
+        for name, arr in sorted(stored.items()):
+            if arr.dtype.kind == "V":
+                raise ValueError(
+                    f"artifact table {name!r} at {path} is stored as raw "
+                    f"{arr.dtype.itemsize}-byte values ({arr.dtype.str}): a "
+                    "bfloat16 table, which numpy saves without its type; "
+                    "neither package can serve it after a save (the "
+                    "reference loads it and fails at the first query)")
         params = {name: torch.as_tensor(arr, device=device)
                   for name, arr in stored.items()}
         graph = None

@@ -15,27 +15,29 @@
 ``device="cpu"`` to train on the CPU (the kernels' plain versions).
 ``paradigm`` is the paper's 'sgd' (local epochs + conflict-resolving
 Reduce) or 'bgd' (gradient Reduce), on the host pipeline with simulated
-workers; see ``repro_torch.core.mapreduce``.
+workers; see ``repro_torch.core.mapreduce``.  ``fit(eval_every=K)``
+traces quality against epochs from inside the loop, and ``fit(ckpt_dir=,
+checkpoint_every=, resume=True)`` checkpoints and resumes bit-identically.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import torch
+
 from repro_torch import kb as kb_lib
+from repro_torch import resolve_device
 from repro_torch.core import eval as kg_eval
 from repro_torch.core import mapreduce
+from repro_torch.core import trace as trace_lib
 from repro_torch.core.models import KGConfig, KGModel, available, get_model
+from repro_torch.train import checkpoint as checkpoint_lib
 from repro_torch.util import not_ported
 
 TrainResult = mapreduce.TrainResult
 EpochSchedule = mapreduce.EpochSchedule
 KnowledgeBase = kb_lib.KnowledgeBase
-
-# the reference's in-training evaluation and checkpoint/resume arguments
-_ITEM_9_ARGS = (
-    "eval_every", "eval_metric", "patience", "eval_engine", "eval_filtered",
-    "eval_kw", "keep_best", "ckpt_dir", "checkpoint_every", "resume",
-    "keep_checkpoints", "sync_checkpoints")
+TrainingTrace = trace_lib.TrainingTrace
 
 
 def models() -> tuple:
@@ -124,6 +126,18 @@ def fit(
     seed: int = 0,
     params=None,
     callback: Optional[Callable[[int, float], None]] = None,
+    eval_every: Optional[int] = None,
+    eval_metric: str = "entity_filtered.mean_rank",
+    patience: Optional[int] = None,
+    eval_engine: str = "device",
+    eval_filtered: bool = True,
+    eval_kw: Optional[dict] = None,
+    keep_best: bool = True,
+    ckpt_dir: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
+    resume: bool = False,
+    keep_checkpoints: int = 3,
+    sync_checkpoints: bool = False,
     device=None,
     draws=None,
     **config_kw,
@@ -133,24 +147,104 @@ def fit(
     ``config_kw`` forwards to :func:`make_configs` (dim, margin, norm,
     learning_rate, n_workers, strategy, batch_size, partition, ...).  The
     tables live on ``device``: the GPU by default (raises without one),
-    ``"cpu"`` on request.  ``draws`` (``mapreduce.train``) replaces the
-    port's own per-epoch random draws.  Returns a :class:`TrainResult`
-    whose ``.kb`` is the trained :class:`KnowledgeBase`.
+    ``"cpu"`` on request; a resumed run restores onto it too.  ``draws``
+    (``mapreduce.train``) replaces the port's own per-epoch random draws.
+    Returns a :class:`TrainResult` whose ``.kb`` is the trained
+    :class:`KnowledgeBase`.
 
-    The reference's in-training evaluation (``eval_every`` and its
-    options) and checkpoint/resume (``ckpt_dir``, ``checkpoint_every``,
-    ``resume``, ...) are not ported yet (ROADMAP.md item 9), nor is
-    ``mesh=`` (item 12): passing any raises."""
-    for name in _ITEM_9_ARGS:
-        if name in config_kw:
-            raise not_ported(f"kg.fit({name}=...)", 9)
+    In-training evaluation (``core/trace.py``): ``eval_every=K`` runs the
+    full evaluation protocol after every K-th epoch and after the last
+    (every epoch ends in a Reduce) and attaches a :class:`TrainingTrace`
+    to the result; each entry's metrics are exactly what a later
+    :func:`evaluate` of the same params returns.  ``eval_metric`` (a
+    dotted spec, default the filtered mean rank) drives ``patience``
+    early stopping (stop after that many consecutive non-improving
+    evaluations) and, with ``keep_best``, the ``best_params`` /
+    ``best_epoch`` of the result.  ``eval_engine`` defaults to the device
+    engine; ``eval_kw`` forwards its options (``chunk``, ``fused``,
+    ``max_fanout``).  Unlike the reference, ``fit`` adds no
+    ``n_workers`` to them: the port's device engine has no worker axis
+    (the reference's only splits the query axis, which changes no
+    number).
+
+    Checkpoint/resume: ``ckpt_dir`` + ``checkpoint_every=K`` save params
+    and manifest every K epochs (``None``: the final state only; the last
+    epoch, an early stop included, is always saved; saves are async
+    unless ``sync_checkpoints``; the newest ``keep_checkpoints`` steps
+    stay).  ``resume=True`` restores the latest checkpoint in ``ckpt_dir``
+    after checking its model, seed, graph fingerprint and training config
+    against this call, and continues to ``epochs`` in all, bit-identically
+    to the unbroken run.  Checkpoints are the reference's format: either
+    package resumes the other's.
+
+    Not ported yet, each raising and naming its ROADMAP.md item: the
+    device pipeline (``pipeline``, ``block_epochs``, ``merge_every``;
+    item 9) and ``mesh=`` (item 12)."""
     if "mesh" in config_kw:
         raise not_ported("kg.fit(mesh=...) (the shard_map backend)", 12)
+    device = resolve_device(device)
     model = get_model(model)
     kcfg, mcfg = make_configs(kg, model, paradigm, **config_kw)
+
+    ckpt_cfg = None
+    resume_kw: dict = {}
+    if ckpt_dir is not None:
+        ckpt_cfg = mapreduce.CheckpointConfig(
+            ckpt_dir=ckpt_dir, every=checkpoint_every,
+            keep=keep_checkpoints, synchronous=sync_checkpoints)
+    else:
+        ckpt_only = {
+            "checkpoint_every": checkpoint_every is not None,
+            "resume": resume,
+            "keep_checkpoints": keep_checkpoints != 3,
+            "sync_checkpoints": sync_checkpoints,
+        }
+        passed = sorted(k for k, hit in ckpt_only.items() if hit)
+        if passed:
+            raise ValueError(
+                f"{passed} configure checkpointing and need ckpt_dir= "
+                "to say where the checkpoints live")
+    if resume:
+        if params is not None:
+            raise ValueError(
+                "pass either resume=True (params come from the latest "
+                "checkpoint) or params=, not both")
+        template = model.init_params(torch.Generator(), kcfg, device="meta")
+        _, params, extra = checkpoint_lib.restore(
+            ckpt_dir, params_template=template,
+            expect={"kind": "kg_train", "model": model.name,
+                    "seed": seed, "graph": kg.fingerprint(),
+                    "config": mapreduce.resume_config(kcfg, mcfg)})
+        resume_kw = dict(
+            start_epoch=int(extra["epoch"]),
+            resume_fresh_init=bool(extra.get("fresh_init", True)),
+            prior_history=list(extra.get("loss_history") or []),
+        )
+    eval_loop = None
+    if eval_every is not None:
+        eval_loop = trace_lib.EvalLoopConfig(
+            eval_every=eval_every, metric=eval_metric, patience=patience,
+            engine=eval_engine, filtered=eval_filtered,
+            engine_kw=dict(eval_kw or {}), keep_best=keep_best)
+    else:
+        non_defaults = {
+            "eval_metric": eval_metric != "entity_filtered.mean_rank",
+            "patience": patience is not None,
+            "eval_engine": eval_engine != "device",
+            "eval_filtered": eval_filtered is not True,
+            "eval_kw": eval_kw is not None,
+            "keep_best": keep_best is not True,
+        }
+        passed = sorted(k for k, hit in non_defaults.items() if hit)
+        if passed:
+            raise ValueError(
+                f"{passed} configure the in-training evaluation loop and "
+                "would be silently ignored — pass eval_every=K to enable "
+                "it")
     res = mapreduce.train(
         kg, kcfg, mcfg, epochs=epochs, seed=seed, params=params,
-        callback=callback, model=model, device=device, draws=draws)
+        callback=callback, model=model, device=device, draws=draws,
+        eval_loop=eval_loop, checkpoint=ckpt_cfg, **resume_kw)
     res.kb = kb_lib.KnowledgeBase(
         model=model, params=res.params, graph=kg, norm=kcfg.norm,
         meta={"paradigm": paradigm, "epochs": res.epochs_run, "seed": seed,

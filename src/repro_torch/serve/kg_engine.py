@@ -20,7 +20,10 @@ dispatch on CUDA tables, so a served candidate's rank is what
 ``kg.evaluate`` reports for the same query.
 
 Energies are "lower = truer" throughout; excluded candidates surface as
-+inf energies when ``k`` exceeds the live candidate count.
++inf energies when ``k`` exceeds the live candidate count.  Energies of
+bf16 tables come back widened to float32 (exactly: numpy has no bf16
+type).  A negative ``k`` raises ``ValueError``, as ``jax.lax.top_k`` does
+in the reference; ``k = 0`` gives an empty ``(B, 0)`` answer.
 """
 from __future__ import annotations
 
@@ -44,6 +47,21 @@ class QueryResult:
 
     ids: np.ndarray        # (B, k) int32
     energies: np.ndarray   # (B, k) float32
+
+
+def _host_energies(e: torch.Tensor) -> np.ndarray:
+    """Energies as a host float32 array.  bf16 energies widen to float32,
+    which holds every bf16 value exactly: numpy has no bf16 type."""
+    if e.dtype == torch.bfloat16:
+        e = e.float()
+    return e.cpu().numpy()
+
+
+def _check_k(k) -> int:
+    k = int(k)
+    if k < 0:
+        raise ValueError(f"k argument to top_k must be nonnegative, got {k}")
+    return k
 
 
 def _topk_lowest(scores: torch.Tensor, k: int):
@@ -111,7 +129,7 @@ class KGQueryEngine:
     @staticmethod
     def _result(ids: list, energies: list, Q: int) -> QueryResult:
         return QueryResult(torch.cat(ids).cpu().numpy()[:Q],
-                           torch.cat(energies).cpu().numpy()[:Q])
+                           _host_energies(torch.cat(energies))[:Q])
 
     # -- queries -----------------------------------------------------------
 
@@ -135,7 +153,7 @@ class KGQueryEngine:
 
     def _entity_topk(self, triplets, side, k, exclude,
                      chunk: Optional[int] = None) -> QueryResult:
-        k = min(int(k), self.n_entities)
+        k = min(_check_k(k), self.n_entities)
         E = self.n_entities
         q, ex, Q = self._chunk_queries(triplets, exclude, chunk)
         ids, energies = [], []
@@ -153,7 +171,7 @@ class KGQueryEngine:
     def query_relations(self, heads, tails, k: int = 10,
                         chunk: Optional[int] = None) -> QueryResult:
         """Top-k relations linking ``(h, ?, t)`` pairs."""
-        k = min(int(k), self.n_relations)
+        k = min(_check_k(k), self.n_relations)
         triplets = self._pair_triplets(heads, tails, "relation")
         q, _, Q = self._chunk_queries(triplets, None, chunk)
         ids, energies = [], []
@@ -176,8 +194,8 @@ class KGQueryEngine:
         triplets = torch.as_tensor(np.stack([h, r, t], axis=1),
                                    device=self.device)
         with torch.no_grad():
-            return self.model.energy(
-                self.params, triplets, self.norm).cpu().numpy()
+            return _host_energies(
+                self.model.energy(self.params, triplets, self.norm))
 
     def rank(
         self,

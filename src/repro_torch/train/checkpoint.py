@@ -1,6 +1,6 @@
 """Checkpoints in the reference's on-disk format (port of
-``repro.train.checkpoint``: synchronous full saves of a params tree; no
-optimizer state, async saver or delta chains yet).
+``repro.train.checkpoint``: full saves of a params tree, synchronous or
+through :class:`AsyncSaver`; no optimizer state or delta chains yet).
 
 Layout:  ``<dir>/step_<N>/arrays.npz`` + ``manifest.json``, written to a
 ``.tmp`` sibling then ``os.rename``d, so a crash mid-write never leaves a
@@ -8,28 +8,43 @@ half-readable "latest" checkpoint.  ``arrays.npz`` keys are
 ``params::<path>`` with ``/``-joined dict keys (``params::params/ent``),
 exactly as the reference writes them: artifacts cross between the two
 packages both ways.  Arrays are stored as full host values; ``restore``
-rebuilds nested dicts of numpy arrays, and the caller places them on a
-device.
+rebuilds nested dicts of numpy arrays (or, given a template, CPU tensors of
+the template's dtypes), and the caller places them on a device.
+
+bfloat16: numpy has no such type without ``ml_dtypes``, and the reference
+saves a bf16 table as its raw 2-byte values, which ``np.load`` reads back
+as ``|V2`` void arrays.  The port writes a bf16 tensor the same way (the
+values' bytes as ``|V2``; the ``.npy`` header spells the reference's
+``<V2`` as ``|V2``, which numpy reads the same).  Neither package can
+serve such an array after loading it: the reference's untemplated
+restore returns it as ``|V2`` and its templated restore raises; the
+port's templated restore raises too (:func:`restore`).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 
 def _host(leaf) -> np.ndarray:
+    """A copy of ``leaf`` as a host numpy array that no later write to the
+    leaf can change; a bf16 tensor as its raw 2-byte values (``|V2``)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    return np.array(leaf)
 
 
-def _flatten_with_paths(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """``{"a/b": array}`` for every leaf of a tree of dicts, lists and
+def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``("a/b", leaf)`` for every leaf of a tree of dicts, lists and
     tuples, in the reference's path spelling (dict keys in sorted order,
     sequence positions as their index)."""
     if isinstance(tree, dict):
@@ -37,12 +52,24 @@ def _flatten_with_paths(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
-        return {prefix: _host(tree)}
-    flat = {}
+        yield prefix, tree
+        return
     for key, sub in items:
-        flat.update(_flatten_with_paths(
-            sub, f"{prefix}/{key}" if prefix else key))
-    return flat
+        yield from _leaves(sub, f"{prefix}/{key}" if prefix else key)
+
+
+def _flatten_with_paths(tree) -> Dict[str, np.ndarray]:
+    """``{"a/b": host array}`` for every leaf of ``tree``."""
+    return {path: _host(leaf) for path, leaf in _leaves(tree)}
+
+
+def _to_host(tree):
+    """``tree`` with every leaf copied to a host numpy array."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return _host(tree)
 
 
 def _step_dir(ckpt_dir: str, step: int) -> str:
@@ -78,6 +105,43 @@ def save(
     os.rename(tmp, final)
     _cleanup(ckpt_dir, keep)
     return final
+
+
+class AsyncSaver:
+    """Snapshot to the host synchronously, write to disk on a daemon
+    thread, one save in flight at a time.
+
+    ``save_async`` copies every leaf to a host numpy array before it
+    returns (a CUDA tensor through a synchronous ``.cpu()`` copy), so the
+    caller may go on changing its tensors and the thread never touches
+    one.  An error in the thread is raised by the next :meth:`wait` (which
+    the next ``save_async`` calls first)."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[Exception] = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise err
+
+    def save_async(self, ckpt_dir: str, step: int, params,
+                   extra: Optional[Dict[str, Any]] = None, keep: int = 3):
+        self.wait()
+        host_params = _to_host(params)
+
+        def run():
+            try:
+                save(ckpt_dir, step, host_params, extra, keep)
+            except Exception as e:                    # raised by wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
 
 
 def _read_manifest(ckpt_dir: str, step: int) -> Dict[str, Any]:
@@ -145,17 +209,52 @@ def _nest_flat(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return out
 
 
+def _from_template(d: str, z, template) -> Dict[str, Any]:
+    """The stored arrays at ``template``'s leaf paths, each checked
+    against its template leaf and cast to the leaf's dtype as a CPU
+    tensor."""
+    flat = {}
+    for path, leaf in _leaves(template):
+        key = f"params::{path}"
+        if key not in z.files:
+            raise KeyError(
+                f"checkpoint {d} has no array {key!r} (stored: "
+                f"{sorted(z.files)}) — saved by a different model?")
+        arr = z[key]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(
+                f"checkpoint array {key!r} has shape {tuple(arr.shape)} but "
+                f"the template expects {tuple(leaf.shape)} — checkpoint "
+                "from a different model or config?")
+        if arr.dtype.kind == "V":
+            raise ValueError(
+                f"checkpoint array {key!r} holds raw {arr.dtype.itemsize}-"
+                f"byte values ({arr.dtype.str}), not numbers: a bfloat16 "
+                "table as numpy writes it, which cannot be cast to "
+                f"{leaf.dtype} (the reference's restore refuses it too)")
+        flat[path] = torch.from_numpy(arr).to(leaf.dtype)
+    return _nest_flat(flat)
+
+
 def restore(
     ckpt_dir: str,
     step: Optional[int] = None,
     expect: Optional[Dict[str, Any]] = None,
+    params_template=None,
 ) -> Tuple[int, Any, Dict[str, Any]]:
-    """Restore ``(step, params, extra)``, the params tree rebuilt
-    self-describing from the stored paths (nested dicts of host arrays;
-    stored optimizer state is not read).  ``step=None`` takes the latest
-    committed step; ``expect`` compares manifest ``extra`` fields
-    (:func:`validate_extra`).  A delta step of a reference delta chain is
-    refused: the port cannot replay chains yet."""
+    """Restore ``(step, params, extra)`` (stored optimizer state is not
+    read).  ``step=None`` takes the latest committed step; ``expect``
+    compares manifest ``extra`` fields (:func:`validate_extra`).  A delta
+    step of a reference delta chain is refused: the port cannot replay
+    chains yet.
+
+    Without ``params_template`` the params tree is rebuilt self-describing
+    from the stored paths (nested dicts of host arrays).  With one (a tree
+    of tensors on any device, ``meta`` included, giving structure, shapes
+    and dtypes) every template leaf must be stored, with the leaf's shape:
+    a missing array raises ``KeyError`` naming the stored keys, a shape
+    mismatch ``ValueError`` naming the leaf; the leaves come back as CPU
+    tensors of the template's dtypes."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -169,5 +268,8 @@ def restore(
             "cannot replay delta chains yet (ROADMAP.md queue 1, item 14)")
     if expect:
         validate_extra(extra, expect, d)
-    tree, _ = load_tree(ckpt_dir, step)
-    return step, tree, extra
+    if params_template is None:
+        tree, _ = load_tree(ckpt_dir, step)
+        return step, tree, extra
+    with np.load(os.path.join(d, "arrays.npz")) as z:
+        return step, _from_template(d, z, params_template), extra

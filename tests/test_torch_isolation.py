@@ -92,5 +92,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
                                  n_triplets=200)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         kg.fit(graph, epochs=1, dim=4, batch_size=16, n_workers=2)
+    ckpt = str(tmp_path / "ckpt")
     assert kg.fit(graph, epochs=1, dim=4, batch_size=16, n_workers=2,
-                  device="cpu").kb.params["ent"].device.type == "cpu"
+                  ckpt_dir=ckpt, device="cpu").kb.params["ent"].device.type \
+        == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kg.fit(graph, epochs=2, dim=4, batch_size=16, n_workers=2,
+               ckpt_dir=ckpt, resume=True)

@@ -213,3 +213,87 @@ def test_checkpoint_steps_and_refusals(tmp_path):
                                           "result": "fp5"})
     with pytest.raises(ValueError, match="delta"):
         port_ckpt.restore(d)
+
+
+@pytest.fixture(scope="module")
+def bf16_kbs(tiny_kg):
+    """(reference KB, port KB) over the same tables cast to bf16, per
+    norm."""
+    tables = ref_tables(tiny_kg.n_entities, tiny_kg.n_relations, DIM)
+    return {norm: (
+        ref_kb_lib.KnowledgeBase(
+            model="transe", graph=tiny_kg, norm=norm,
+            params={k: jnp.asarray(v, jnp.bfloat16)
+                    for k, v in tables.items()}),
+        convert.kb_from_reference(tables, "transe", tiny_kg, norm=norm,
+                                  device="cpu", dtype=torch.bfloat16))
+        for norm in ("l1", "l2")}
+
+
+def _same_bf16_answer(got, want):
+    """Identical ids; energies widened to float32, which holds the
+    reference's bf16 values exactly."""
+    np.testing.assert_array_equal(got.ids, want.ids)
+    assert got.energies.dtype == np.float32
+    np.testing.assert_array_equal(got.energies,
+                                  np.asarray(want.energies, np.float32))
+
+
+@pytest.mark.parametrize("norm", ["l1", "l2"])
+def test_bf16_tables_serve_as_in_the_reference(bf16_kbs, norm):
+    ref, port = bf16_kbs[norm]
+    test = ref.graph.test
+    h, r, t = test[:, 0], test[:, 1], test[:, 2]
+    _same_bf16_answer(port.query_tails(h, r, k=10),
+                      ref.query_tails(h, r, k=10))
+    _same_bf16_answer(port.query_heads(t, r, k=10, filtered=True),
+                      ref.query_heads(t, r, k=10, filtered=True))
+    _same_bf16_answer(port.query_relations(h, t, k=3),
+                      ref.query_relations(h, t, k=3))
+    got = port.score(h, r, t)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.asarray(ref.score(h, r, t),
+                                                  np.float32))
+    assert port.fingerprint() == ref.fingerprint()
+
+
+def test_bf16_save_writes_the_reference_bytes(bf16_kbs, tmp_path):
+    """A bf16 table is saved as the reference saves it: its raw 2-byte
+    values, which numpy reads back as ``|V2`` in both cases.  Neither
+    package can serve that after a load: the reference loads it and
+    fails at the first query, the port refuses it at load."""
+    ref, port = bf16_kbs["l1"]
+    ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
+    ref.save(ref_dir)
+    port.save(port_dir)
+    npz = lambda d: np.load(os.path.join(d, "step_0000000000",
+                                         "arrays.npz"))
+    with npz(ref_dir) as r, npz(port_dir) as p:
+        assert sorted(p.files) == sorted(r.files)
+        for key in r.files:
+            assert p[key].dtype == r[key].dtype
+            assert p[key].tobytes() == r[key].tobytes()
+        assert p["params::params/ent"].dtype == np.dtype("V2")
+    for d in (ref_dir, port_dir):
+        with open(os.path.join(d, "step_0000000000", "manifest.json")) as f:
+            assert json.load(f)["extra"]["fingerprint"] == ref.fingerprint()
+    back = ref_kb_lib.KnowledgeBase.load(port_dir)
+    assert back.params["ent"].dtype == np.dtype("V2")
+    for d in (ref_dir, port_dir):
+        with pytest.raises(ValueError, match="raw 2-byte values"):
+            KnowledgeBase.load(d, device="cpu")
+
+
+@pytest.mark.parametrize("call", [
+    lambda kb: kb.query_tails([1], [1], k=-1),
+    lambda kb: kb.query_heads([1], [1], k=-1),
+    lambda kb: kb.query_relations([1], [2], k=-1),
+], ids=["tails", "heads", "relations"])
+def test_negative_k_raises_as_in_the_reference(kbs, call):
+    ref, port = kbs
+    with pytest.raises(ValueError, match="nonnegative"):
+        call(ref)
+    with pytest.raises(ValueError, match="nonnegative"):
+        call(port)
+    # k = 0 stays the port's empty answer (the reference cannot reshape it)
+    assert port.query_tails([1, 2], [1, 1], k=0).ids.shape == (2, 0)

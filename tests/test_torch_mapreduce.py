@@ -143,15 +143,29 @@ def test_epoch_draws_are_pure_in_seed_and_epoch():
     (dict(table_sharding="sharded", merge_transport="dense"), 12),
     (dict(staleness=1), 12),
     (dict(negatives="joint"), 10),
-    (dict(eval_every=1), 9),
-    (dict(ckpt_dir="ckpt"), 9),
-    (dict(resume=True), 9),
-    (dict(patience=2), 9),
     (dict(mesh=object()), 12),
 ])
 def test_options_not_ported(graphs, option, item):
     _, graph = graphs
     with pytest.raises(NotImplementedError, match=f"item {item}"):
+        port_kg.fit(graph, epochs=1, device="cpu", **dict(KW, **option))
+
+
+@pytest.mark.parametrize("option,match", [
+    (dict(checkpoint_every=1), "need ckpt_dir"),
+    (dict(resume=True), "need ckpt_dir"),
+    (dict(keep_checkpoints=5), "need ckpt_dir"),
+    (dict(patience=2), "pass eval_every"),
+    (dict(eval_metric="entity_raw.mrr"), "pass eval_every"),
+    (dict(keep_best=False), "pass eval_every"),
+    (dict(resume=True, ckpt_dir="ckpt", params={}), "not both"),
+])
+def test_option_needs_its_switch(graphs, option, match):
+    """The in-training evaluation and checkpoint options of the reference,
+    ported with its checks: an option of either loop without the switch
+    that turns the loop on would be ignored, and raises."""
+    _, graph = graphs
+    with pytest.raises(ValueError, match=match):
         port_kg.fit(graph, epochs=1, device="cpu", **dict(KW, **option))
 
 

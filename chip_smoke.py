@@ -67,6 +67,31 @@
    each boundary evaluation's seconds, the seconds the loop waits in
    ``save_async`` and in the final wait, and the resume's restore seconds.
 
+6. The device pipeline (``pipeline="device"``), at the training path's
+   width, through ``kg.fit``: (a) SGD ``average`` with ``merge_every=2``
+   and ``repartition_every=2``, 4 epochs, ``block_epochs=4`` and then
+   ``block_epochs=2``; (b) BGD, 3 epochs in one block; (c) one merge
+   round of (a) (its first 2 epochs) on the CPU and on the card, from
+   fit's seed-0 init and the port's own draws, and the counter-based draws
+   (``core/keys.py``) alone on 2**20 counters on both; (d) one block of
+   (a) through ``mapreduce.make_block_fn`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (its losses read after),
+   the peak memory of a block with ``donate_params`` on and off
+   (``torch.cuda.max_memory_allocated``), and a block under
+   ``torch.profiler``; (e) (a) with ``eval_every=2`` and checkpoints every
+   2 epochs, and a run of 2 epochs resumed to 4.  All three kernels'
+   counters are zeroed just before and read just after.  Checks: (a)'s two
+   block sizes, (e)'s traced run and its resumed run give the same bits,
+   as do (c)'s CPU and card rounds (params and losses) and draws; the
+   block under the sync check raises nothing and gives (a)'s first two
+   losses; (e)'s trace entries lie at merge rounds [1, 2] and its last
+   equals a later ``kg.evaluate``; the manifests carry
+   ``pipeline="device"``; each loss fell; (f) ``transe_score`` forward and
+   backward launched 520 times an epoch on the card and ``rank_counts``
+   232 times an evaluation.  Reports epoch seconds, the block's idle
+   share, launches and device→host copies a step beside the host
+   pipeline's profile of the training path, and the peak memory.
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -94,15 +119,20 @@ TRANSE_CASES = ((4, 256, FB15K["n_entities"], FB15K["n_relations"]),
                 (1, 1 << 20, 1_000_000, FB15K["n_relations"]))
 TRAIN = dict(n_workers=4, batch_size=256)   # kg.make_configs' defaults
 SGD_EPOCHS, BGD_EPOCHS = 4, 3
+# phase 6: the device pipeline's SGD configuration, and the counters its
+# draws are held on, CPU against card
+DEVICE_SGD = dict(strategy="average", pipeline="device", merge_every=2,
+                  repartition_every=2)
+DRAW_COUNTERS = 1 << 20
 # One SGD epoch on the CPU (plain versions) against the card (kernels),
 # from the same params and draws.  The kernels equal their plain versions
 # bitwise, and every other operation of a step is an elementwise IEEE op,
 # an in-order sum or a correctly rounded root (util.sqrt_rn) on both
-# devices, so the params are expected to agree bitwise; the mean of a
-# step's pair losses reduces in another order on each device, so the
-# reported loss may differ in the last ulps.  The gates allow for one ulp
-# somewhere flipping an L1 sign, which moves one entry by
-# 2 * lr / B = 7.8e-5: params within 1e-4, loss within rtol 1e-5.
+# devices, and the epoch's loss a fixed-order tree (util.pairwise_mean),
+# so params and loss are expected to agree bitwise.  The gates allow for
+# one ulp somewhere flipping an L1 sign, which moves one entry by
+# 2 * lr / B = 7.8e-5: params within 1e-4, loss within rtol 1e-5.  Phase 6
+# holds the device pipeline's round to equal bits.
 CPU_EPOCH_PARAM_TOL, CPU_EPOCH_LOSS_RTOL = 1e-4, 1e-5
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
@@ -160,35 +190,41 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(torch, fn, reps, names):
+def kernel_ms(torch, fn, reps, names, sessions=3):
     """Device milliseconds per call of ``fn`` in each CUDA kernel whose name
     holds one of ``names``, ``{name: ms}``, over ``reps`` calls
     (``torch.profiler``, device activity only; one warm-up call first):
     for each name the mean over the launches the profiler recorded (it has
-    been seen to drop a few of 50 records).  Fails if it recorded no launch
-    of a name, or more than one per call."""
+    been seen to drop a few of 50 records, and once every record of one
+    kernel in a session).  A session that recorded no launch of a name, or
+    more than one per call, is run again, up to ``sessions`` in all; then
+    it fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for name in names:
-        us, count = 0.0, 0
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                    name in ev.key:
-                us += getattr(ev, "self_device_time_total", None) or \
-                    ev.self_cuda_time_total
-                count += ev.count
-        if not 0 < count <= reps:
-            fail(f"the profiler saw {count} launches of {name!r} in {reps} "
-                 "calls")
-        out[name] = us / 1e3 / count
-    return out
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, counts = {}, {}
+        for name in names:
+            us, count = 0.0, 0
+            for ev in prof.key_averages():
+                if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                        name in ev.key:
+                    us += getattr(ev, "self_device_time_total", None) or \
+                        ev.self_cuda_time_total
+                    count += ev.count
+            counts[name] = count
+            out[name] = us / 1e3 / max(count, 1)
+        if all(0 < n <= reps for n in counts.values()):
+            return out
+        print(f"the profiler saw {counts} launches in {reps} calls: "
+              "profiling again", flush=True)
+    fail(f"the profiler saw {counts} launches in {reps} calls, in each of "
+         f"{sessions} sessions")
 
 
 def profile_busy(torch, fn):
@@ -214,6 +250,8 @@ def profile_busy(torch, fn):
     return {"wall_s": wall_s, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall_s,
             "launches": sum(k[1] for k in kernels),
+            "dtoh_copies": sum(n for _, n, key in kernels
+                               if "Memcpy DtoH" in key),
             "top": [{"kernel": key[:90], "launches": n, "ms": us / 1e3}
                     for us, n, key in kernels[:10]]}
 
@@ -715,8 +753,9 @@ def training_path(torch, graph):
     info["sgd_epoch_profile"] = profile_busy(torch, lambda: kg.fit(
         graph, epochs=1, seed=0, params=init, draws=draws, device=DEVICE,
         **TRAIN))
-    print("sgd epoch profile " + json.dumps(info["sgd_epoch_profile"]),
-          flush=True)
+    prof = info["sgd_epoch_profile"]
+    prof["dtoh_copies_per_step"] = prof["dtoh_copies"] / steps
+    print("sgd epoch profile " + json.dumps(prof), flush=True)
     c = info["cpu_vs_card"]
     if c["param_max_abs_err"] > CPU_EPOCH_PARAM_TOL or abs(
             c["loss"][0] - c["loss"][1]) > CPU_EPOCH_LOSS_RTOL * abs(
@@ -1053,6 +1092,202 @@ def eval_resume_path(torch, graph, sgd, bgd):
     return info, launches
 
 
+def device_pipeline_path(torch, graph):
+    """The device pipeline (item 6 of the module docstring).  Returns the
+    path's info and its launches of each kernel."""
+    from repro_torch import kg
+    from repro_torch.core import eval_device, keys, mapreduce
+    from repro_torch.core.models import get_model
+    from repro_torch.data import kg as kg_data
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    info = {}
+    steps = len(graph.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
+    sgd_kw = dict(seed=0, device=DEVICE, **TRAIN, **DEVICE_SGD)
+    bgd_kw = dict(seed=0, device=DEVICE, pipeline="device", **TRAIN)
+    marks = {}
+
+    def timer(label):                   # loss is a float: synchronized
+        marks[label] = [(None, time.perf_counter())]
+        return lambda epoch, loss: marks[label].append(
+            (epoch, time.perf_counter()))
+
+    kcfg, mcfg = kg.make_configs(graph, "transe", "sgd", block_epochs=2,
+                                 **TRAIN, **DEVICE_SGD)
+    part = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+        0, graph.train, TRAIN["n_workers"]), device=DEVICE)
+    init = get_model("transe").init_params(
+        torch.Generator().manual_seed(0), kcfg, device=DEVICE)
+    dirs = {name: tempfile.TemporaryDirectory() for name in "DE"}
+    card_epochs, n_evals = 0, 0
+    t_phase = time.perf_counter()
+    try:
+        ts.transe_score.launches = 0          # --- device pipeline path ---
+        ts.transe_score_bwd.launches = 0
+        rank_topk.rank_counts.launches = 0
+        # (a) block invariance on the card
+        a4 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
+                    callback=timer("a4"), **sgd_kw)
+        a2 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=2,
+                    callback=timer("a2"), **sgd_kw)
+        # (b) BGD
+        b = kg.fit(graph, "transe", "bgd", epochs=3, block_epochs=3,
+                   callback=timer("b"), **bgd_kw)
+        # (c) one merge round on the card (the CPU's below)
+        c_card = kg.fit(graph, "transe", "sgd", epochs=2, block_epochs=2,
+                        **sgd_kw)
+        card_epochs += 4 + 4 + 3 + 2
+        # (d) one block with any host sync an error
+        block_fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
+                                           donate=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, losses = block_fn(dict(init), range(2))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        info["sync_checked_block_losses"] = losses.tolist()
+        # the peak memory of a block, donation on and off
+        peaks_b = {}
+        for label, donate in (("donate_on", True), ("donate_off", False)):
+            fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
+                                         donate=donate)
+            given = {n: t.clone() for n, t in init.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out, _ = fn(given, range(2))
+            torch.cuda.synchronize()
+            peaks_b[label] = {"before_bytes": before,
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "tables_bytes": sum(t.numel() * t.element_size()
+                                                  for t in init.values())}
+            del given, out
+        info["block_peak_memory"] = peaks_b
+        # the same block under the profiler
+        prof = profile_busy(torch, lambda: block_fn(dict(init), range(2)))
+        prof.update(epochs=2, steps=2 * steps,
+                    launches_per_epoch=prof["launches"] / 2,
+                    dtoh_copies_per_step=prof["dtoh_copies"] / (2 * steps))
+        info["block_profile"] = prof
+        card_epochs += 2 + 2 + 2 + 2
+        # (e) evaluation, checkpoints and resume
+        e_traced = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
+                          eval_every=2, ckpt_dir=dirs["D"].name,
+                          checkpoint_every=2, **sgd_kw)
+        kg.fit(graph, "transe", "sgd", epochs=2, block_epochs=4,
+               ckpt_dir=dirs["E"].name, checkpoint_every=2, **sgd_kw)
+        e_resumed = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
+                           ckpt_dir=dirs["E"].name, resume=True, **sgd_kw)
+        card_epochs += 4 + 2 + 2
+        n_evals += 2
+        launches = {"rank_counts": rank_topk.rank_counts.launches,
+                    "transe_score": ts.transe_score.launches,
+                    "transe_score_bwd": ts.transe_score_bwd.launches}
+        # --- end ---
+        on_disk = {name: sorted(int(e.split("_")[1])
+                                for e in os.listdir(d.name))
+                   for name, d in dirs.items()}
+        manifests = {}
+        for name, d in dirs.items():
+            for step in on_disk[name]:
+                _, _, extra = ckpt_lib.restore(d.name, step=step)
+                manifests[f"{name}{step}"] = (extra["pipeline"],
+                                              extra["config"])
+    finally:
+        for d in dirs.values():
+            d.cleanup()
+    info["runs_s"] = time.perf_counter() - t_phase
+
+    # (c) the CPU's round, and the draws alone
+    t0 = time.perf_counter()
+    c_cpu = kg.fit(graph, "transe", "sgd", epochs=2, block_epochs=2,
+                   **dict(sgd_kw, device="cpu"))
+    info["cpu_round_s"] = time.perf_counter() - t0
+    wkeys = keys.fold_in(keys.device_keys(0)[1], torch.arange(4))
+    draws = {
+        "bits": lambda d: keys.random_bits(wkeys.to(d), DRAW_COUNTERS, d),
+        "uniform": lambda d: keys.uniform(wkeys.to(d), DRAW_COUNTERS, d),
+        "randint": lambda d: keys.randint(wkeys.to(d), DRAW_COUNTERS, 1,
+                                          graph.n_entities, d),
+        "permutation": lambda d: keys.permutation(wkeys.to(d),
+                                                  DRAW_COUNTERS, d)}
+    info["draws_cpu_equal_card"] = {
+        name: bool(torch.equal(fn(DEVICE).cpu(), fn("cpu")))
+        for name, fn in draws.items()}
+    info["cpu_vs_card_round"] = {
+        "params_bitwise": all(bits_equal(c_card.params[n].cpu(),
+                                         c_cpu.params[n])
+                              for n in c_cpu.params),
+        "param_max_abs_err": max_err(
+            [c_card.params[n].cpu() for n in sorted(c_card.params)],
+            [c_cpu.params[n] for n in sorted(c_cpu.params)]),
+        "losses": [c_card.loss_history, c_cpu.loss_history],
+        "losses_bitwise": c_card.loss_history == c_cpu.loss_history}
+
+    def per_epoch(label, epochs_per_block):
+        m = marks[label]
+        return [(t1 - t0) / epochs_per_block
+                for (_, t0), (_, t1) in zip(m, m[1:])]
+
+    info.update(
+        steps_per_epoch=steps, launches=launches,
+        epoch_s={"sgd_block4": per_epoch("a4", 2),
+                 "sgd_block2": per_epoch("a2", 2),
+                 "bgd_block3": per_epoch("b", 3)},
+        callback_epochs={k: [e for e, _ in v[1:]] for k, v in marks.items()},
+        loss_history={"a": a4.loss_history, "b": b.loss_history},
+        steps_on_disk=on_disk,
+        trace_epochs=e_traced.trace.epochs(),
+        merge_rounds=[e.merge_round for e in e_traced.trace.entries],
+        bitwise={"block4_vs_block2": same_run(a4, a2),
+                 "traced_vs_untraced": same_run(e_traced, a4),
+                 "resumed_vs_unbroken": same_run(e_resumed, a4),
+                 "sync_checked_block_vs_fit": info[
+                     "sync_checked_block_losses"] == a4.loss_history[:2]})
+    predicted = {"rank_counts": n_evals * 2 * eval_device._layout(
+                     len(graph.test), eval_device.DEFAULT_CHUNK)[0],
+                 "transe_score": steps * card_epochs,
+                 "transe_score_bwd": steps * card_epochs}
+    info["launches_predicted"] = predicted
+    print("device pipeline " + json.dumps(info), flush=True)
+    if not all(info["bitwise"].values()):
+        fail(f"device-pipeline runs that should agree gave other bits: "
+             f"{info['bitwise']}")
+    c = info["cpu_vs_card_round"]
+    if not (c["params_bitwise"] and c["losses_bitwise"]
+            and all(info["draws_cpu_equal_card"].values())):
+        fail(f"the CPU and the card disagree on a device-pipeline round or "
+             f"its draws: {c} {info['draws_cpu_equal_card']}")
+    if info["trace_epochs"] != [1, 3] or info["merge_rounds"] != [1, 2]:
+        fail(f"trace epochs {info['trace_epochs']} and merge rounds "
+             f"{info['merge_rounds']}, expected [1, 3] and [1, 2]")
+    if info["callback_epochs"] != {"a4": [1, 3], "a2": [1, 3], "b": [2]}:
+        fail(f"callbacks at {info['callback_epochs']}")
+    if on_disk != {"D": [2, 4], "E": [2, 4]}:
+        fail(f"checkpoint steps on disk {on_disk}")
+    want_cfg = mapreduce.resume_config(kcfg, mcfg)
+    for key, (pipeline, cfg) in manifests.items():
+        if pipeline != "device" or cfg != want_cfg:
+            fail(f"manifest {key}: pipeline {pipeline!r}, config {cfg}")
+    for name, hist in info["loss_history"].items():
+        if not all(map(math.isfinite, hist)) or not hist[-1] < hist[0]:
+            fail(f"device pipeline {name}: loss did not fall: {hist}")
+    if launches != predicted:
+        fail(f"launches {launches} on the device pipeline path; the "
+             f"schedule predicts {predicted}")
+    if info["block_profile"]["dtoh_copies"] != 0:
+        fail(f"a device-pipeline block made "
+             f"{info['block_profile']['dtoh_copies']} device-to-host copies")
+    last = kg.evaluate(e_traced.kb, engine="device")
+    if last != e_traced.trace.entries[-1].metrics:
+        fail("the device pipeline's last trace entry differs from a later "
+             "kg.evaluate")
+    info["phase_s"] = time.perf_counter() - t_phase
+    return info, launches
+
+
 def main():
     import torch
 
@@ -1084,8 +1319,10 @@ def main():
         torch, graph)
     info, launches = serving_path(torch, graph, sgd.kb)
     resume_info, phase_launches = eval_resume_path(torch, graph, sgd, bgd)
+    device_info, device_launches = device_pipeline_path(torch, graph)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
-                init_metrics=init_metrics, eval_resume=resume_info)
+                init_metrics=init_metrics, eval_resume=resume_info,
+                device_pipeline=device_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -1106,9 +1343,12 @@ def main():
         "name": "rank_counts", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rank_topk.cu",
         "replaces": "src/repro/kernels/rank_topk.py:65",
-        "launches": launches + phase_launches["rank_counts"],
+        "launches": launches + phase_launches["rank_counts"]
+        + device_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
-                             "eval_resume": phase_launches["rank_counts"]},
+                             "eval_resume": phase_launches["rank_counts"],
+                             "device_pipeline":
+                                 device_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -1130,9 +1370,11 @@ def main():
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/transe_score.cu",
-            "replaces": replaces, "launches": n + phase_launches[kname],
+            "replaces": replaces,
+            "launches": n + phase_launches[kname] + device_launches[kname],
             "launches_by_path": {"training": n,
-                                 "eval_resume": phase_launches[kname]},
+                                 "eval_resume": phase_launches[kname],
+                                 "device_pipeline": device_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -1153,7 +1395,7 @@ def main():
                    "main_path": info}, f, indent=1)
     print(json.dumps({k: info[k] for k in info
                       if k not in ("metrics", "init_metrics", "training",
-                                   "eval_resume")}),
+                                   "eval_resume", "device_pipeline")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

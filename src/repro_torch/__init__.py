@@ -5,8 +5,11 @@ layout and answers the same calls with the same numbers (the parity tests
 in ``tests/test_torch_*.py`` hold each module against its counterpart).
 It imports ``torch`` and never ``jax``, nor anything of ``repro``.
 
-Ported so far: training on the host pipeline (``kg.fit``, the paper's SGD
-and BGD paradigms with simulated workers and the dense Reduce), with
+Ported so far: training on the host and device pipelines (``kg.fit``,
+the paper's SGD and BGD paradigms with simulated workers and the dense
+Reduce; ``pipeline="device"`` runs blocks of epochs drawn on the device,
+with ``merge_every`` local epochs between Reduces and
+``repartition_every``), with
 in-training evaluation and early stopping (``eval_every``, ``patience``,
 ``keep_best``; ``core/trace.py``) and bit-identical checkpoint/resume
 (``ckpt_dir``, ``checkpoint_every``, ``resume``) in the reference's

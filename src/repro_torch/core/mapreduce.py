@@ -1,6 +1,7 @@
 """The MapReduce KG-embedding engine (paper §3), port of
-``repro.core.mapreduce``: the ``host`` pipeline on the ``vmap`` backend
-with the dense Reduce.  Most callers use ``repro_torch.kg.fit``.
+``repro.core.mapreduce``: the ``host`` and ``device`` pipelines on the
+``vmap`` backend with the dense Reduce.  Most callers use
+``repro_torch.kg.fit``.
 
 Two paradigms, as the paper structures them:
 
@@ -17,32 +18,65 @@ on the card, and each step of all W workers is one launch of each
 ``transe_score`` kernel (BGD's shared tables enter the kernels as a
 worker-stride-0 view, so each worker's gradient comes back separately).
 
-The host pipeline builds each epoch's batches on the host
-(``data/kg.epoch_batches``, a pure function of (seed, epoch)) and draws
-its negatives and the ``random`` strategy's priorities from CPU
-``torch.Generator``s seeded by (seed, epoch, stream): every epoch's draws
-are a pure function of (seed, epoch), the same on every device, and one
-seed gives the same run twice.  The reference draws from a ``jax.random``
-key chain instead; ``train(draws=...)`` takes an epoch's draws from the
-caller, which is how the parity tests replay the reference's.
+The training step makes no host sync.  ``train()`` proves every id in
+range once — the partition on the host at start, injected draws when they
+are handed in; the port's own negatives, ``(id + offset) % E`` with
+``offset`` in ``[1, E)``, are in range by construction — and the step
+calls the kernels with ``check_ids=False``.
 
-In-training evaluation and checkpoint/resume ride the Reduce boundaries,
-which on the host pipeline are every epoch: ``train(eval_loop=...)``
-evaluates every ``eval_every`` epochs and at the last one
-(``core/trace.py``: a ``TrainingTrace``, early stopping on ``patience``,
-the best params kept), and ``train(checkpoint=...)`` saves params and a
-manifest (:class:`CheckpointConfig`, through ``train/checkpoint.py``'s
-``AsyncSaver`` by default).  A resume (``start_epoch`` with the saved
-params and loss history) continues bit-identically: every epoch's
-batches and draws are a pure function of (seed, absolute epoch), so
-nothing needs replaying.  The manifest holds the reference's fields
+Two **data pipelines**, selected by ``MapReduceConfig.pipeline``:
+
+  * ``host``   — one epoch at a time: the epoch's batches built on the host
+                 (``data/kg.epoch_batches``, a pure function of (seed,
+                 epoch)), negatives and the ``random`` strategy's
+                 priorities drawn from CPU ``torch.Generator``s seeded by
+                 (seed, epoch, stream), one Reduce and one loss read per
+                 epoch.
+  * ``device`` — blocks of epochs (``make_block_fn``): the partition is put
+                 on the device once, and each epoch's batches, negatives,
+                 merge priorities and re-partition permutations are drawn
+                 on the device from counter-based keys (``core/keys.py``),
+                 a pure function of (seed, stream, epoch, worker) with the
+                 same bits on every device.  Nothing inside a block syncs
+                 with the host; its losses come back as one device tensor
+                 and callbacks fire at block boundaries.
+
+Epoch scheduling (``EpochSchedule``, device pipeline only):
+
+  * ``block_epochs``  — epochs per block (one block function call; any
+                        block size gives the same bits).
+  * ``merge_every=K`` — SGD workers run K local epochs between Reduces
+                        (touch stats accumulate across the K epochs).
+  * ``repartition_every=M`` — re-split the triplets across workers on the
+                        device every M epochs (round ``e // M`` indexes a
+                        fresh global permutation; round 0 is the original
+                        partition).
+  * ``donate_params`` — (``MapReduceConfig``) the block takes the params
+                        dict it is given and drops its references early.
+
+Either pipeline's draws are a pure function of (seed, absolute epoch), so
+one seed gives the same run twice, on any block split.  The reference
+draws from a ``jax.random`` key chain instead; ``train(draws=...)`` takes
+an epoch's draws from the caller, which is how the parity tests replay the
+reference's.
+
+In-training evaluation and checkpoint/resume ride the Reduce boundaries
+(every epoch on the host pipeline; every ``merge_every`` epochs on the
+device pipeline, whose driver slices its blocks there):
+``train(eval_loop=...)`` evaluates every ``eval_every`` epochs and at the
+last one (``core/trace.py``: a ``TrainingTrace``, early stopping on
+``patience``, the best params kept), and ``train(checkpoint=...)`` saves
+params and a manifest (:class:`CheckpointConfig`, through
+``train/checkpoint.py``'s ``AsyncSaver`` by default).  A resume
+(``start_epoch`` with the saved params and loss history) continues
+bit-identically, since every epoch's draws are a pure function of (seed,
+absolute epoch).  The manifest holds the reference's fields
 (:func:`resume_config` among them), so a checkpoint resumes in either
 package.
 
-Not ported yet, each raising and naming its ROADMAP.md item: the device
-pipeline and non-default ``EpochSchedule`` (item 9b), the sparse transport
-(item 11), the ``shard_map`` backend, sharded tables and staleness
-(item 12).
+Not ported yet, each raising and naming its ROADMAP.md item: the sparse
+transport (item 11), the ``shard_map`` backend, sharded tables and
+staleness (item 12).
 """
 from __future__ import annotations
 
@@ -53,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import keys as keys_lib
 from repro_torch.core import merge as merge_lib
 from repro_torch.core import models as kg_models
 from repro_torch.core import negative
@@ -61,31 +96,62 @@ from repro_torch.core.models.base import (
     EpochStats, KGConfig, KGModel, Params, apply_gradients)
 from repro_torch.data import kg as kg_lib
 from repro_torch.train import checkpoint as checkpoint_lib
-from repro_torch.util import exact_div, not_ported, warn_fresh
+from repro_torch.util import exact_div, not_ported, pairwise_mean, warn_fresh
 
-#: an epoch's draws: its negatives (W, S, B, 3) and, for the ``random``
-#: strategy, each table's merge priorities (W, N)
+#: an epoch's draws on the host pipeline: its negatives (W, S, B, 3) and,
+#: for the ``random`` strategy, each table's merge priorities (W, N); on
+#: the device pipeline its batches (W, S, B, 3) come first
 Draws = Tuple[np.ndarray, Optional[Dict[str, np.ndarray]]]
+DeviceDraws = Tuple[np.ndarray, np.ndarray,
+                    Optional[Dict[str, np.ndarray]]]
 
 _NEGATIVES, _PRIORITIES = 0, 1          # per-epoch random streams
 
 
 @dataclasses.dataclass(frozen=True)
 class EpochSchedule:
-    """How the device pipeline groups epochs.  The host pipeline runs one
-    epoch at a time with a Reduce after each, which is the default
-    schedule; any other drives the device pipeline, not ported yet."""
+    """How the device pipeline groups epochs (see the module docstring).
+
+    ``block_epochs`` epochs run in one block function call (any block size
+    gives the same bits); every ``merge_every`` epochs the SGD Reduce runs,
+    so K > 1 lets each Map worker take K local epochs between merges.
+    ``block_epochs`` must be a multiple of ``merge_every`` (blocks end on
+    a merge boundary).
+
+    ``repartition_every=M`` re-splits the triplets across workers on the
+    device every M epochs (``data/kg.device_repartition``): the effective
+    partition of epoch ``e`` is a pure function of (seed, ``e // M``) —
+    round 0 is the original partition — so block invariance holds and
+    ``M >= epochs`` is bit-identical to ``M=None`` (off).  M must be a
+    multiple of ``merge_every``: workers hold their subset for whole
+    Reduce rounds, and the driver slices blocks at re-partition boundaries
+    so each round's permutation is drawn once."""
 
     block_epochs: int = 1
     merge_every: int = 1
     repartition_every: Optional[int] = None
 
     def __post_init__(self):
-        if (self.block_epochs, self.merge_every,
-                self.repartition_every) != (1, 1, None):
-            raise not_ported(
-                "an EpochSchedule other than one epoch per block with a "
-                "Reduce every epoch (the device pipeline)", 9)
+        if self.block_epochs < 1:
+            raise ValueError(
+                f"block_epochs must be >= 1, got {self.block_epochs}")
+        if self.merge_every < 1:
+            raise ValueError(
+                f"merge_every must be >= 1, got {self.merge_every}")
+        if self.block_epochs % self.merge_every != 0:
+            raise ValueError(
+                f"block_epochs={self.block_epochs} must be a multiple of "
+                f"merge_every={self.merge_every} so every block ends on a "
+                "Reduce boundary")
+        if self.repartition_every is not None and (
+            self.repartition_every < 1
+            or self.repartition_every % self.merge_every != 0
+        ):
+            raise ValueError(
+                f"repartition_every must be >= 1 (or None to disable) and "
+                f"a multiple of merge_every={self.merge_every} — workers "
+                "hold their subset for whole Reduce rounds; got "
+                f"{self.repartition_every}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,10 +253,18 @@ class MapReduceConfig:
     # 'degree' | 'overlap'
     partition: str = "balanced"
     model: str = "transe"           # kg_models registry name
-    pipeline: str = "host"          # 'host' ('device' not ported yet)
+    pipeline: str = "host"          # 'host' | 'device' (module docstring)
     schedule: EpochSchedule = EpochSchedule()
     # raise instead of warn when batch_size doesn't divide the worker split
     strict_batching: bool = False
+    # device pipeline: the block takes ownership of the params dict it is
+    # given — it empties the dict and drops each table as soon as the
+    # block is done with it, so on the SGD paradigm a round's input tables
+    # are freed once broadcast to the workers' copies.  PyTorch has no
+    # buffer donation; this saves at most one copy of the tables, and the
+    # tensors are never written, so results are bit-identical on and off
+    # and a caller's tensors stay valid.  None = on.
+    donate_params: Optional[bool] = None
     table_sharding: str = "replicated"   # 'sharded' not ported yet
     touched_capacity: Optional[int] = None   # sparse transport only
     staleness: int = 0
@@ -217,11 +291,17 @@ class MapReduceConfig:
             raise ValueError(
                 f"bad partition {self.partition!r}; want one of "
                 f"{tuple(kg_lib.PARTITIONERS)}")
+        if (self.partition == "overlap"
+                and self.schedule.repartition_every is not None):
+            raise ValueError(
+                "partition='overlap' cannot re-partition on device: the "
+                "overlap-minimizing split is a host-side greedy stream, "
+                "not a permutation the compiled pipeline can redraw — "
+                "drop repartition_every or pick 'balanced'/'stratified'/"
+                "'degree'")
         if self.staleness < 0:
             raise ValueError(
                 f"staleness must be >= 0, got {self.staleness}")
-        if self.pipeline == "device":
-            raise not_ported("pipeline='device'", 9)
         if self.merge_transport == "sparse" or \
                 self.touched_capacity is not None:
             raise not_ported("merge_transport='sparse' (touched_capacity)",
@@ -232,6 +312,20 @@ class MapReduceConfig:
             raise not_ported("table_sharding='sharded'", 12)
         if self.staleness > 0:
             raise not_ported("staleness > 0", 12)
+        if self.pipeline == "host" and (
+            self.schedule.block_epochs != 1
+            or self.schedule.merge_every != 1
+            or self.schedule.repartition_every is not None
+        ):
+            raise ValueError(
+                "EpochSchedule with block_epochs/merge_every != 1 or "
+                "repartition_every set needs pipeline='device' — the host "
+                "loop drives one epoch at a time with a Reduce per epoch "
+                "on the partition it built at start")
+        if self.schedule.merge_every > 1 and self.paradigm != "sgd":
+            raise ValueError(
+                "merge_every > 1 is an SGD-paradigm schedule (BGD has no "
+                "Reduce merge to defer)")
         kg_models.get_model(self.model)      # raises on unknown name
 
 
@@ -247,6 +341,12 @@ def _stats_for_role(stats: EpochStats, role: str):
     if role == "ent":
         return stats.ent_count, stats.ent_loss
     return stats.rel_count, stats.rel_loss
+
+
+def _broadcast(params: Params, W: int) -> Params:
+    """W stacked copies ``(W, N, k)`` of every table, one per worker."""
+    return {name: p.unsqueeze(0).repeat(W, *(1,) * p.dim())
+            for name, p in params.items()}
 
 
 def _merge_tables_stacked(
@@ -273,16 +373,16 @@ def sgd_epoch_vmap(
     tcfg: KGConfig,
     priorities: Optional[Dict[str, torch.Tensor]] = None,
     model: Optional[KGModel] = None,
+    check_ids: bool = True,
 ) -> tuple:
     """Map (local epochs of all W workers from the shared params, side by
-    side on stacked copies) + Reduce (stacked merge): ``(params, loss)``."""
+    side on stacked copies) + Reduce (stacked merge): ``(params, loss)``.
+    ``check_ids=False``: the ids are proved in range, and the step makes
+    no host sync (``KGModel._pairs_and_grads``)."""
     model = _resolve(cfg, model)
-    W = pos.shape[0]
-    stacked = {name: p.unsqueeze(0).repeat(W, *(1,) * p.dim())
-               for name, p in params.items()}
     stacked, stats = model.run_epoch(
-        stacked, pos, neg, tcfg,
-        touch_losses=cfg.strategy == "miniloss_perkey")
+        _broadcast(params, pos.shape[0]), pos, neg, tcfg,
+        touch_losses=cfg.strategy == "miniloss_perkey", check_ids=check_ids)
     merged = _merge_tables_stacked(model, cfg.strategy, stacked, stats,
                                    priorities)
     return merged, merge_lib.worker_mean(stats.mean_loss)
@@ -299,24 +399,30 @@ def bgd_epoch_vmap(
     cfg: MapReduceConfig,
     tcfg: KGConfig,
     model: Optional[KGModel] = None,
+    check_ids: bool = True,
 ) -> tuple:
     """Per step: Map = per-worker gradients, Reduce = their mean, one global
     update.  Mathematically single-thread minibatch SGD on the W·B-sized
-    union batch.  Returns ``(params, loss)``."""
+    union batch.  Returns ``(params, loss)``; ``check_ids`` as in
+    :func:`sgd_epoch_vmap`."""
     model = _resolve(cfg, model)
     if tcfg.normalize == "epoch":
         params = model.normalize(params)
-    n_steps = pos.shape[1]
-    loss_sum = torch.zeros((), dtype=tcfg.dtype, device=params["ent"].device)
-    for s in range(n_steps):
-        losses, grads = model.batch_gradients(params, pos[:, s], neg[:, s],
-                                              tcfg)
+    pairs = []
+    for s in range(pos.shape[1]):
+        pair, _, grads = model._pairs_and_grads(
+            params, pos[:, s], neg[:, s], tcfg, shared=True,
+            check_ids=check_ids)
         grads = {name: merge_lib.worker_mean(g) for name, g in grads.items()}
         params = apply_gradients(params, grads, tcfg.learning_rate)
         if tcfg.normalize == "step":
             params = model.normalize(params)
-        loss_sum = loss_sum + merge_lib.worker_mean(losses)
-    return params, exact_div(loss_sum, n_steps)
+        pairs.append(pair)
+    # per step the workers' mean of their mean pair loss, then the mean
+    # over the steps, each sum in an order fixed on every device
+    step_loss = merge_lib.worker_mean(pairwise_mean(torch.stack(pairs), -1)
+                                      .transpose(0, 1))
+    return params, pairwise_mean(step_loss, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -324,16 +430,215 @@ def bgd_epoch_vmap(
 # ---------------------------------------------------------------------------
 
 def make_epoch_fn(
-    cfg: MapReduceConfig, tcfg: KGConfig, model: Optional[KGModel] = None
+    cfg: MapReduceConfig, tcfg: KGConfig, model: Optional[KGModel] = None,
+    check_ids: bool = True,
 ) -> Callable:
     """``epoch_fn(params, pos, neg, priorities) -> (params, loss)`` for the
-    configured paradigm (BGD ignores ``priorities``)."""
+    configured paradigm (BGD ignores ``priorities``); ``check_ids`` as in
+    :func:`sgd_epoch_vmap`."""
     model = _resolve(cfg, model)
     if cfg.paradigm == "sgd":
         return lambda p, pos, neg, pri: sgd_epoch_vmap(
-            p, pos, neg, cfg, tcfg, pri, model)
+            p, pos, neg, cfg, tcfg, pri, model, check_ids)
     return lambda p, pos, neg, pri: bgd_epoch_vmap(
-        p, pos, neg, cfg, tcfg, model)
+        p, pos, neg, cfg, tcfg, model, check_ids)
+
+
+# ---------------------------------------------------------------------------
+# Block driver (the 'device' pipeline)
+# ---------------------------------------------------------------------------
+
+def _zero_stats(tcfg: KGConfig, W: int, touch_losses: bool,
+                device) -> EpochStats:
+    """Stacked all-zero stats, the start of a round's sum over its K local
+    epochs (the per-key loss sums ``None`` without ``touch_losses``)."""
+    zeros = lambda *shape: torch.zeros(shape, dtype=tcfg.dtype,
+                                       device=device)
+    E, R = tcfg.n_entities, tcfg.n_relations
+    return EpochStats(
+        mean_loss=zeros(W), ent_count=zeros(W, E),
+        ent_loss=zeros(W, E) if touch_losses else None,
+        rel_count=zeros(W, R),
+        rel_loss=zeros(W, R) if touch_losses else None)
+
+
+def _add_stats(a: EpochStats, b: EpochStats) -> EpochStats:
+    return EpochStats(*(
+        None if x is None else x + y
+        for x, y in ((getattr(a, f.name), getattr(b, f.name))
+                     for f in dataclasses.fields(EpochStats))))
+
+
+def _check_ids(trip, tcfg: KGConfig, what: str) -> None:
+    """Raise unless every ``(..., 3)`` triplet id lies inside its table:
+    the one range check of a training run, on the host (the kernels then
+    skip theirs, ``check_ids=False``)."""
+    t = np.asarray(trip)
+    if t.size == 0:
+        return
+    ent, rel = t[..., [0, 2]], t[..., 1]
+    if ent.min() < 0 or ent.max() >= tcfg.n_entities or rel.min() < 0 \
+            or rel.max() >= tcfg.n_relations:
+        raise IndexError(
+            f"{what} holds entity ids in [{ent.min()}, {ent.max()}] and "
+            f"relation ids in [{rel.min()}, {rel.max()}], outside the "
+            f"{tcfg.n_entities} entity / {tcfg.n_relations} relation rows")
+
+
+def _injected(draw, tcfg: KGConfig, device):
+    """An epoch's draws handed in through ``train(draws=...)``: ids checked
+    on the host, then moved to ``device``."""
+    *trips, pri = draw
+    out = []
+    for i, t in enumerate(trips):
+        _check_ids(t, tcfg, "injected negatives" if i == len(trips) - 1
+                   else "injected batches")
+        out.append(torch.tensor(np.asarray(t, np.int32), device=device))
+    pri = None if pri is None else {
+        name: torch.tensor(np.asarray(v), device=device)
+        for name, v in pri.items()}
+    return (*out, pri)
+
+
+def make_block_fn(
+    cfg: MapReduceConfig,
+    tcfg: KGConfig,
+    partitioned: torch.Tensor,   # (W, N_w, 3) int32 on the run's device
+    *,
+    model: Optional[KGModel] = None,
+    head_prob: Optional[torch.Tensor] = None,
+    seed: int = 0,
+    donate: bool = False,
+    strata: Optional[torch.Tensor] = None,
+    draws: Optional[Callable[[int], DeviceDraws]] = None,
+) -> Callable:
+    """``block_fn(params, epoch_ids) -> (params, losses)``: the device
+    pipeline's block of epochs (port of the reference's ``make_block_fn``,
+    ``vmap`` backend, dense Reduce).
+
+    ``epoch_ids`` are absolute epoch indices, host integers (a ``range``),
+    as many as a multiple of ``schedule.merge_every``.  Every epoch's
+    batches (``data/kg.device_epoch_batches`` of ``fold_in(k_data, e)``),
+    negatives (``negative.device_draws`` of ``fold_in(fold_in(k_neg, e),
+    w)`` per worker) and, at the end of a merge round, the ``random``
+    strategy's priorities (per table in sorted name order ``i``, per
+    worker ``w``: ``uniform(fold_in(fold_in(fold_in(k_merge, e_last), i),
+    w))``) are drawn on the partition's device (``core/keys.py``), so the
+    block makes no host sync and its results are the same bits for any
+    block split.  ``losses`` is the ``(L,)`` per-epoch mean loss, a device
+    tensor: the caller decides when to read it.
+
+    SGD: each merge round broadcasts the shared params to W stacked
+    copies; each worker runs K local epochs on its copy (``normalize=
+    'epoch'`` at each epoch's start), the per-key stats summed over the K
+    epochs with ``mean_loss / K``; one Reduce ends the round.  BGD: one
+    :func:`bgd_epoch_vmap` per epoch.
+
+    ``schedule.repartition_every=M``: the partition in effect for the
+    whole block is re-partition round ``epoch_ids[0] // M``
+    (``data/kg.device_repartition``, stratified by ``strata`` when given),
+    drawn once per call — so a block may not cross a round boundary
+    (``train()`` slices blocks there).
+
+    ``donate``: the block empties the params dict it is given and drops
+    its references as soon as it can (``MapReduceConfig.donate_params``).
+    ``draws(epoch)``, when given, returns that epoch's batches, negatives
+    and (at a round's last epoch, ``random`` strategy) priorities as numpy
+    arrays in place of the block's own (tests; a host copy per epoch)."""
+    model = _resolve(cfg, model)
+    W, B, K = cfg.n_workers, cfg.batch_size, cfg.schedule.merge_every
+    M = cfg.schedule.repartition_every
+    E, dev = tcfg.n_entities, partitioned.device
+    k_data, k_neg, k_merge, k_part = keys_lib.device_keys(seed)
+    touch_losses = cfg.strategy == "miniloss_perkey"
+    rows = {"ent": tcfg.n_entities, "rel": tcfg.n_relations}
+    roles = model.param_roles()
+    workers = torch.arange(W, device=dev)
+
+    def block_part(epoch_ids: list) -> torch.Tensor:
+        if M is None:
+            return partitioned
+        r = epoch_ids[0] // M
+        if epoch_ids[-1] // M != r:
+            raise ValueError(
+                f"epochs {epoch_ids[0]}..{epoch_ids[-1]} cross a "
+                f"re-partition boundary (repartition_every={M}): slice the "
+                "block there")
+        return kg_lib.device_repartition(
+            keys_lib.fold_in(k_part, r), partitioned, r, strata)
+
+    def epoch_inputs(e: int, part: torch.Tensor) -> tuple:
+        """``(pos, neg, priorities or None)`` of epoch ``e``."""
+        if draws is not None:
+            return _injected(draws(e), tcfg, dev)
+        pos = kg_lib.device_epoch_batches(keys_lib.fold_in(k_data, e),
+                                          part, B)
+        wkeys = keys_lib.fold_in(keys_lib.fold_in(k_neg, e), workers)
+        uniform, offset = negative.device_draws(wkeys, pos.shape[:-1], E,
+                                                dev)
+        neg = model.make_negatives(pos, tcfg, head_prob, uniform=uniform,
+                                   offset=offset)
+        return pos, neg, None
+
+    def own_priorities(e_last: int) -> Optional[Dict[str, torch.Tensor]]:
+        if cfg.strategy != "random":
+            return None
+        k = keys_lib.fold_in(k_merge, e_last)
+        return {name: keys_lib.uniform(
+                    keys_lib.fold_in(keys_lib.fold_in(k, i), workers),
+                    rows[roles[name]], dev)
+                for i, name in enumerate(sorted(roles))}
+
+    def sgd_block(params: Params, epoch_ids: list) -> tuple:
+        part = block_part(epoch_ids)
+        losses = []
+        for r0 in range(0, len(epoch_ids), K):
+            eids = epoch_ids[r0:r0 + K]
+            stacked = _broadcast(params, W)
+            params = None              # the round input, dead once copied
+            acc = _zero_stats(tcfg, W, touch_losses, dev)
+            for e in eids:
+                pos, neg, priorities = epoch_inputs(e, part)
+                stacked, stats = model.run_epoch(
+                    stacked, pos, neg, tcfg, touch_losses=touch_losses,
+                    check_ids=False)
+                acc = _add_stats(acc, stats)
+                losses.append(merge_lib.worker_mean(stats.mean_loss))
+            acc = dataclasses.replace(acc,
+                                      mean_loss=exact_div(acc.mean_loss, K))
+            if priorities is None:
+                priorities = own_priorities(eids[-1])
+            params = _merge_tables_stacked(model, cfg.strategy, stacked, acc,
+                                           priorities)
+        return params, torch.stack(losses)
+
+    def bgd_block(params: Params, epoch_ids: list) -> tuple:
+        part = block_part(epoch_ids)
+        losses = []
+        for e in epoch_ids:
+            pos, neg, _ = epoch_inputs(e, part)
+            params, loss = bgd_epoch_vmap(params, pos, neg, cfg, tcfg, model,
+                                          check_ids=False)
+            losses.append(loss)
+        return params, torch.stack(losses)
+
+    body = sgd_block if cfg.paradigm == "sgd" else bgd_block
+
+    def block_fn(params: Params, epoch_ids) -> tuple:
+        epoch_ids = list(epoch_ids)
+        if not epoch_ids or len(epoch_ids) % K:
+            raise ValueError(
+                f"a block runs whole merge rounds: {len(epoch_ids)} epochs "
+                f"is not a positive multiple of merge_every={K}")
+        if not donate:
+            return body(params, epoch_ids)
+        # the body's argument is then the only reference to the tables:
+        # this frame keeps none, so the body can drop them
+        given = [dict(params)]
+        params.clear()
+        return body(given.pop(), epoch_ids)
+
+    return block_fn
 
 
 @dataclasses.dataclass
@@ -355,11 +660,19 @@ class TrainResult:
 
 
 def _make_recorder(
-    kg, tcfg: KGConfig, model: KGModel,
+    kg, tcfg: KGConfig, cfg: MapReduceConfig, model: KGModel,
     eval_loop: Optional[trace_lib.EvalLoopConfig],
 ) -> Optional[trace_lib.TraceRecorder]:
     if eval_loop is None:
         return None
+    if cfg.pipeline == "device" and (
+        eval_loop.eval_every % cfg.schedule.merge_every != 0
+    ):
+        raise ValueError(
+            f"eval_every={eval_loop.eval_every} is not a multiple of "
+            f"merge_every={cfg.schedule.merge_every} — in-loop evals run at "
+            "Reduce boundaries (between Reduces the workers hold W "
+            "divergent local copies, not a shared model); pick a multiple")
     return trace_lib.TraceRecorder(
         eval_loop, trace_lib.make_eval_fn(kg, model, tcfg.norm, eval_loop))
 
@@ -410,15 +723,17 @@ def train(
     callback: Optional[Callable[[int, float], None]] = None,
     model: Optional[KGModel] = None,
     device=None,
-    draws: Optional[Callable[[int], Draws]] = None,
+    draws: Optional[Callable[[int], "Draws | DeviceDraws"]] = None,
     eval_loop: Optional[trace_lib.EvalLoopConfig] = None,
     checkpoint: Optional[CheckpointConfig] = None,
     start_epoch: int = 0,
     resume_fresh_init: bool = True,
     prior_history: Optional[list] = None,
 ) -> TrainResult:
-    """Training loop: balanced partitioning, deterministic batches,
-    negative sampling, Map/Reduce epochs, loss history.
+    """Training driver: balanced partitioning, deterministic batches,
+    negative sampling, Map/Reduce epochs, loss history.  With
+    ``cfg.pipeline == 'device'`` the epochs run in blocks
+    (:func:`make_block_fn`); with ``'host'`` one epoch at a time.
 
     Balance rule: the partitioner gives every worker exactly
     ``N // n_workers`` triplets, and each epoch runs ``N_w // batch_size``
@@ -432,8 +747,12 @@ def train(
     GPU; raises without one unless ``device="cpu"``).  ``draws(epoch)``,
     when given, returns that epoch's negatives ``(W, S, B, 3)`` and, for
     the ``random`` strategy, each table's merge priorities ``(W, N)`` as
-    numpy arrays, in place of the port's own draws.  ``callback(epoch,
-    loss)`` fires every epoch.
+    numpy arrays, in place of the port's own draws; on the device
+    pipeline it returns the epoch's batches ``(W, S, B, 3)`` first, and
+    priorities at a merge round's last epoch.  Injected ids are checked
+    against the tables on the host.  ``callback(epoch, loss)`` fires every
+    epoch on the host pipeline, and at block boundaries (with the block's
+    last epoch and its loss) on the device pipeline.
 
     In-training evaluation: ``eval_loop`` (a ``trace.EvalLoopConfig``, see
     ``kg.fit(eval_every=...)``) runs the evaluation protocol after every
@@ -461,8 +780,29 @@ def train(
             f"start_epoch={start_epoch} must be in [0, epochs={epochs}) — "
             "resuming a checkpoint at or past the requested epoch count "
             "has nothing left to train; raise epochs")
+    if cfg.pipeline == "device" and start_epoch % cfg.schedule.merge_every:
+        raise ValueError(
+            f"start_epoch={start_epoch} is not a multiple of "
+            f"merge_every={cfg.schedule.merge_every} — device-pipeline "
+            "checkpoints live at Reduce boundaries")
+    if (checkpoint is not None and checkpoint.every is not None
+            and cfg.pipeline == "device"
+            and checkpoint.every % cfg.schedule.merge_every):
+        raise ValueError(
+            f"checkpoint every={checkpoint.every} is not a multiple of "
+            f"merge_every={cfg.schedule.merge_every} — checkpoints are "
+            "shared-model states, which only exist at Reduce boundaries")
     partitioned = kg_lib.PARTITIONERS[cfg.partition](
         seed, kg.train, cfg.n_workers)
+    _check_ids(partitioned, tcfg, "the training split")
+    # strata for the degree partitioner's re-partition rounds: labels over
+    # the flattened (partition-order) triplets; each round permutes the
+    # original partition, so the labels stay valid every round
+    strata = None
+    if (cfg.partition == "degree" and cfg.pipeline == "device"
+            and cfg.schedule.repartition_every is not None):
+        strata = kg_lib.triplet_strata(partitioned.reshape(-1, 3),
+                                       tcfg.n_entities)
     n_w = partitioned.shape[1]
     if n_w < cfg.batch_size:
         raise ValueError(
@@ -501,8 +841,14 @@ def train(
                          else torch.tensor(np.asarray(p))).to(
                              device=device, dtype=tcfg.dtype)
                   for name, p in params.items()}
+        rows = {"ent": tcfg.n_entities, "rel": tcfg.n_relations}
+        for name, role in model.param_roles().items():
+            if params[name].shape[0] != rows[role]:
+                raise ValueError(
+                    f"params[{name!r}] has {params[name].shape[0]} rows; "
+                    f"the graph has {rows[role]} {role} ids")
 
-    recorder = _make_recorder(kg, tcfg, model, eval_loop)
+    recorder = _make_recorder(kg, tcfg, cfg, model, eval_loop)
     writer = None
     if checkpoint is not None:
         writer = _CheckpointWriter(checkpoint, {
@@ -522,7 +868,17 @@ def train(
             "config": resume_config(tcfg, cfg),
         })
 
-    epoch_fn = make_epoch_fn(cfg, tcfg, model)
+    if cfg.pipeline == "device":
+        return _train_device(
+            tcfg, cfg, model, partitioned, head_prob, params,
+            epochs=epochs, seed=seed, device=device, callback=callback,
+            recorder=recorder, eval_loop=eval_loop, writer=writer,
+            start_epoch=start_epoch, prior_history=prior_history,
+            strata=strata, draws=draws)
+
+    # the ids are proved in range: the partition above, the own negatives
+    # by construction, injected ones as they come in
+    epoch_fn = make_epoch_fn(cfg, tcfg, model, check_ids=False)
     history = list(prior_history or [])
     epochs_run = epochs
     for epoch in range(start_epoch, epochs):
@@ -533,11 +889,7 @@ def train(
             neg, priorities = _own_draws(model, cfg, tcfg, params, pos,
                                          head_prob, seed, epoch)
         else:
-            neg_np, pri_np = draws(epoch)
-            neg = torch.tensor(np.asarray(neg_np, np.int32), device=device)
-            priorities = None if pri_np is None else {
-                name: torch.tensor(np.asarray(v), device=device)
-                for name, v in pri_np.items()}
+            neg, priorities = _injected(draws(epoch), tcfg, device)
         params, loss = epoch_fn(params, pos, neg, priorities)
         loss = float(loss)
         history.append(loss)
@@ -559,3 +911,90 @@ def train(
     if writer is not None:
         writer.finish()
     return _finish_result(params, history, epochs_run, model, recorder)
+
+
+def _train_device(
+    tcfg: KGConfig,
+    cfg: MapReduceConfig,
+    model: KGModel,
+    partitioned: np.ndarray,     # (W, N_w, 3) host array from the partitioner
+    head_prob: Optional[torch.Tensor],
+    params: Params,
+    *,
+    epochs: int,
+    seed: int,
+    device,
+    callback: Optional[Callable[[int, float], None]],
+    recorder: Optional[trace_lib.TraceRecorder],
+    eval_loop: Optional[trace_lib.EvalLoopConfig],
+    writer: Optional[_CheckpointWriter],
+    start_epoch: int,
+    prior_history: Optional[list],
+    strata: Optional[np.ndarray],
+    draws: Optional[Callable[[int], DeviceDraws]],
+) -> TrainResult:
+    """Device-pipeline driver: put the partition (and the degree strata)
+    on the device once, then run epochs in blocks (:func:`make_block_fn`).
+    Blocks are sliced at evaluation, checkpoint and re-partition
+    boundaries — each a multiple of ``merge_every``, so every block ends
+    on a Reduce, and block invariance keeps the sliced run bit-identical
+    to the unsliced one.  The host reads a block's losses only where it
+    needs them: the callback and an evaluation read the last one, a
+    checkpoint and the result the history.  A resume starts the epoch ids
+    at ``start_epoch``; every draw is a pure function of (seed, epoch), so
+    nothing is replayed."""
+    sched = cfg.schedule
+    if epochs % sched.merge_every != 0:
+        raise ValueError(
+            f"epochs={epochs} is not a multiple of "
+            f"merge_every={sched.merge_every} — the trailing local epochs "
+            "would never be Reduced into the shared params; pick a multiple")
+    block_fn = make_block_fn(
+        cfg, tcfg, torch.as_tensor(partitioned, device=device), model=model,
+        head_prob=head_prob, seed=seed,
+        donate=cfg.donate_params is not False,
+        strata=None if strata is None else torch.as_tensor(strata,
+                                                           device=device),
+        draws=draws)
+
+    eval_every = eval_loop.eval_every if eval_loop is not None else None
+    ckpt_every = writer.cfg.every if writer is not None else None
+    repart = sched.repartition_every
+    loss_blocks = []
+    history = list(prior_history or [])    # host floats read so far
+
+    def snapshot_history() -> list:
+        while loss_blocks:
+            history.extend(loss_blocks.pop(0).tolist())
+        return history
+
+    start = start_epoch
+    epochs_run = epochs
+    while start < epochs:
+        length = min(sched.block_epochs, epochs - start)
+        for every in (eval_every, ckpt_every, repart):
+            if every is not None:
+                length = min(length, every - start % every)
+        params, losses = block_fn(params, range(start, start + length))
+        loss_blocks.append(losses)
+        start += length
+        last = None
+        if callback is not None:
+            last = float(losses[-1])
+            callback(start - 1, last)
+        stop = False
+        if recorder is not None and (
+            start % eval_every == 0 or start == epochs
+        ):
+            stop = recorder.record(
+                start - 1, start // sched.merge_every,
+                float(losses[-1]) if last is None else last, params)
+        if writer is not None and writer.due(start, epochs, stopping=stop):
+            writer.save(start, params, snapshot_history())
+        if stop:
+            epochs_run = start
+            break
+    if writer is not None:
+        writer.finish()
+    return _finish_result(params, snapshot_history(), epochs_run, model,
+                          recorder)

@@ -113,8 +113,9 @@ def merge_miniloss_perkey_stacked(
 def merge_miniloss_global_stacked(
     stacked: torch.Tensor, worker_loss: torch.Tensor
 ) -> torch.Tensor:
-    """The single worker with the smallest epoch loss wins every key."""
-    return stacked[torch.argmin(worker_loss)]
+    """The single worker with the smallest epoch loss wins every key (an
+    index kernel, not a host read of the winner)."""
+    return stacked.index_select(0, torch.argmin(worker_loss).reshape(1))[0]
 
 
 def merge_stacked(

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core import negative
 from repro_torch.util import (
-    exact_div, not_ported, ordered_index_add, sqrt_rn, worker_offsets)
+    not_ported, ordered_index_add, pairwise_mean, sqrt_rn, worker_offsets)
 
 Params = Dict[str, torch.Tensor]
 
@@ -184,7 +184,9 @@ class EpochStats:
     """Bookkeeping one Map worker emits for the Reduce phase (with a
     leading worker axis when the epoch ran stacked workers)."""
 
-    mean_loss: torch.Tensor     # scalar, mean pair loss over the epoch
+    # scalar, mean pair loss over the epoch: the mean over the steps of
+    # each step's mean over its pairs, both util.pairwise_mean
+    mean_loss: torch.Tensor
     ent_count: torch.Tensor     # (E,) how many updates touched each entity
     # (E,) summed pair loss attributed to entity; None when the epoch was
     # run without touch losses (only miniloss_perkey reads them)
@@ -304,12 +306,13 @@ class KGModel:
 
     def fused_pair_loss(
         self, params: Params, pos: torch.Tensor, neg: torch.Tensor, *,
-        margin: float, norm: str
+        margin: float, norm: str, check_ids: bool = True
     ) -> torch.Tensor:
-        """Differentiable per-pair hinge through the model's kernels.  A
-        model declaring ``supports_fused_kernel = True`` MUST override this
-        and the two hooks below: the dispatch in kernels/ops.py calls them
-        blindly."""
+        """Differentiable per-pair hinge through the model's kernels
+        (``check_ids=False``: the caller has proved the ids in range, and
+        the kernels skip their checks and host syncs).  A model declaring
+        ``supports_fused_kernel = True`` MUST override this and the two
+        hooks below: the dispatch in kernels/ops.py calls them blindly."""
         raise NotImplementedError(
             f"{self.name!r} sets supports_fused_kernel but does not "
             "implement fused_pair_loss")
@@ -375,7 +378,7 @@ class KGModel:
         return pairwise_hinge(self.energy(params, pos, norm),
                               self.energy(params, neg, norm), margin)
 
-    def _pair_loss_fn(self, cfg: KGConfig):
+    def _pair_loss_fn(self, cfg: KGConfig, check_ids: bool = True):
         """The training objective ``(params, pos, neg) -> (…, B)`` per-pair
         losses, differentiable: the model-dispatched loss of
         ``kernels/ops.kg_pair_loss`` (the kernels for fused models).  Its
@@ -385,17 +388,19 @@ class KGModel:
         from repro_torch.kernels import ops
 
         return functools.partial(ops.kg_pair_loss, self, margin=cfg.margin,
-                                 norm=cfg.norm)
+                                 norm=cfg.norm, check_ids=check_ids)
 
     def _pairs_and_grads(self, params: Params, pos, neg, cfg: KGConfig,
-                         shared: bool = False):
+                         shared: bool = False, check_ids: bool = True):
         """``(pair losses, mean loss, grads)`` of one step: the objective on
         ``params`` and its gradient with respect to every table.
 
         With ``shared`` and a ``(W, B, 3)`` batch the tables are one set of
         ``(N, k)`` tables that all W workers read (BGD): they enter as a
         worker-stride-0 view ``(W, N, k)``, so each worker's gradient comes
-        back in its own ``(N, k)`` slice."""
+        back in its own ``(N, k)`` slice.  ``check_ids=False`` (the
+        training engine, which proves its ids in range once per run) makes
+        the step free of host syncs: see ``kernels/transe_score.py``."""
         if shared and pos.dim() == 3:
             W = pos.shape[0]
             leaves = {name: p.detach().expand(W, *p.shape).requires_grad_()
@@ -405,7 +410,7 @@ class KGModel:
                       for name, p in params.items()}
         names = sorted(leaves)
         with torch.enable_grad():
-            pair = self._pair_loss_fn(cfg)(leaves, pos, neg)
+            pair = self._pair_loss_fn(cfg, check_ids)(leaves, pos, neg)
             loss = pair.mean(-1)
             grads = torch.autograd.grad(loss.sum(),
                                         [leaves[n] for n in names])
@@ -433,6 +438,7 @@ class KGModel:
         sparse_apply: bool = False,
         update_mask: Optional[Params] = None,
         touch_losses: bool = True,
+        check_ids: bool = True,
     ) -> tuple:
         """One epoch of Algorithm 1: constraint projection, then SGD over
         the minibatches in order, tracking the per-key stats the Reduce
@@ -440,7 +446,9 @@ class KGModel:
         workers run side by side, each on its own copy; the stats then
         carry a leading worker axis.  ``touch_losses=False`` leaves the
         per-key loss sums out (``None``): only ``miniloss_perkey`` reads
-        them, and they are the dearest part of the stats.  Returns
+        them, and they are the dearest part of the stats (and their
+        in-order sums, ``util.ordered_index_add``, read a count back to the
+        host).  ``check_ids``: see :meth:`_pairs_and_grads`.  Returns
         ``(params, EpochStats)``."""
         if sparse_apply:
             raise not_ported("run_epoch(sparse_apply=True)", 11)
@@ -455,22 +463,21 @@ class KGModel:
         zeros = lambda n: torch.zeros(W * n, dtype=cfg.dtype, device=dev)
         stats = (zeros(E), zeros(E) if touch_losses else None, zeros(R),
                  zeros(R) if touch_losses else None)
-        loss_sum = torch.zeros((W,) if stacked else (), dtype=cfg.dtype,
-                               device=dev)
-        n_steps = pos_batches.shape[-3]
-        for s in range(n_steps):
+        pairs = []
+        for s in range(pos_batches.shape[-3]):
             pos = pos_batches[:, s] if stacked else pos_batches[s]
             neg = neg_batches[:, s] if stacked else neg_batches[s]
-            pair, loss, grads = self._pairs_and_grads(params, pos, neg, cfg)
+            pair, _, grads = self._pairs_and_grads(
+                params, pos, neg, cfg, check_ids=check_ids)
             params = apply_gradients(params, grads, cfg.learning_rate)
             if cfg.normalize == "step":
                 params = self.normalize(params)
             stats = _accumulate_touch(stats, pos, neg, pair, E, R)
-            loss_sum = loss_sum + loss
+            pairs.append(pair)
         shape = lambda t, n: None if t is None else t.reshape(
             (W, n) if stacked else (n,))
         return params, EpochStats(
-            mean_loss=exact_div(loss_sum, n_steps),
+            mean_loss=pairwise_mean(pairwise_mean(torch.stack(pairs)), 0),
             ent_count=shape(stats[0], E),
             ent_loss=shape(stats[1], E),
             rel_count=shape(stats[2], R),

@@ -85,11 +85,11 @@ class TransE(base.KGModel):
     # -- fused kernels (late imports: kernels/ops imports this package) -----
 
     def fused_pair_loss(self, params: Params, pos, neg, *, margin: float,
-                        norm: str) -> torch.Tensor:
+                        norm: str, check_ids: bool = True) -> torch.Tensor:
         from repro_torch.kernels import ops
 
         return ops.transe_pair_loss(params, pos, neg, margin=margin,
-                                    norm=norm)
+                                    norm=norm, check_ids=check_ids)
 
     def fused_margin_loss(self, params: Params, pos, neg, *, margin: float,
                           norm: str) -> torch.Tensor:

@@ -13,13 +13,18 @@ threefry keys; the port does not reimplement threefry.  The draws are
 arguments instead: pass them to reproduce a given draw (the parity tests
 pass the reference's), or a seeded CPU ``torch.Generator`` to draw fresh
 ones — on the CPU, so one seed gives the same negatives on every device.
+The device pipeline draws them on its device from counter-based keys
+instead (:func:`device_draws`), the same bits on every device too.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core import keys
 
 
 def _draw_offsets(shape, n_entities: int, generator: torch.Generator):
@@ -114,6 +119,20 @@ def corrupt_bern(
     u = torch.as_tensor(uniform, device=triplets.device)
     return _corrupt(triplets, n_entities, u < p[triplets[..., 1].long()],
                     offset)
+
+
+def device_draws(key, shape, n_entities: int, device=None) -> tuple:
+    """The device pipeline's draws for one worker's negatives, ``(uniform,
+    offset)`` of ``shape``: counter-based (``core/keys.py``) from
+    ``fold_in(key, 0)`` and ``fold_in(key, 1)``, on ``device``, the same
+    bits on every device.  ``key`` may be a tensor of per-worker keys,
+    which then lead ``shape``: ``(W,)`` keys for ``(W, S, B)`` draws."""
+    lead = key.dim() if isinstance(key, torch.Tensor) else 0
+    n = math.prod(shape[lead:])
+    uniform = keys.uniform(keys.fold_in(key, 0), n, device).reshape(shape)
+    offset = keys.randint(keys.fold_in(key, 1), n, 1, n_entities,
+                          device).reshape(shape)
+    return uniform, offset
 
 
 def make_negatives(

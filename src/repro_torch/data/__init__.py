@@ -1,1 +1,2 @@
-"""Knowledge-graph data (host side, numpy): see ``data/kg.py``."""
+"""Knowledge-graph data: the host side in numpy and the device pipeline's
+batching in torch; see ``data/kg.py``."""

@@ -13,8 +13,14 @@ the same arguments give the same arrays in both packages (the reference
 module imports jax, which is why the port keeps its own copy).  The one
 random draw that differs is ``KG.tc_negatives``: the reference draws with
 ``jax.random``, the port with a seeded ``torch.Generator``.  ``KG.extend``
-and the on-device batching (``device_*``) are not ported yet (ROADMAP.md
-queue 1, items 14 and 9).
+is not ported yet (ROADMAP.md queue 1, item 14).
+
+The device pipeline's batching (``device_*``, ``repartition_perm*``) is
+torch on the run's device: the same functions as the reference's, drawn
+from the port's counter-based keys (``core/keys.py``) in place of
+``jax.random``, so they differ from the reference's draws but keep its
+contract — a pure function of (key, round) or (key, epoch, worker), the
+same bits on the CPU and the card.
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core import keys as keys_lib
 from repro_torch.util import warn_fresh
 
 
@@ -407,3 +415,96 @@ def epoch_batches(
         perm = rng.permutation(N_w)[: S * batch_size]
         out[w] = partitioned[w][perm].reshape(S, batch_size, 3)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device pipeline: on-device epoch batching and re-partitioning
+# ---------------------------------------------------------------------------
+
+def device_worker_batches(
+    key: keys_lib.Key,
+    triplets: torch.Tensor,      # (N_w, 3) one worker's split, on device
+    batch_size: int,
+) -> torch.Tensor:
+    """One worker's epoch batch grid, built on the triplets' device:
+    ``(S, B, 3)``.  The permutation comes from ``key`` (callers fold in
+    (epoch, worker)), so batches are a pure function of (seed, epoch,
+    worker).  The host path's remainder rule: ``S = N_w // batch_size``,
+    and the trailing ``N_w % batch_size`` of the permutation sit out."""
+    n = triplets.shape[0]
+    steps = n // batch_size
+    perm = keys_lib.permutation(key, n, triplets.device)
+    return triplets[perm[: steps * batch_size]].reshape(steps, batch_size, 3)
+
+
+def device_epoch_batches(
+    key: keys_lib.Key,
+    partitioned: torch.Tensor,   # (W, N_w, 3) on device
+    batch_size: int,
+) -> torch.Tensor:
+    """All workers' batch grids, ``(W, S, B, 3)``: worker ``w``'s is
+    :func:`device_worker_batches` of ``fold_in(key, w)``, all W drawn and
+    gathered at once."""
+    W, n, _ = partitioned.shape
+    steps = n // batch_size
+    dev = partitioned.device
+    wkeys = keys_lib.fold_in(key, torch.arange(W, device=dev))
+    perm = keys_lib.permutation(wkeys, n, dev)[:, : steps * batch_size]
+    rows = torch.gather(partitioned, 1, perm[..., None].expand(-1, -1, 3))
+    return rows.reshape(W, steps, batch_size, 3)
+
+
+def repartition_perm(key: keys_lib.Key, n: int, round_idx: int,
+                     device=None) -> torch.Tensor:
+    """The global triplet permutation of re-partition round ``round_idx``.
+    Round 0 is the identity (the original host partition), so a
+    ``repartition_every`` past the run's end changes nothing."""
+    if round_idx == 0:
+        return torch.arange(n, device=device)
+    return keys_lib.permutation(key, n, device)
+
+
+def repartition_perm_stratified(
+    key: keys_lib.Key,
+    strata: torch.Tensor,        # (n,) int per-triplet stratum labels
+    n_workers: int,
+    round_idx: int,
+    uniform: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Stratum-preserving re-partition permutation (degree partitioner):
+    shuffle within each stratum (the order of ``(stratum, draw, index)``,
+    as the reference's ``lexsort((u, strata))``), then deal the stratified
+    order round-robin, ``order.reshape(n_w, W).T``, so worker ``w`` gets
+    rows ``order[w::W]`` and keeps its degree mix.  ``uniform`` (``(n,)``)
+    replaces the port's own draw, which is the key's 32-bit
+    :func:`keys.random_bits`.  Round 0 is the identity."""
+    n = strata.shape[0]
+    if round_idx == 0:
+        return torch.arange(n, device=strata.device)
+    u = uniform if uniform is not None else keys_lib.random_bits(
+        key, n, strata.device)
+    by_draw = torch.argsort(u.to(strata.device), stable=True)
+    order = by_draw[torch.argsort(strata[by_draw], stable=True)]
+    return order.reshape(n // n_workers, n_workers).T.reshape(-1)
+
+
+def device_repartition(
+    key: keys_lib.Key,
+    partitioned: torch.Tensor,   # (W, N_w, 3) on device
+    round_idx: int,
+    strata: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Re-split the whole triplet set across the workers on its device:
+    the flattened partition permuted by round ``round_idx``'s
+    :func:`repartition_perm` (``strata`` given:
+    :func:`repartition_perm_stratified`), ``(W, N_w, 3)``.  A pure function
+    of (key, round); callers fold the round into the key."""
+    W, n_w, _ = partitioned.shape
+    if round_idx == 0:
+        return partitioned
+    flat = partitioned.reshape(W * n_w, 3)
+    if strata is None:
+        perm = repartition_perm(key, W * n_w, round_idx, flat.device)
+    else:
+        perm = repartition_perm_stratified(key, strata, W, round_idx)
+    return flat[perm].reshape(W, n_w, 3)

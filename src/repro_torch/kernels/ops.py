@@ -37,14 +37,14 @@ class _FusedPairLoss(torch.autograd.Function):
     """Per-pair hinge whose forward is the ``transe_score`` kernel and whose
     backward is the ``transe_score_bwd`` kernel, fed the upstream gradient
     of each pair (a mean over B arrives as ``g / B`` per pair, as in the
-    reference's ``_bwd``)."""
+    reference's ``_bwd``).  ``check_ids`` goes to both wrappers."""
 
     @staticmethod
-    def forward(ctx, ent, rel, idx, margin, norm):
+    def forward(ctx, ent, rel, idx, margin, norm, check_ids):
         loss, d_pos, d_neg = ts.transe_score(
-            ent, rel, idx, margin=margin, norm=norm)
+            ent, rel, idx, margin=margin, norm=norm, check_ids=check_ids)
         ctx.save_for_backward(ent, rel, idx, loss, d_pos, d_neg)
-        ctx.norm = norm
+        ctx.norm, ctx.check_ids = norm, check_ids
         return loss
 
     @staticmethod
@@ -52,14 +52,16 @@ class _FusedPairLoss(torch.autograd.Function):
         ent, rel, idx, loss, d_pos, d_neg = ctx.saved_tensors
         d_ent, d_rel = ts.transe_score_bwd(
             ent, rel, idx, g.float().contiguous(), loss, d_pos, d_neg,
-            norm=ctx.norm)
-        return d_ent, d_rel, None, None, None
+            norm=ctx.norm, check_ids=ctx.check_ids)
+        return d_ent, d_rel, None, None, None, None
 
 
-def fused_pair_loss(ent, rel, idx, margin: float, norm: str) -> torch.Tensor:
+def fused_pair_loss(ent, rel, idx, margin: float, norm: str,
+                    check_ids: bool = True) -> torch.Tensor:
     """Differentiable per-pair hinge ``idx.shape[:-1]`` through the
-    kernels."""
-    return _FusedPairLoss.apply(ent, rel, idx, margin, norm)
+    kernels.  ``check_ids=False`` drops the kernels' id range checks and
+    their host syncs (``kernels/transe_score.py``)."""
+    return _FusedPairLoss.apply(ent, rel, idx, margin, norm, check_ids)
 
 
 def fused_margin_loss(ent, rel, idx, margin: float, norm: str
@@ -70,10 +72,11 @@ def fused_margin_loss(ent, rel, idx, margin: float, norm: str
 
 
 def transe_pair_loss(params: Params, pos, neg, *, margin: float = 1.0,
-                     norm: str = "l1") -> torch.Tensor:
+                     norm: str = "l1", check_ids: bool = True
+                     ) -> torch.Tensor:
     """Fused replacement for TransE's ``per_pair_loss``."""
     return fused_pair_loss(params["ent"], params["rel"], _pack_idx(pos, neg),
-                           margin, norm)
+                           margin, norm, check_ids)
 
 
 def transe_margin_loss(params: Params, pos, neg, *, margin: float = 1.0,
@@ -84,14 +87,15 @@ def transe_margin_loss(params: Params, pos, neg, *, margin: float = 1.0,
 
 
 def kg_pair_loss(model, params: Params, pos, neg, *, margin: float = 1.0,
-                 norm: str = "l1") -> torch.Tensor:
+                 norm: str = "l1", check_ids: bool = True) -> torch.Tensor:
     """Model-dispatched per-pair hinge, differentiable: fused models take
-    their kernels (``fused_pair_loss``), others their plain
+    their kernels (``fused_pair_loss``; ``check_ids=False`` drops the
+    kernels' id range checks and host syncs), others their plain
     ``per_pair_loss``."""
     model = get_model(model)
     if model.supports_fused_kernel:
         return model.fused_pair_loss(params, pos, neg, margin=margin,
-                                     norm=norm)
+                                     norm=norm, check_ids=check_ids)
     return model.per_pair_loss(params, pos, neg, margin=margin, norm=norm)
 
 

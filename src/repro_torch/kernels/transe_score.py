@@ -21,6 +21,13 @@ they launch the kernels or raise — there is no fallback between the two.
 ``transe_score.launches`` and ``transe_score_bwd.launches`` count the calls
 that launched their kernels (one forward kernel; the backward's two, one
 per phase), so a run can show it went through the kernels.
+
+By default a CUDA call checks that every id lies inside its table, which
+copies the ids' range to the host: two device→host copies a call that
+wait for the card.  ``check_ids=False`` leaves the check out, so a call
+makes no host sync; a caller passing it has proved its ids in range (the
+training engine does so once per run, ``core/mapreduce.py``).  An id out
+of range is then a read outside the table.
 """
 from __future__ import annotations
 
@@ -51,9 +58,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _layout(ent, rel, idx, name):
+def _layout(ent, rel, idx, name, check_ids):
     """``(n, per_worker, ent_worker_stride, rel_worker_stride)`` of the
-    kernels' layout; raises on what the kernels do not take."""
+    kernels' layout; raises on what the kernels do not take, and, with
+    ``check_ids``, on an id outside its table."""
     dev = idx.device
     if dev.type != "cuda" or ent.device != dev or rel.device != dev:
         raise ValueError(
@@ -92,7 +100,7 @@ def _layout(ent, rel, idx, name):
     if not idx.is_contiguous():
         raise ValueError(f"{name} kernel needs contiguous idx")
     n = idx.numel() // 5
-    if n:
+    if n and check_ids:
         lo, hi = idx.reshape(n, 5).aminmax(dim=0)
         lo, hi = lo.tolist(), hi.tolist()
         sizes = (ent.shape[-2], rel.shape[-2]) + (ent.shape[-2],) * 3
@@ -119,15 +127,18 @@ def transe_score(
     *,
     margin: float = 1.0,
     norm: str = "l1",
+    check_ids: bool = True,
 ):
     """``(loss, d_pos, d_neg)``, each ``idx.shape[:-1]`` fp32: the hinge
     ``max((margin + d_pos) - d_neg, 0)`` and the L1 / L2 distances of
-    ``(h + r) - t`` and ``(nh + r) - nt``."""
+    ``(h + r) - t`` and ``(nh + r) - nt``.  ``check_ids``: see the module
+    docstring."""
     if all(t.device.type == "cpu" for t in (ent, rel, idx)):
         return ref.transe_score_ref(ent, rel, idx, margin, norm)
     if norm not in _NORMS:
         raise ValueError(f"norm must be 'l1' or 'l2', got {norm!r}")
-    n, per_worker, ent_ws, rel_ws = _layout(ent, rel, idx, "transe_score")
+    n, per_worker, ent_ws, rel_ws = _layout(ent, rel, idx, "transe_score",
+                                            check_ids)
     out = [torch.empty(idx.shape[:-1], dtype=torch.float32,
                        device=idx.device) for _ in range(3)]
     if n == 0:
@@ -154,12 +165,14 @@ def transe_score_bwd(
     d_neg: torch.Tensor,
     *,
     norm: str = "l1",
+    check_ids: bool = True,
 ):
     """Dense ``(d_ent, d_rel)``: the gradients of ``Σ g · loss`` with respect
     to the tables, shaped as the tables (a stacked table's gradient has one
     slice per worker) and contiguous, in the tables' dtype.  Each row sums
     its contributions in a fixed order (``ref.scatter_rows``), so two runs
-    give the same bits, and a row no triplet references is ``+0.0``."""
+    give the same bits, and a row no triplet references is ``+0.0``.
+    ``check_ids``: see the module docstring."""
     if all(t.device.type == "cpu"
            for t in (ent, rel, idx, g, loss, d_pos, d_neg)):
         return ref.transe_score_bwd_ref(ent, rel, idx, g, loss, d_pos,
@@ -167,7 +180,7 @@ def transe_score_bwd(
     if norm not in _NORMS:
         raise ValueError(f"norm must be 'l1' or 'l2', got {norm!r}")
     n, per_worker, ent_ws, rel_ws = _layout(ent, rel, idx,
-                                            "transe_score_bwd")
+                                            "transe_score_bwd", check_ids)
     for label, t in (("g", g), ("loss", loss), ("d_pos", d_pos),
                      ("d_neg", d_neg)):
         if t.device != idx.device or t.dtype != torch.float32 or \

@@ -14,9 +14,12 @@
 ``fit`` runs on the GPU by default and raises without one; pass
 ``device="cpu"`` to train on the CPU (the kernels' plain versions).
 ``paradigm`` is the paper's 'sgd' (local epochs + conflict-resolving
-Reduce) or 'bgd' (gradient Reduce), on the host pipeline with simulated
-workers; see ``repro_torch.core.mapreduce``.  ``fit(eval_every=K)``
-traces quality against epochs from inside the loop, and ``fit(ckpt_dir=,
+Reduce) or 'bgd' (gradient Reduce), with simulated workers, on the host
+pipeline (one epoch at a time) or the device pipeline (``pipeline=
+"device"``: blocks of epochs drawn on the device, with ``merge_every``
+local epochs between Reduces and ``repartition_every``); see
+``repro_torch.core.mapreduce``.  ``fit(eval_every=K)`` traces quality
+against epochs from inside the loop, and ``fit(ckpt_dir=,
 checkpoint_every=, resume=True)`` checkpoints and resumes bit-identically.
 """
 from __future__ import annotations
@@ -68,6 +71,7 @@ def make_configs(
     merge_every: int = 1,
     repartition_every: Optional[int] = None,
     strict_batching: bool = False,
+    donate_params: Optional[bool] = None,
     table_sharding: str = "replicated",
     touched_capacity: Optional[int] = None,
     staleness: int = 0,
@@ -79,8 +83,16 @@ def make_configs(
     setting: dim 50, L1, margin 1, lr 0.01, per-epoch normalization,
     uniform negatives, 4 workers, batch 256, balanced split, the
     ``average`` Reduce.  ``partitioner`` is an alias of ``partition``.
-    Options of the reference that are not ported raise, naming their
-    ROADMAP.md item."""
+
+    ``pipeline='device'`` runs epochs in blocks of ``block_epochs`` with
+    batches, negatives and merge priorities drawn on the device (the same
+    bits for any block size); ``merge_every=K`` lets SGD workers take K
+    local epochs between Reduces; ``repartition_every=M`` re-splits the
+    triplets across workers on the device every M epochs;
+    ``donate_params`` (default on) lets each block drop the tables it was
+    given early (``MapReduceConfig.donate_params``).  ``pipeline='host'``
+    (the default) runs one epoch at a time.  Options of the reference that
+    are not ported raise, naming their ROADMAP.md item."""
     model = get_model(model)
     if partitioner is not None:
         partition = partitioner
@@ -110,6 +122,7 @@ def make_configs(
             block_epochs=block_epochs, merge_every=merge_every,
             repartition_every=repartition_every),
         strict_batching=strict_batching,
+        donate_params=donate_params,
         table_sharding=table_sharding,
         touched_capacity=touched_capacity,
         staleness=staleness,
@@ -145,10 +158,13 @@ def fit(
     """Train ``model`` on the port ``KG`` ``kg`` with the MapReduce engine.
 
     ``config_kw`` forwards to :func:`make_configs` (dim, margin, norm,
-    learning_rate, n_workers, strategy, batch_size, partition, ...).  The
-    tables live on ``device``: the GPU by default (raises without one),
-    ``"cpu"`` on request; a resumed run restores onto it too.  ``draws``
-    (``mapreduce.train``) replaces the port's own per-epoch random draws.
+    learning_rate, n_workers, strategy, batch_size, partition, pipeline,
+    block_epochs, merge_every, repartition_every, donate_params, ...).
+    The tables live on ``device``: the GPU by default (raises without
+    one), ``"cpu"`` on request; a resumed run restores onto it too.
+    ``draws`` (``mapreduce.train``) replaces the port's own per-epoch
+    random draws.  ``callback`` fires every epoch on the host pipeline and
+    at block boundaries on the device pipeline.
     Returns a :class:`TrainResult` whose ``.kb`` is the trained
     :class:`KnowledgeBase`.
 
@@ -177,9 +193,13 @@ def fit(
     to the unbroken run.  Checkpoints are the reference's format: either
     package resumes the other's.
 
+    In-loop evaluations and checkpoints land on Reduce boundaries: on the
+    device pipeline ``eval_every`` and ``checkpoint_every`` must be
+    multiples of ``merge_every``, as must ``epochs``.
+
     Not ported yet, each raising and naming its ROADMAP.md item: the
-    device pipeline (``pipeline``, ``block_epochs``, ``merge_every``;
-    item 9) and ``mesh=`` (item 12)."""
+    sparse transport (item 11), ``mesh=``, ``backend='shard_map'``,
+    sharded tables and staleness (item 12)."""
     if "mesh" in config_kw:
         raise not_ported("kg.fit(mesh=...) (the shard_map backend)", 12)
     device = resolve_device(device)

@@ -11,7 +11,8 @@ though each drops its own counts.  These are once-per-*call* reports.
 with float atomics, in an order that changes from run to run; ``sqrt_rn``
 because ``torch.sqrt`` of a float32 CPU tensor is not always correctly
 rounded (about 0.6 % of inputs come out one ulp off), while the card's and
-the CUDA kernels' (``__fsqrt_rn``) are.
+the CUDA kernels' (``__fsqrt_rn``) are; ``pairwise_mean`` because
+``torch.mean`` sums in another order on the card than on the CPU.
 """
 from __future__ import annotations
 
@@ -33,8 +34,26 @@ def exact_div(x: torch.Tensor, n) -> torch.Tensor:
     """``x / n`` for a Python number ``n``, one correctly rounded division
     on every device (a CUDA tensor divided by a Python scalar is multiplied
     by its reciprocal instead, which differs in the last bit unless ``n``
-    is a power of two)."""
-    return x / torch.tensor(n, dtype=x.dtype, device=x.device)
+    is a power of two).  The divisor is filled on the device, not copied
+    from the host, so the division makes no host sync."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+def pairwise_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Mean over ``dim`` with the same bits on every device: ``x`` padded
+    with ``+0.0`` to a power-of-two length, summed as a balanced tree of
+    pairwise additions (``x[0::2] + x[1::2]`` a level, one rounding per
+    addition), then one :func:`exact_div`.  ``torch.mean`` reduces in one
+    order on the CPU and in another on the card, so its last bit may
+    differ between them."""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        x = torch.cat([x, x.new_zeros((width - n,) + x.shape[1:])])
+    while x.shape[0] > 1:
+        x = x[0::2] + x[1::2]
+    return exact_div(x[0], n)
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:

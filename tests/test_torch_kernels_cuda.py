@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch import kg
-from repro_torch.core import eval_device
+from repro_torch.core import eval_device, keys, mapreduce, negative
 from repro_torch.core.models import KGConfig, get_model
 from repro_torch.data import kg as kg_data
 from repro_torch.kernels import ref, rank_topk, transe_score
@@ -277,6 +277,109 @@ def test_transe_score_rejects_what_it_does_not_take(cuda):
         wide = torch.zeros(20, 257, device=cuda)
         transe_score.transe_score(wide, torch.zeros(4, 257, device=cuda),
                                   idx)
+
+
+class _NoHostSync:
+    """``torch.cuda.set_sync_debug_mode("error")`` for a ``with`` block:
+    any call that waits for the card, a device→host copy among them,
+    raises."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        return False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [0, 4])
+def test_transe_score_without_id_checks_makes_no_host_sync(cuda, W):
+    """By default both wrappers raise on an id outside its table; with
+    ``check_ids=False`` neither makes a device→host copy, and they give the
+    bits of the checked calls."""
+    ent, rel, idx = _transe_inputs(cuda, W, 256, 2000, 30, 50,
+                                   torch.float32, 4)
+    bad = idx.clone()
+    bad[..., 0, 3] = ent.shape[-2]
+    with pytest.raises(IndexError, match="outside"):
+        transe_score.transe_score(ent, rel, bad)
+    fwd = transe_score.transe_score(ent, rel, idx)
+    g = torch.full(idx.shape[:-1], 1.0 / 256, device=cuda)
+    with pytest.raises(IndexError, match="outside"):
+        transe_score.transe_score_bwd(ent, rel, bad, g, *fwd)
+    bwd = transe_score.transe_score_bwd(ent, rel, idx, g, *fwd)
+    with _NoHostSync():
+        fwd_off = transe_score.transe_score(ent, rel, idx, check_ids=False)
+        bwd_off = transe_score.transe_score_bwd(ent, rel, idx, g, *fwd_off,
+                                                check_ids=False)
+    _assert_bitwise(fwd_off, fwd)
+    _assert_bitwise(bwd_off, bwd)
+
+
+@pytest.mark.cuda
+def test_counter_draws_equal_cpu(cuda):
+    """The device pipeline's draws give the CPU's bits on the card."""
+    k = keys.fold_in(keys.device_keys(7)[1], torch.arange(4))
+    for fn in (lambda d: keys.random_bits(k.to(d), 1 << 16, d),
+               lambda d: keys.uniform(k.to(d), 1 << 16, d),
+               lambda d: keys.randint(k.to(d), 1 << 16, 1, 14951, d),
+               lambda d: keys.permutation(k.to(d), 1 << 16, d),
+               lambda d: negative.device_draws(k.to(d), (4, 64, 256),
+                                               14951, d)[1]):
+        assert torch.equal(fn(cuda).cpu(), fn("cpu"))
+    part = torch.as_tensor(kg_data.partition_balanced(
+        0, kg_data.synthetic_kg(0, 400, 8, 5000).train, 4))
+    for r in (0, 3):
+        assert torch.equal(
+            kg_data.device_repartition(11, part.to(cuda), r).cpu(),
+            kg_data.device_repartition(11, part, r))
+    assert torch.equal(
+        kg_data.device_epoch_batches(5, part.to(cuda), 128).cpu(),
+        kg_data.device_epoch_batches(5, part, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paradigm,opts", [
+    ("sgd", dict(merge_every=2, repartition_every=2, block_epochs=2)),
+    ("bgd", dict(repartition_every=2, partition="degree", block_epochs=2)),
+])
+def test_device_block_makes_no_host_sync(cuda, paradigm, opts):
+    """A device-pipeline block on the card makes no host sync, launches
+    both kernels once a step, and gives the CPU block's bits."""
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    kcfg, mcfg = kg.make_configs(graph, "transe", paradigm, dim=32,
+                                 batch_size=128, pipeline="device", **opts)
+    part = kg_data.PARTITIONERS[mcfg.partition](0, graph.train, 4)
+    strata = None
+    if mcfg.partition == "degree":
+        strata = torch.as_tensor(kg_data.triplet_strata(
+            part.reshape(-1, 3), graph.n_entities))
+    init = get_model("transe").init_params(
+        torch.Generator().manual_seed(0), kcfg, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        block_fn = mapreduce.make_block_fn(
+            mcfg, kcfg, torch.as_tensor(part, device=dev), seed=3,
+            strata=None if strata is None else strata.to(dev))
+        params = {n: t.to(dev) for n, t in init.items()}
+        before = (transe_score.transe_score.launches,
+                  transe_score.transe_score_bwd.launches)
+        if dev == "cpu":
+            out[dev] = block_fn(params, range(2, 4))
+            continue
+        with _NoHostSync():
+            out[dev] = block_fn(params, range(2, 4))
+        steps = 2 * (part.shape[1] // 128)
+        assert (transe_score.transe_score.launches - before[0],
+                transe_score.transe_score_bwd.launches - before[1]) == (
+                    steps, steps)
+    (p_cpu, l_cpu), (p_card, l_card) = out["cpu"], out[cuda]
+    assert torch.equal(l_card.cpu(), l_cpu)
+    for name in p_cpu:
+        assert torch.equal(p_card[name].cpu(), p_cpu[name])
 
 
 @pytest.mark.cuda

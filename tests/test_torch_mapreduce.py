@@ -134,9 +134,6 @@ def test_epoch_draws_are_pure_in_seed_and_epoch():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(pipeline="device"), 9),
-    (dict(block_epochs=2), 9),
-    (dict(merge_every=2), 9),
     (dict(merge_transport="sparse"), 11),
     (dict(touched_capacity=64), 11),
     (dict(backend="shard_map"), 12),

@@ -92,6 +92,36 @@
    share, launches and device→host copies a step beside the host
    pipeline's profile of the training path, and the peak memory.
 
+7. The live server (``serve.KGServer``), at the training path's width, on
+   the SGD-trained artifact saved and loaded fresh (its graph's known
+   index cold), with the BGD-trained artifact as a second tenant and as
+   the swap target, at the batching configs of
+   ``benchmarks/bench_latency.py`` (``unbatched``, ``batch16_wait1ms``,
+   ``batch64_wait2ms``; k = 10).  All three kernels' counters are zeroed
+   just before and read just after (no kernel lies on this path: 0
+   expected).  (a) Start-up: one wave filling each bucket, then one
+   filtered query, on an unwarmed server, then ``KGServer(kb,
+   warm=True)`` timed as its known-index build and its engine calls, and
+   the same waves warm; the shapes the cold waves met plus those warm-up
+   met are every warmed shape.  (b) Parity, on ``batch64_wait2ms`` with
+   ``pause``/``resume`` composing exact waves: tails, heads and
+   relations, unfiltered, filtered and with an explicit exclusion, waves
+   of 1–64 (every bucket), each answer bitwise equal to the engine on the
+   same single query at ``chunk=1``, and again from the cache.  (c)
+   Capacity: 2,048 distinct ``tails`` queries submitted at once, per
+   config.  (d) An open loop per config: 2,000 seeded Poisson arrivals at
+   half of (c)'s capacity over 500 distinct pairs (repeats hit the
+   cache): offered and sustained QPS, p50/p99 over all answers and over
+   misses, hit rate, waves by bucket, the allocator's device allocations
+   (``num_device_alloc``) across the stream, and no steady-state
+   recompile.  (e) On ``batch16_wait1ms``: the second tenant answers with
+   its own bits; then ``swap()`` to it halfway through an open loop:
+   every answer carries one of the two fingerprints and equals that
+   artifact's engine, the cache is invalidated once, and no shape is
+   new; the swap, its warm-up and its exclusion width are timed.  Every
+   served tenant's tables are on the card; every future's wait is
+   bounded.
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -134,6 +164,20 @@ DRAW_COUNTERS = 1 << 20
 # 2 * lr / B = 7.8e-5: params within 1e-4, loss within rtol 1e-5.  Phase 6
 # holds the device pipeline's round to equal bits.
 CPU_EPOCH_PARAM_TOL, CPU_EPOCH_LOSS_RTOL = 1e-4, 1e-5
+# phase 7: the live server, at the batching configs of
+# benchmarks/bench_latency.py (label, max_batch, max_wait_us)
+LIVE_CONFIGS = (("unbatched", 1, 0), ("batch16_wait1ms", 16, 1000),
+                ("batch64_wait2ms", 64, 2000))
+LIVE_K = 10
+LIVE_BURST, LIVE_ARRIVALS, LIVE_UNIQUE = 2048, 2000, 500
+LIVE_SWAP_ARRIVALS = 1000
+LIVE_TIMEOUT_S = 60         # every future's wait
+# wave sizes that fill every bucket of 64, most of them partly
+PARITY_SIZES = (1, 2, 3, 5, 9, 17, 33, 64)
+PARITY_CELLS = (("tails", "plain"), ("tails", "filtered"),
+                ("tails", "exclude"), ("heads", "plain"),
+                ("heads", "filtered"), ("heads", "exclude"),
+                ("relations", "plain"))
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
@@ -1288,6 +1332,366 @@ def device_pipeline_path(torch, graph):
     return info, launches
 
 
+def answer_bits(ans, ids, energies):
+    """A served answer with the given ids and the same energy bits."""
+    import numpy as np
+
+    return np.array_equal(ans.ids, ids) and np.array_equal(
+        ans.energies.view(np.uint32), np.asarray(energies).view(np.uint32))
+
+
+def live_percentiles(lats):
+    import numpy as np
+
+    if not lats:
+        return {"n": 0, "p50_ms": None, "p99_ms": None}
+    arr = np.asarray(lats, np.float64) * 1e3
+    return {"n": len(lats), "p50_ms": float(np.percentile(arr, 50)),
+            "p99_ms": float(np.percentile(arr, 99))}
+
+
+def live_wave(srv, kind, queries):
+    """Submit ``queries`` (``(a, b, options)`` triples) while admission is
+    paused, then release them: the batcher admits exactly this set as one
+    wave (the cache cleared first, so none of them is a hit)."""
+    srv.clear_cache()
+    srv.pause()
+    futs = [srv.submit(kind, a, b, **kw) for a, b, kw in queries]
+    srv.resume()
+    return [f.result(timeout=LIVE_TIMEOUT_S) for f in futs]
+
+
+def live_stream(srv, pairs, rate, n, seed, midway=None):
+    """An open-loop stream: ``n`` single ``tails`` queries at Poisson
+    arrivals of ``rate`` a second (seeded), each drawn from ``pairs``; the
+    sender never waits for an answer.  ``midway`` runs on a thread of its
+    own from the stream's half.  Returns the submitted pairs, the answers
+    and the stream's rates."""
+    import threading
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    at = np.cumsum(rng.exponential(1.0 / rate, n))
+    pick = pairs[rng.integers(0, len(pairs), n)]
+    futs, side = [], None
+    t0 = time.perf_counter()
+    for i in range(n):
+        delay = at[i] - (time.perf_counter() - t0)
+        if delay > 0:
+            time.sleep(delay)
+        futs.append(srv.submit("tails", pick[i, 0], pick[i, 1]))
+        if midway is not None and i == n // 2:
+            side = threading.Thread(target=midway)
+            side.start()
+    sent = time.perf_counter() - t0
+    answers = [f.result(timeout=LIVE_TIMEOUT_S) for f in futs]
+    done = time.perf_counter() - t0
+    if side is not None:
+        side.join(timeout=LIVE_TIMEOUT_S)
+        if side.is_alive():
+            fail("the mid-stream call did not return")
+    return pick, answers, {"offered_qps": n / sent,
+                           "sustained_qps": n / done, "span_s": done}
+
+
+def live_delta(before, after):
+    """What the server did between two ``ServerStats``."""
+    waves = after.waves - before.waves
+    rows = after.cache_misses - before.cache_misses
+    return {
+        "waves": waves, "mean_wave": rows / waves if waves else 0.0,
+        "bucket_waves": {b: n - before.bucket_waves.get(b, 0)
+                         for b, n in after.bucket_waves.items()
+                         if n != before.bucket_waves.get(b, 0)},
+        "cache_hits": after.cache_hits - before.cache_hits,
+        "cache_misses": rows,
+        "steady_recompiles": after.steady_recompiles
+        - before.steady_recompiles,
+    }
+
+
+def serving_live_path(torch, sgd, bgd):
+    """The live server (item 7 of the module docstring).  Returns the
+    path's info and its launches of each kernel."""
+    import numpy as np
+
+    from repro_torch import kg
+    from repro_torch.data import kg as kg_data
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.serve import KGServer, kg_engine
+
+    info = {}
+    t_phase = time.perf_counter()
+    dirs = {name: tempfile.TemporaryDirectory() for name in ("sgd", "bgd")}
+    config = {cfg[0]: cfg for cfg in LIVE_CONFIGS}
+    servers = []
+
+    def server(kb, label, **kw):
+        _, max_batch, wait_us = config[label]
+        srv = KGServer(kb, max_batch=max_batch, max_wait_us=wait_us,
+                       default_k=LIVE_K, **kw)
+        servers.append(srv)
+        return srv
+
+    def on_card(srv, *tenants):
+        for name in tenants:
+            if srv.tenant_kb(name).engine().device.type != "cuda":
+                fail(f"tenant {name!r} is not served from the card")
+
+    def bucket_waves(srv):
+        """One unfiltered tails wave filling each bucket, then one
+        filtered query: the seconds of each wave's service."""
+        with StepTimer({"wave": (KGServer, "_execute")}) as timer:
+            for bucket in srv.buckets:
+                live_wave(srv, "tails",
+                          [(h, r, {}) for h, r, _ in pairs[:bucket]])
+            live_wave(srv, "tails", [(pairs[0, 0], pairs[0, 1],
+                                      {"filtered": True})])
+            # the timer records a wave after its futures resolve
+            if not srv.drain(timeout=LIVE_TIMEOUT_S):
+                fail("the server did not drain")
+        seconds = timer.seconds["wave"]
+        return dict(zip(map(str, srv.buckets), seconds)), seconds[-1]
+
+    try:
+        rank_topk.rank_counts.launches = 0      # --- live serving path ---
+        ts.transe_score.launches = 0
+        ts.transe_score_bwd.launches = 0
+        sgd.kb.save(dirs["sgd"].name)
+        bgd.kb.save(dirs["bgd"].name)
+
+        def load(name):
+            return kg.KnowledgeBase.load(dirs[name].name, device=DEVICE)
+
+        kb_bgd = load("bgd")
+        graph = kb_bgd.graph
+        fp = {"sgd": sgd.kb.fingerprint(), "bgd": kb_bgd.fingerprint()}
+        _, first = np.unique(graph.test[:, :2], axis=0, return_index=True)
+        pairs = graph.test[np.random.default_rng(0).permutation(first)]
+
+        # (a) start-up: cold waves on an unwarmed server first (nothing in
+        # this process has run these shapes), then the warm server's
+        # warm-up, split into the known index and the engine calls
+        cold = server(load("sgd"), "batch64_wait2ms")
+        on_card(cold, "default")
+        shapes0 = kg_engine.shapes_seen()
+        cold_waves, cold_filtered = bucket_waves(cold)
+        cold_shapes = kg_engine.shapes_seen() - shapes0
+        cold.stop()
+        kb = load("sgd")
+        if kb.fingerprint() != fp["sgd"]:
+            fail("the SGD artifact's fingerprint changed across save/load")
+        engine_calls = ("query_tails", "query_heads", "query_relations")
+        with StepTimer({"known_index": (kg_data.KG, "known_index"),
+                        **{name: (kg_engine.KGQueryEngine, name)
+                           for name in engine_calls}}) as timer:
+            t0 = time.perf_counter()
+            live = server(kb, "batch64_wait2ms", warm=True)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        on_card(live, "default")
+        st = live.stats()
+        warm_waves, warm_filtered = bucket_waves(live)
+        info["startup"] = {
+            "warm_s": warm_s,
+            "known_index_s": sum(timer.seconds["known_index"]),
+            "engine_calls_s": sum(sum(timer.seconds[n])
+                                  for n in engine_calls),
+            "engine_calls": sum(len(timer.seconds[n])
+                                for n in engine_calls),
+            "warm_compiles": st.warm_compiles, "cold_shapes": cold_shapes,
+            "ex_width": live._ex_width(live._tenants["default"]),
+            "buckets": list(live.buckets),
+            "cold_wave_s": cold_waves, "warm_wave_s": warm_waves,
+            "cold_first_filtered_s": cold_filtered,
+            "warm_first_filtered_s": warm_filtered}
+        print("live start-up " + json.dumps(info["startup"]), flush=True)
+        n_shapes = 5 * len(live.buckets)
+        if st.warm_compiles + cold_shapes != n_shapes:
+            fail(f"warm-up ran {st.warm_compiles} new shapes after the "
+                 f"cold server's {cold_shapes}; {n_shapes} expected")
+
+        # (b) parity: each served answer against the engine on the same
+        # single query at chunk=1, at every bucket, fresh then cached
+        eng, E = kb.engine(), kb.n_entities
+        cols = {"tails": (0, 1), "heads": (2, 1), "relations": (0, 2)}
+        cells, fresh, lo = {}, {}, 0
+        for kind, mode in PARITY_CELLS:
+            before = live.stats()
+            queries, direct = [], []
+            for size in PARITY_SIZES:
+                wave_q = []
+                for row in pairs[lo:lo + size]:
+                    a, b = (int(row[c]) for c in cols[kind])
+                    kw, ex = {}, None
+                    if mode == "filtered":
+                        kw = {"filtered": True}
+                        ex = (graph.known_candidate_masks(
+                            np.array([[a, b]]), "tail") if kind == "tails"
+                            else graph.known_candidate_masks(
+                                np.array([[b, a]]), "head"))
+                    elif mode == "exclude":
+                        kw = {"exclude": sorted({(a * 7 + j * 131) % E
+                                                 for j in range(5)})}
+                        ex = np.array([kw["exclude"]], np.int32)
+                    if kind == "relations":
+                        want = eng.query_relations([a], [b], k=LIVE_K,
+                                                   chunk=1)
+                    else:
+                        call = (eng.query_tails if kind == "tails"
+                                else eng.query_heads)
+                        want = call([a], [b], k=LIVE_K, exclude=ex,
+                                    chunk=1)
+                    wave_q.append((a, b, kw))
+                    direct.append((want.ids[0], want.energies[0]))
+                lo += size
+                for ans, (ids, en), (_, _, kw) in zip(
+                        live_wave(live, kind, wave_q), direct[-size:],
+                        wave_q):
+                    if ans.cached or not answer_bits(ans, ids, en):
+                        fail(f"a served {kind} answer ({mode}) differs "
+                             f"from the engine's at wave size {size}")
+                    if set(kw.get("exclude", ())) & set(ans.ids.tolist()):
+                        fail(f"an excluded id was served ({kind})")
+                queries += wave_q
+            for _ in range(2):      # the cell again: the second pass hits
+                futs = [live.submit(kind, a, b, **kw)
+                        for a, b, kw in queries]
+                answers = [f.result(timeout=LIVE_TIMEOUT_S) for f in futs]
+            for ans, (ids, en) in zip(answers, direct):
+                if not ans.cached or not answer_bits(ans, ids, en):
+                    fail(f"a cached {kind} answer ({mode}) differs from "
+                         "the engine's")
+            cell = f"{kind}-{mode}"
+            cells[cell] = len(queries)
+            fresh[cell] = live_delta(before, live.stats())[
+                "steady_recompiles"]
+        info["parity"] = {"queries": cells, "sizes": list(PARITY_SIZES),
+                          "new_shapes": fresh}
+        print("live parity " + json.dumps(info["parity"]), flush=True)
+        # explicit 5-id exclusions pad to width 8, a width warm-up does
+        # not run (as in the reference): at most one new shape a bucket,
+        # fewer where a direct call at chunk=1 met the shape first
+        for cell, n in fresh.items():
+            if n > (len(live.buckets) if cell.endswith("exclude") else 0):
+                fail(f"the parity waves of {cell} met {n} new shapes")
+
+        # (c) capacity and (d) an open loop at half of it, per config
+        info["configs"] = {}
+        hot = pairs[:LIVE_UNIQUE, :2]
+        for label, _, _ in LIVE_CONFIGS:
+            srv = live if label == "batch64_wait2ms" else server(
+                kb, label, warm=True)
+            on_card(srv, "default")
+            srv.clear_cache()
+            before = srv.stats()
+            t0 = time.perf_counter()
+            futs = [srv.submit("tails", h, r)
+                    for h, r in pairs[:LIVE_BURST, :2]]
+            for f in futs:
+                f.result(timeout=LIVE_TIMEOUT_S)
+            burst_s = time.perf_counter() - t0
+            cap = {"completions_per_s": LIVE_BURST / burst_s,
+                   "span_s": burst_s, **live_delta(before, srv.stats())}
+            srv.clear_cache()
+            before = srv.stats()
+            allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            _, answers, rates = live_stream(
+                srv, hot, 0.5 * cap["completions_per_s"], LIVE_ARRIVALS,
+                seed=1)
+            allocs = torch.cuda.memory_stats().get(
+                "num_device_alloc", 0) - allocs
+            after = srv.stats()
+            misses = [a.latency_s for a in answers if not a.cached]
+            info["configs"][label] = {"capacity": cap, "open_loop": {
+                **rates,
+                "all": live_percentiles([a.latency_s for a in answers]),
+                "misses": live_percentiles(misses),
+                "hit_rate": 1 - len(misses) / len(answers),
+                "num_device_alloc_delta": allocs,
+                **live_delta(before, after)}}
+            print(f"live {label} " + json.dumps(info["configs"][label]),
+                  flush=True)
+            recompiles = info["configs"][label]["open_loop"][
+                "steady_recompiles"] + cap["steady_recompiles"]
+            if recompiles:
+                fail(f"{label}: {recompiles} steady-state recompiles")
+
+        # (e) a second tenant, then a hot swap under load
+        srv = server(kb, "batch16_wait1ms", warm=True)
+        srv.add_tenant("bgd", kb_bgd)
+        on_card(srv, "default", "bgd")
+        want = kb_bgd.engine().query_tails(hot[:32, 0], hot[:32, 1],
+                                           k=LIVE_K)
+        mine = kb.engine().query_tails(hot[:32, 0], hot[:32, 1], k=LIVE_K)
+        for i, (a, b) in enumerate(hot[:32]):
+            ans = srv.submit("tails", a, b, tenant="bgd").result(
+                timeout=LIVE_TIMEOUT_S)
+            if ans.fingerprint != fp["bgd"] or not answer_bits(
+                    ans, want.ids[i], want.energies[i]):
+                fail("the second tenant did not answer with its own bits")
+        if np.array_equal(want.energies, mine.energies):
+            fail("the two artifacts give the same answers: the swap check "
+                 "could not tell them apart")
+        srv.clear_cache()
+        before = srv.stats()
+        rate = 0.5 * info["configs"]["batch16_wait1ms"]["capacity"][
+            "completions_per_s"]
+        # the swap's parts, timed on its own thread: the exclusion width
+        # (a pass over the known index) and the new tenant's warm-up
+        with StepTimer({name: (KGServer, name) for name in (
+                "swap", "_ex_width", "_warm_tenant")}) as timer:
+            pick, answers, rates = live_stream(
+                srv, hot, rate, LIVE_SWAP_ARRIVALS, seed=2,
+                midway=lambda: srv.swap(kb_bgd))
+        after = srv.stats()
+        by_fp = {}
+        for (a, b), ans in zip(pick, answers):
+            by_fp.setdefault(ans.fingerprint, []).append((a, b, ans))
+        if set(by_fp) - set(fp.values()):
+            fail(f"answers under unknown fingerprints {set(by_fp)}")
+        for name, art in (("sgd", kb), ("bgd", kb_bgd)):
+            group = by_fp.get(fp[name], [])
+            if not group:
+                fail(f"no answer from the {name} artifact across the swap")
+            res = art.engine().query_tails(
+                [g[0] for g in group], [g[1] for g in group], k=LIVE_K,
+                chunk=64)
+            for i, (_, _, ans) in enumerate(group):
+                if not answer_bits(ans, res.ids[i], res.energies[i]):
+                    fail(f"an answer stamped {name} differs from that "
+                         "artifact's engine")
+        info["swap"] = {
+            **rates, "answers": {name: len(by_fp.get(key, []))
+                                 for name, key in fp.items()},
+            "cache_invalidations": after.cache_invalidations
+            - before.cache_invalidations,
+            "swaps": after.swaps - before.swaps,
+            "all": live_percentiles([a.latency_s for a in answers]),
+            "misses": live_percentiles([a.latency_s for a in answers
+                                        if not a.cached]),
+            "swap_s": sum(timer.seconds["swap"]),
+            "warm_s": sum(timer.seconds["_warm_tenant"]),
+            "ex_width_s": max(timer.seconds["_ex_width"]),
+            **live_delta(before, after)}
+        print("live swap " + json.dumps(info["swap"]), flush=True)
+        if info["swap"]["cache_invalidations"] != 1 or \
+                after.steady_recompiles != 0:
+            fail(f"swap: {info['swap']}")
+        launches = {"rank_counts": rank_topk.rank_counts.launches,
+                    "transe_score": ts.transe_score.launches,
+                    "transe_score_bwd": ts.transe_score_bwd.launches}
+    finally:                                    # --- end ---
+        for srv in servers:
+            srv.stop()
+        for d in dirs.values():
+            d.cleanup()
+    info["launches"] = launches
+    info["phase_s"] = time.perf_counter() - t_phase
+    return info, launches
+
+
 def main():
     import torch
 
@@ -1320,9 +1724,10 @@ def main():
     info, launches = serving_path(torch, graph, sgd.kb)
     resume_info, phase_launches = eval_resume_path(torch, graph, sgd, bgd)
     device_info, device_launches = device_pipeline_path(torch, graph)
+    live_info, live_launches = serving_live_path(torch, sgd, bgd)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 init_metrics=init_metrics, eval_resume=resume_info,
-                device_pipeline=device_info)
+                device_pipeline=device_info, serving_live=live_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -1344,11 +1749,12 @@ def main():
         "source": "src/repro_torch/kernels/csrc/rank_topk.cu",
         "replaces": "src/repro/kernels/rank_topk.py:65",
         "launches": launches + phase_launches["rank_counts"]
-        + device_launches["rank_counts"],
+        + device_launches["rank_counts"] + live_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
-                                 device_launches["rank_counts"]},
+                                 device_launches["rank_counts"],
+                             "serving_live": live_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -1371,10 +1777,12 @@ def main():
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/transe_score.cu",
             "replaces": replaces,
-            "launches": n + phase_launches[kname] + device_launches[kname],
+            "launches": n + phase_launches[kname] + device_launches[kname]
+            + live_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
-                                 "device_pipeline": device_launches[kname]},
+                                 "device_pipeline": device_launches[kname],
+                                 "serving_live": live_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -1395,7 +1803,8 @@ def main():
                    "main_path": info}, f, indent=1)
     print(json.dumps({k: info[k] for k in info
                       if k not in ("metrics", "init_metrics", "training",
-                                   "eval_resume", "device_pipeline")}),
+                                   "eval_resume", "device_pipeline",
+                                   "serving_live")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

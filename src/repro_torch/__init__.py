@@ -14,7 +14,9 @@ in-training evaluation and early stopping (``eval_every``, ``patience``,
 ``keep_best``; ``core/trace.py``) and bit-identical checkpoint/resume
 (``ckpt_dir``, ``checkpoint_every``, ``resume``) in the reference's
 format; and the serving and evaluation path — ``KnowledgeBase`` save /
-load, top-k queries, and the paper's three-task evaluation.  The
+load, top-k queries, the live serving tier (``serve.KGServer``: waves,
+power-of-two buckets, warm-up, the LRU answer cache, hot swap and
+tenants), and the paper's three-task evaluation.  The
 reference's two Pallas kernels are hand-written CUDA kernels for Hopper:
 the entity-ranking sweep (``kernels/rank_topk.py``) and TransE's
 training step, forward and backward (``kernels/transe_score.py``).  What

@@ -32,6 +32,7 @@ from repro_torch.core.models import KGModel, Params, get_model
 from repro_torch.data.kg import KG
 from repro_torch.serve.kg_engine import KGQueryEngine, QueryResult
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.util import not_ported
 
 ARTIFACT_KIND = "knowledge_base"
 
@@ -188,14 +189,28 @@ class KnowledgeBase:
 
     # -- serving -----------------------------------------------------------
 
-    def engine(self, *, chunk: Optional[int] = None) -> KGQueryEngine:
-        """The query engine over this artifact's tables, cached per
-        ``chunk``."""
-        if chunk not in self._engines:
+    def engine(self, *, n_workers: int = 1, backend: str = "vmap",
+               mesh=None, chunk: Optional[int] = None,
+               table_sharding: str = "replicated") -> KGQueryEngine:
+        """The query engine over this artifact's tables, cached under the
+        reference's key ``(n_workers, backend, chunk, mesh, table_sharding)``.
+        The port serves whole tables from one device: ``n_workers=1``,
+        ``backend="vmap"``, no ``mesh`` and ``table_sharding="replicated"``;
+        any other value raises (ROADMAP.md queue 1, item 12)."""
+        for name, value, only in (("n_workers", n_workers, 1),
+                                  ("backend", backend, "vmap"),
+                                  ("mesh", mesh, None),
+                                  ("table_sharding", table_sharding,
+                                   "replicated")):
+            if value != only:
+                raise not_ported(f"KnowledgeBase.engine({name}={value!r})",
+                                 12)
+        key = (n_workers, backend, chunk, None, table_sharding)
+        if key not in self._engines:
             kw = {} if chunk is None else {"chunk": chunk}
-            self._engines[chunk] = KGQueryEngine(
+            self._engines[key] = KGQueryEngine(
                 self.model, self.params, norm=self.norm, **kw)
-        return self._engines[chunk]
+        return self._engines[key]
 
     def _exclude(self, a, b, side: str) -> np.ndarray:
         if self.graph is None:
@@ -212,7 +227,8 @@ class KnowledgeBase:
                     filtered: bool = False, **engine_kw) -> QueryResult:
         """Top-k tail completions of ``(h, r, ?)``.  ``filtered=True``
         excludes the graph's already-known tails of each pair (serve
-        *new* links).  ``engine_kw`` (``chunk``) picks the engine."""
+        *new* links).  ``engine_kw`` (``n_workers``, ``backend``, ``mesh``,
+        ``chunk``, ``table_sharding``) picks the engine."""
         exclude = self._exclude(heads, rels, "tail") if filtered else None
         return self.engine(**engine_kw).query_tails(
             heads, rels, k=k, exclude=exclude)

@@ -19,6 +19,16 @@ sorts each row stably and keeps the first ``k``.
 dispatch on CUDA tables, so a served candidate's rank is what
 ``kg.evaluate`` reports for the same query.
 
+Eager PyTorch compiles nothing, so the reference's recompile gate (its
+jit cache) has no counterpart here. What the first call at a new shape
+pays on the card instead is allocator growth, sort workspaces and lazy
+module loads. The engine therefore keeps a module-level registry of every
+distinct computation it has run, keyed on what the reference's jit keys
+on (entry, model, side, norm, ``k``, the ``(S, C)`` layout, the exclusion
+width ``P``, each table's shape and dtype, and the device);
+:func:`shapes_seen` is its size, the counter behind the serving tier's
+``steady_recompiles`` (``serve/server.py``).
+
 Energies are "lower = truer" throughout; excluded candidates surface as
 +inf energies when ``k`` exceeds the live candidate count.  Energies of
 bf16 tables come back widened to float32 (exactly: numpy has no bf16
@@ -28,6 +38,7 @@ in the reference; ``k = 0`` gives an empty ``(B, 0)`` answer.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -37,6 +48,29 @@ from repro_torch.core import eval_device
 from repro_torch.core.models import KGModel, Params, get_model
 
 DEFAULT_CHUNK = eval_device.DEFAULT_CHUNK
+
+_SHAPES: set = set()            # every distinct computation run (above)
+_SHAPES_LOCK = threading.Lock()
+
+
+def shapes_seen() -> int:
+    """How many distinct computations the engine has run in this process:
+    the size of the shape registry (module docstring)."""
+    with _SHAPES_LOCK:
+        return len(_SHAPES)
+
+
+def _note_shape(entry: str, model: KGModel, side: str, norm: str, k: int,
+                q: torch.Tensor, ex: Optional[torch.Tensor],
+                params: Params) -> None:
+    S, C = q.shape[:2]
+    P = None if ex is None else int(ex.shape[2])
+    tables = tuple((name, tuple(t.shape), str(t.dtype))
+                   for name, t in sorted(params.items()))
+    key = (entry, model.name, side, norm, k, S, C, P, tables,
+           str(q.device))
+    with _SHAPES_LOCK:
+        _SHAPES.add(key)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +200,10 @@ class KGQueryEngine:
                 i, e = _topk_lowest(scores, k)
                 ids.append(i)
                 energies.append(e)
-        return self._result(ids, energies, Q)
+        out = self._result(ids, energies, Q)
+        _note_shape("entity", self.model, side, self.norm, k, q, ex,
+                    self.params)
+        return out
 
     def query_relations(self, heads, tails, k: int = 10,
                         chunk: Optional[int] = None) -> QueryResult:
@@ -182,7 +219,10 @@ class KGQueryEngine:
                 i, e = _topk_lowest(scores, k)
                 ids.append(i)
                 energies.append(e)
-        return self._result(ids, energies, Q)
+        out = self._result(ids, energies, Q)
+        _note_shape("relation", self.model, "relation", self.norm, k, q,
+                    None, self.params)
+        return out
 
     def score(self, heads, rels, tails) -> np.ndarray:
         """Model energies of fully-specified ``(h, r, t)`` triplets

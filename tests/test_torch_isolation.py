@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    assert len(_port_modules()) >= 26
+    assert len(_port_modules()) >= 27
+    assert "repro_torch.serve.server" in _port_modules()
 
 
 def _imports(path):

@@ -297,3 +297,25 @@ def test_negative_k_raises_as_in_the_reference(kbs, call):
         call(port)
     # k = 0 stays the port's empty answer (the reference cannot reshape it)
     assert port.query_tails([1, 2], [1, 1], k=0).ids.shape == (2, 0)
+
+
+def test_engine_takes_the_reference_keywords(kbs):
+    """``KnowledgeBase.engine`` accepts the reference's keywords at their
+    defaults, caches under the reference's key, and refuses what it does
+    not serve (several workers, a mesh, sharded tables) naming item 12."""
+    ref, port = kbs
+    defaults = dict(n_workers=1, backend="vmap", mesh=None, chunk=None,
+                    table_sharding="replicated")
+    eng = port.engine(**defaults)
+    assert port.engine() is eng
+    assert port.engine(chunk=32) is not eng
+    assert port.engine(chunk=32) is port.engine(chunk=32, n_workers=1)
+    ref.engine(**defaults)
+    ref.engine(chunk=32)
+    assert set(port._engines) == set(ref._engines)
+    for kw in ({"n_workers": 2}, {"table_sharding": "sharded"},
+               {"mesh": object()}, {"backend": "shard_map"}):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            port.engine(**kw)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            port.query_tails([0], [0], k=3, **kw)

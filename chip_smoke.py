@@ -122,6 +122,28 @@
    served tenant's tables are on the card; every future's wait is
    bounded.
 
+8. The model family and joint negatives (``model_family_path``), at the
+   training path's width, through ``kg.fit``: (a) TransH, SGD
+   ``average`` 2 epochs and BGD 1, host pipeline; (b) DistMult, the same;
+   (c) TransE with ``negatives="joint"``: bench_async's joint-48 (SGD, L2,
+   ``neg_candidates=48``, ``merge_every=2``) on the device pipeline, 4
+   epochs in blocks of 4 and of 2, and the full pool (C = 256) under BGD,
+   L1, 1 epoch, host pipeline; (d) each of the three SGD artifacts saved,
+   loaded, queried (filtered tails and heads, relations, scores on 1,024
+   pairs), ranked (``rank()``) and evaluated (``kg.evaluate(kb,
+   engine="device")``), the device engine against the host protocol on a
+   slice of the test split; (e) the DistMult artifact as a ``KGServer``
+   tenant, waves of 1–64 (every bucket), each served answer bitwise equal
+   to the engine at ``chunk=1``.  All three kernels' counters are zeroed
+   just before and read just after: ``transe_score`` forward and backward
+   0 (no kernel lies on these objectives), ``rank_counts`` 232 for each of
+   the TransE artifact's ``rank()`` and evaluation.  Then, per model, a
+   same-seed rerun of 20 steps of the engine's epoch function (same bits)
+   and its profile (launches a step, idle share), and one SGD epoch on
+   the CPU and on the card from the same params and draws (within 1e-5).
+   Checks: each loss fell where its run took more than one epoch; the two
+   block sizes give the same bits; every trained table is on the card.
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -178,6 +200,23 @@ PARITY_CELLS = (("tails", "plain"), ("tails", "filtered"),
                 ("tails", "exclude"), ("heads", "plain"),
                 ("heads", "filtered"), ("heads", "exclude"),
                 ("relations", "plain"))
+# phase 8: the model family and joint negatives, at phase 3's width; the
+# joint objective's two cells are benchmarks/bench_async.py's joint-48
+# (SGD, L2, merge_every=2, device pipeline) and the full pool under BGD
+FAMILY_SGD_EPOCHS, FAMILY_BGD_EPOCHS, JOINT_EPOCHS = 2, 1, 4
+FAMILY_RERUN_STEPS = 20
+JOINT_SGD = dict(negatives="joint", neg_candidates=48, norm="l2",
+                 pipeline="device", merge_every=2)
+JOINT_BGD = dict(negatives="joint", norm="l1")
+# (label, model, options) of the same-seed rerun and the CPU-against-card
+# epoch (the joint cell on the host pipeline)
+FAMILY_CELLS = (("transh", "transh", {}), ("distmult", "distmult", {}),
+                ("transe_joint48", "transe", JOINT_SGD))
+# One SGD epoch on the CPU and on the card from the same params and
+# draws.  Autograd's backward sums a gather's duplicate rows and a
+# broadcast's reduction in each device's own order, so the two may differ
+# in the last bits of a few rows: within 1e-5.
+FAMILY_CPU_TOL = 1e-5
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
@@ -1692,6 +1731,286 @@ def serving_live_path(torch, sgd, bgd):
     return info, launches
 
 
+def family_serving(torch, graph, kb, label):
+    """Item 8(d) on one artifact: save/load, filtered queries, scores,
+    ``rank()``, ``kg.evaluate(kb, engine="device")`` and the device engine
+    against the host protocol on a slice of the test split.  Returns the
+    artifact's info and its metrics."""
+    import numpy as np
+
+    from repro_torch import kg
+    from repro_torch.core import eval as host_eval
+    from repro_torch.core import eval_device
+
+    info = {}
+    test = graph.test
+    tails_known, heads_known = graph.eval_filter_candidates()
+    fp = kb.fingerprint()
+    with tempfile.TemporaryDirectory() as tmp:
+        kb.save(tmp)
+        kb, info["load_s"] = wall(
+            torch, lambda: kg.KnowledgeBase.load(tmp, device=DEVICE))
+    if kb.fingerprint() != fp:
+        fail(f"{label}: fingerprint changed across save/load")
+    if not all(t.is_cuda for t in kb.params.values()):
+        fail(f"{label}: the loaded artifact's tables are not on the card")
+    pairs = test[:N_QUERY_PAIRS]
+    h, r, t = pairs[:, 0], pairs[:, 1], pairs[:, 2]
+    tails, info["query_tails_s"] = wall(
+        torch, lambda: kb.query_tails(h, r, k=10, filtered=True))
+    heads, info["query_heads_s"] = wall(
+        torch, lambda: kb.query_heads(t, r, k=10, filtered=True))
+    rels, info["query_relations_s"] = wall(
+        torch, lambda: kb.query_relations(h, t, k=10))
+    scores, info["score_s"] = wall(torch, lambda: kb.score(h, r, t))
+    n = len(pairs)
+    check_topk(tails, n, 10, f"{label} query_tails",
+               graph.known_candidate_masks(pairs[:, :2], "tail"))
+    check_topk(heads, n, 10, f"{label} query_heads",
+               graph.known_candidate_masks(pairs[:, 1:], "head"))
+    check_topk(rels, n, 10, f"{label} query_relations")
+    # the tail side scores each candidate with score()'s operations
+    if not np.array_equal(kb.score(h, r, tails.ids[:, 0]),
+                          tails.energies[:, 0]):
+        fail(f"{label}: query_tails energies disagree with score()")
+    if scores.shape != (n,) or not np.all(np.isfinite(scores)):
+        fail(f"{label}: score(): bad output")
+    ranks, info["rank_s"] = wall(torch, lambda: kb.engine().rank(
+        test, "tail", cand_masks=tails_known))
+    metrics, info["evaluate_s"] = wall(
+        torch, lambda: kg.evaluate(kb, engine="device"))
+    n_q = len(test)
+    for key in ("entity_raw", "entity_filtered", "relation_prediction"):
+        row = metrics[key]
+        if row["n"] != (2 * n_q if key.startswith("entity") else n_q) or \
+                not 1 <= row["mean_rank"] <= graph.n_entities:
+            fail(f"{label}: metrics[{key}] malformed: {row}")
+    if not 0 <= metrics["triplet_classification_acc"] <= 1:
+        fail(f"{label}: triplet classification accuracy out of [0, 1]")
+    if ranks.shape != (n_q,) or ranks.min() < 1:
+        fail(f"{label}: rank() gave malformed ranks")
+    # the device engine against the host reference protocol, on a slice
+    rows = test[:HOST_CHECK_ROWS]
+    host = host_eval.entity_inference(
+        kb.params, rows, kb.norm, graph.known_set(), model=kb.model,
+        known_index=graph.known_index(), return_ranks=True)
+    dev = eval_device.entity_ranks_device(
+        kb.params, rows, kb.norm, (tails_known[:HOST_CHECK_ROWS],
+                                   heads_known[:HOST_CHECK_ROWS]),
+        model=kb.model, fused=False)
+    for group in ("raw_ranks", "filtered_ranks"):
+        for side in ("tail", "head"):
+            if not np.array_equal(host[group][side], dev[group][side]):
+                fail(f"{label}: the device engine differs from the host "
+                     f"protocol: {group}.{side}")
+    return info, metrics
+
+
+def family_server_parity(torch, kb):
+    """Item 8(e): a DistMult tenant in ``KGServer``, waves filling every
+    bucket; each served answer against the engine on the same single
+    query at ``chunk=1``, bit for bit.  Returns the answers checked."""
+    import numpy as np
+
+    from repro_torch.serve import KGServer
+
+    graph = kb.graph
+    eng = kb.engine()
+    srv = KGServer(kb, max_batch=64, max_wait_us=2000, default_k=LIVE_K)
+    checked = 0
+    try:
+        if srv.tenant_kb("default").engine().device.type != "cuda":
+            fail("the DistMult tenant is not served from the card")
+        cols = {"tails": (0, 1), "heads": (2, 1), "relations": (0, 2)}
+        lo = 0
+        for kind, mode in (("tails", "plain"), ("heads", "filtered"),
+                           ("relations", "plain")):
+            for size in PARITY_SIZES:
+                wave_q, direct = [], []
+                for row in graph.test[lo:lo + size]:
+                    a, b = (int(row[c]) for c in cols[kind])
+                    kw, ex = {}, None
+                    if mode == "filtered":
+                        kw = {"filtered": True}
+                        ex = graph.known_candidate_masks(
+                            np.array([[b, a]]), "head")
+                    if kind == "relations":
+                        want = eng.query_relations([a], [b], k=LIVE_K,
+                                                   chunk=1)
+                    else:
+                        call = (eng.query_tails if kind == "tails"
+                                else eng.query_heads)
+                        want = call([a], [b], k=LIVE_K, exclude=ex,
+                                    chunk=1)
+                    wave_q.append((a, b, kw))
+                    direct.append((want.ids[0], want.energies[0]))
+                lo += size
+                for ans, (ids, en) in zip(live_wave(srv, kind, wave_q),
+                                          direct):
+                    if ans.cached or not answer_bits(ans, ids, en):
+                        fail(f"a served DistMult {kind} answer ({mode}) "
+                             f"differs from the engine's at wave size "
+                             f"{size}")
+                    checked += 1
+        st = srv.stats()
+        if any(st.bucket_waves.get(b, 0) == 0 for b in srv.buckets):
+            fail(f"the DistMult waves left a bucket empty: "
+                 f"{st.bucket_waves}")
+    finally:
+        srv.stop()
+    return checked
+
+
+def model_family_path(torch, graph):
+    """The model family and joint negatives (item 8 of the module
+    docstring).  Returns the path's info and its launches of each
+    kernel."""
+    from repro_torch import kg
+    from repro_torch.core import eval_device, mapreduce
+    from repro_torch.core.models import KGConfig, get_model
+    from repro_torch.data import kg as kg_data
+    from repro_torch.kernels import rank_topk, transe_score as ts
+
+    info = {}
+    steps = len(graph.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
+    base_kw = dict(seed=0, device=DEVICE, **TRAIN)
+    marks = {}
+
+    def timer(label):                   # loss is a float: synchronized
+        marks[label] = [time.perf_counter()]
+        return lambda epoch, loss: marks[label].append(time.perf_counter())
+
+    t_phase = time.perf_counter()
+    rank_topk.rank_counts.launches = 0        # --- model family path ---
+    ts.transe_score.launches = 0
+    ts.transe_score_bwd.launches = 0
+    runs = {}
+    for model in ("transh", "distmult"):      # (a), (b): host pipeline
+        runs[f"{model}_sgd"] = kg.fit(
+            graph, model, "sgd", strategy="average",
+            epochs=FAMILY_SGD_EPOCHS, callback=timer(f"{model}_sgd"),
+            **base_kw)
+        runs[f"{model}_bgd"] = kg.fit(
+            graph, model, "bgd", epochs=FAMILY_BGD_EPOCHS,
+            callback=timer(f"{model}_bgd"), **base_kw)
+    # (c) TransE with joint negatives: joint-48 on the device pipeline in
+    # blocks of 4 and of 2, the full pool under BGD on the host pipeline
+    for blocks in (4, 2):
+        runs[f"joint_sgd_block{blocks}"] = kg.fit(
+            graph, "transe", "sgd", epochs=JOINT_EPOCHS,
+            block_epochs=blocks, callback=timer(f"joint_sgd_block{blocks}"),
+            **base_kw, **JOINT_SGD)
+    runs["joint_bgd"] = kg.fit(graph, "transe", "bgd",
+                               epochs=FAMILY_BGD_EPOCHS,
+                               callback=timer("joint_bgd"), **base_kw,
+                               **JOINT_BGD)
+    # (d) each SGD artifact saved, loaded, queried, ranked, evaluated
+    served, metrics = {}, {}
+    for label, res in (("transh", runs["transh_sgd"]),
+                       ("distmult", runs["distmult_sgd"]),
+                       ("transe_joint", runs["joint_sgd_block4"])):
+        served[label], metrics[label] = family_serving(torch, graph, res.kb,
+                                                       label)
+    # (e) a DistMult tenant in the live server
+    parity_answers = family_server_parity(torch, runs["distmult_sgd"].kb)
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+    info["runs_s"] = time.perf_counter() - t_phase
+    # the TransE artifact is ranked twice through the kernel: rank() and
+    # kg.evaluate, each both sides of every test chunk
+    predicted = {"rank_counts": 2 * 2 * eval_device._layout(
+                     len(graph.test), eval_device.DEFAULT_CHUNK)[0],
+                 "transe_score": 0, "transe_score_bwd": 0}
+    info.update(launches=launches, launches_predicted=predicted,
+                served=served, metrics=metrics,
+                server_parity_answers=parity_answers,
+                loss_history={k: v.loss_history for k, v in runs.items()})
+    per_block = {"joint_sgd_block4": 4, "joint_sgd_block2": 2}
+    info["epoch_s"] = {
+        k: [(t1 - t0) / per_block.get(k, 1) for t0, t1 in zip(m, m[1:])]
+        for k, m in marks.items()}
+    for label, res in runs.items():
+        if not all(t.is_cuda for t in res.params.values()):
+            fail(f"{label}: a trained table is not on the card")
+
+    # a same-seed rerun of FAMILY_RERUN_STEPS steps of each model through
+    # the engine's epoch function, and its profile
+    part = kg_data.PARTITIONERS["balanced"](0, graph.train,
+                                            TRAIN["n_workers"])
+    pos = kg_data.epoch_batches(0, 0, part, TRAIN["batch_size"])
+    info["steps_per_epoch"] = steps
+    info["rerun_bitwise"], info["step_profile"] = {}, {}
+    info["cpu_vs_card"] = {}
+    for label, model, opts in FAMILY_CELLS:
+        # the host pipeline's form of the cell
+        opts = {k: v for k, v in opts.items()
+                if k not in ("pipeline", "merge_every")}
+        kcfg, mcfg = kg.make_configs(graph, model, "sgd", **TRAIN, **opts)
+        m = get_model(model)
+        init = m.init_params(torch.Generator().manual_seed(0), kcfg,
+                             device=DEVICE)
+        neg = m.make_negatives(torch.as_tensor(pos), kcfg,
+                               generator=torch.Generator().manual_seed(1))
+        p20 = torch.as_tensor(pos[:, :FAMILY_RERUN_STEPS], device=DEVICE)
+        n20 = neg[:, :FAMILY_RERUN_STEPS].to(DEVICE)
+        epoch_fn = mapreduce.make_epoch_fn(mcfg, kcfg, check_ids=False)
+        a = epoch_fn(init, p20, n20, None)
+        b = epoch_fn(init, p20, n20, None)
+        info["rerun_bitwise"][label] = bits_equal(a[1], b[1]) and all(
+            bits_equal(a[0][n], b[0][n]) for n in a[0])
+        prof = profile_busy(torch, lambda: epoch_fn(init, p20, n20, None))
+        prof["launches_per_step"] = prof["launches"] / FAMILY_RERUN_STEPS
+        prof["dtoh_copies_per_step"] = (prof["dtoh_copies"]
+                                        / FAMILY_RERUN_STEPS)
+        info["step_profile"][label] = prof
+        # one SGD epoch on the CPU and on the card, same params and draws
+        draws = lambda epoch: (neg.numpy(), None)
+        card, card_s = wall(torch, lambda: kg.fit(
+            graph, model, epochs=1, seed=0, params=init, draws=draws,
+            device=DEVICE, **TRAIN, **opts))
+        t0 = time.perf_counter()
+        host = kg.fit(graph, model, epochs=1, seed=0, device="cpu",
+                      draws=draws, params={n: t.cpu() for n, t in
+                                           init.items()},
+                      **TRAIN, **opts)
+        info["cpu_vs_card"][label] = {
+            "card_epoch_s": card_s, "cpu_epoch_s": time.perf_counter() - t0,
+            "param_max_abs_err": max_err(
+                [card.params[n].cpu() for n in sorted(card.params)],
+                [host.params[n] for n in sorted(host.params)]),
+            "params_bitwise": all(bits_equal(card.params[n].cpu(),
+                                             host.params[n])
+                                  for n in card.params),
+            "loss": [card.loss_history[0], host.loss_history[0]],
+            "loss_bitwise": card.loss_history == host.loss_history}
+    info["bitwise"] = {
+        "joint_block4_vs_block2": same_run(runs["joint_sgd_block4"],
+                                           runs["joint_sgd_block2"]),
+        **{f"rerun_{k}": v for k, v in info["rerun_bitwise"].items()}}
+    info["phase_s"] = time.perf_counter() - t_phase
+    print("model family " + json.dumps(info), flush=True)
+
+    if launches != predicted:
+        fail(f"launches {launches} on the model-family path; the path "
+             f"predicts {predicted}")
+    if not all(info["bitwise"].values()):
+        fail(f"model-family runs that should agree gave other bits: "
+             f"{info['bitwise']}")
+    for label, c in info["cpu_vs_card"].items():
+        if c["param_max_abs_err"] > FAMILY_CPU_TOL or abs(
+                c["loss"][0] - c["loss"][1]) > FAMILY_CPU_TOL * abs(
+                    c["loss"][1]):
+            fail(f"the CPU and card SGD epochs of {label} disagree: {c}")
+    for label, hist in info["loss_history"].items():
+        if not all(map(math.isfinite, hist)):
+            fail(f"{label}: non-finite loss {hist}")
+        if len(hist) > 1 and not hist[-1] < hist[0]:
+            fail(f"{label}: loss did not fall: {hist}")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -1725,9 +2044,11 @@ def main():
     resume_info, phase_launches = eval_resume_path(torch, graph, sgd, bgd)
     device_info, device_launches = device_pipeline_path(torch, graph)
     live_info, live_launches = serving_live_path(torch, sgd, bgd)
+    family_info, family_launches = model_family_path(torch, graph)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 init_metrics=init_metrics, eval_resume=resume_info,
-                device_pipeline=device_info, serving_live=live_info)
+                device_pipeline=device_info, serving_live=live_info,
+                model_family=family_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -1749,12 +2070,15 @@ def main():
         "source": "src/repro_torch/kernels/csrc/rank_topk.cu",
         "replaces": "src/repro/kernels/rank_topk.py:65",
         "launches": launches + phase_launches["rank_counts"]
-        + device_launches["rank_counts"] + live_launches["rank_counts"],
+        + device_launches["rank_counts"] + live_launches["rank_counts"]
+        + family_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
                                  device_launches["rank_counts"],
-                             "serving_live": live_launches["rank_counts"]},
+                             "serving_live": live_launches["rank_counts"],
+                             "model_family":
+                                 family_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -1778,11 +2102,12 @@ def main():
             "source": "src/repro_torch/kernels/csrc/transe_score.cu",
             "replaces": replaces,
             "launches": n + phase_launches[kname] + device_launches[kname]
-            + live_launches[kname],
+            + live_launches[kname] + family_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
-                                 "serving_live": live_launches[kname]},
+                                 "serving_live": live_launches[kname],
+                                 "model_family": family_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -1804,7 +2129,7 @@ def main():
     print(json.dumps({k: info[k] for k in info
                       if k not in ("metrics", "init_metrics", "training",
                                    "eval_resume", "device_pipeline",
-                                   "serving_live")}),
+                                   "serving_live", "model_family")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,9 @@ layout and answers the same calls with the same numbers (the parity tests
 in ``tests/test_torch_*.py`` hold each module against its counterpart).
 It imports ``torch`` and never ``jax``, nor anything of ``repro``.
 
-Ported so far: training on the host and device pipelines (``kg.fit``,
+Ported so far: the three registered scoring models (TransE, TransH,
+DistMult) with per-triplet or joint negatives; training on the host and
+device pipelines (``kg.fit``,
 the paper's SGD and BGD paradigms with simulated workers and the dense
 Reduce; ``pipeline="device"`` runs blocks of epochs drawn on the device,
 with ``merge_every`` local epochs between Reduces and

@@ -17,6 +17,10 @@ backend does: the SGD workers' tables are one stacked ``(W, N, k)`` tensor
 on the card, and each step of all W workers is one launch of each
 ``transe_score`` kernel (BGD's shared tables enter the kernels as a
 worker-stride-0 view, so each worker's gradient comes back separately).
+Every registered model trains here (TransE, TransH, DistMult; the Reduce
+routes each table by ``param_roles()``), with either objective
+(``KGConfig.negatives``): the per-triplet margin loss, or the joint one
+that scores each worker's batch against its own shared candidate pool.
 
 The training step makes no host sync.  ``train()`` proves every id in
 range once — the partition on the host at start, injected draws when they
@@ -408,20 +412,19 @@ def bgd_epoch_vmap(
     model = _resolve(cfg, model)
     if tcfg.normalize == "epoch":
         params = model.normalize(params)
-    pairs = []
+    losses = []
     for s in range(pos.shape[1]):
-        pair, _, grads = model._pairs_and_grads(
+        _, loss, grads = model._pairs_and_grads(
             params, pos[:, s], neg[:, s], tcfg, shared=True,
             check_ids=check_ids)
         grads = {name: merge_lib.worker_mean(g) for name, g in grads.items()}
         params = apply_gradients(params, grads, tcfg.learning_rate)
         if tcfg.normalize == "step":
             params = model.normalize(params)
-        pairs.append(pair)
-    # per step the workers' mean of their mean pair loss, then the mean
-    # over the steps, each sum in an order fixed on every device
-    step_loss = merge_lib.worker_mean(pairwise_mean(torch.stack(pairs), -1)
-                                      .transpose(0, 1))
+        losses.append(loss)
+    # per step the workers' mean of their step losses, then the mean over
+    # the steps, each sum in an order fixed on every device
+    step_loss = merge_lib.worker_mean(torch.stack(losses).transpose(0, 1))
     return params, pairwise_mean(step_loss, 0)
 
 

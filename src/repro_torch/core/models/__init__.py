@@ -2,10 +2,9 @@
 ``repro.core.models``).
 
     from repro_torch.core.models import get_model
-    model = get_model("transe")
+    model = get_model("distmult")
 
-Only TransE is ported so far; asking for another model the reference
-registers raises a "not ported yet" error instead of "unknown model".
+The reference's three models are registered: TransE, TransH, DistMult.
 """
 from __future__ import annotations
 
@@ -20,10 +19,9 @@ from repro_torch.core.models.base import (  # noqa: F401  (re-exported API)
     dissimilarity,
     pairwise_hinge,
 )
+from repro_torch.core.models.distmult import DistMult
 from repro_torch.core.models.transe import TransE
-
-# registered in the reference, waiting for their port (ROADMAP queue 1)
-NOT_PORTED = ("distmult", "transh")
+from repro_torch.core.models.transh import TransH
 
 _REGISTRY: Dict[str, KGModel] = {}
 
@@ -42,10 +40,6 @@ def get_model(name_or_model: "str | KGModel") -> KGModel:
         return name_or_model
     model = _REGISTRY.get(name_or_model)
     if model is None:
-        if name_or_model in NOT_PORTED:
-            raise NotImplementedError(
-                f"KG model {name_or_model!r} is not ported to repro_torch "
-                f"yet (ROADMAP.md queue 1); ported: {available()}")
         raise ValueError(
             f"unknown KG model {name_or_model!r}; registered: {available()}"
         )
@@ -57,3 +51,5 @@ def available() -> Tuple[str, ...]:
 
 
 register(TransE())
+register(TransH())
+register(DistMult())

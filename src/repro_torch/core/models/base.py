@@ -22,22 +22,28 @@ difference tensor.  The reference lets XLA pick the order; the two
 packages therefore agree to a few ulps, not bitwise.
 
 Gradients: a model declaring ``supports_fused_kernel`` (TransE) trains
-through ``kernels/ops.kg_pair_loss``, whose backward is the closed form of
-the ``transe_score_bwd`` kernel; the reference takes ``jax.grad`` of
-``margin_loss``.  The two agree at rtol 1e-4, atol 1e-5
-(``tests/test_torch_kernels_transe_score.py``).
+the per-triplet objective through ``kernels/ops.kg_pair_loss``, whose
+backward is the closed form of the ``transe_score_bwd`` kernel; the
+reference takes ``jax.grad`` of ``margin_loss``.  The two agree at rtol
+1e-4, atol 1e-5 (``tests/test_torch_kernels_transe_score.py``).  Every
+other model, and the joint objective of every model (``negatives=
+"joint"``, DGL-KE's shared candidate pool), trains by torch autograd of
+the plain scorers, as the reference does by ``jax.grad``: an in-order sum
+(:func:`in_order_sum`) differentiates as one broadcast of its upstream
+gradient, the exact gradient of a sum, so autograd does not retrace the
+``k`` slices it was summed from.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.core import negative
 from repro_torch.util import (
-    not_ported, ordered_index_add, pairwise_mean, sqrt_rn, worker_offsets)
+    not_ported, ordered_index_add, pairwise_mean, pairwise_sum, sqrt_rn,
+    worker_offsets)
 
 Params = Dict[str, torch.Tensor]
 
@@ -59,9 +65,12 @@ class KGConfig:
     # negative sampling: 'unif' (paper / TransE) or 'bern' (TransH-style)
     sampling: str = "unif"
     # negative scoring: 'pertriplet' pairs each positive with its one
-    # corrupted counterpart (Eq. 3, the paper); 'joint' (DGL-KE's shared
-    # candidate pool) is not ported yet
+    # corrupted counterpart (Eq. 3, the paper); 'joint' scores a shared
+    # candidate pool — the batch's first ``neg_candidates`` corrupted
+    # entities — against EVERY positive of the batch (DGL-KE's joint
+    # negative sampling: B·C ranking pairs a batch instead of B)
     negatives: str = "pertriplet"
+    # 'joint' pool size C (clamped to the batch size); 0 = the full batch
     neg_candidates: int = 0
     dtype: torch.dtype = torch.float32
 
@@ -76,8 +85,6 @@ class KGConfig:
             raise ValueError(
                 f"neg_candidates must be >= 0 (0 = full batch), got "
                 f"{self.neg_candidates}")
-        if self.negatives == "joint":
-            raise not_ported("negatives='joint'", 10)
 
 
 def _check_norm(norm: str) -> None:
@@ -100,6 +107,83 @@ def _seq_sum(term: Callable[[int], torch.Tensor], k: int) -> torch.Tensor:
     for j in range(1, k):
         acc = acc + term(j)
     return acc
+
+
+class _FixedOrderSum(torch.autograd.Function):
+    """A sum over the last axis taken in a fixed order (``reduce``), whose
+    backward is the exact gradient of any sum: the upstream gradient
+    broadcast to every term.  Autograd of the sum's own slices and
+    additions would launch two or three kernels a term."""
+
+    @staticmethod
+    def forward(ctx, x, reduce):
+        ctx.shape = x.shape
+        return reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., None].expand(ctx.shape), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` for a 2-D table, whose backward sums each row's
+    contributions one at a time in the order of ``ids``, from ``+0.0``,
+    with no host sync: ``index_add_`` on the CPU (a serial loop over the
+    ids), ``index_put_(accumulate=True)`` on CUDA (a stable sort by row,
+    then each row's run summed in order).  Autograd's own backward of a
+    gather is ``index_put_(accumulate=True)`` on both, which on the CPU
+    adds with parallel atomics once the gradient has ``GRAIN_SIZE``
+    elements, so its bits change from run to run."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        rows = g.reshape(flat.shape[0], -1)
+        out = g.new_zeros(ctx.shape)
+        if out.is_cuda:
+            out.index_put_((flat,), rows, accumulate=True)
+        else:
+            out.index_add_(0, flat, rows)
+        return out, None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (``table`` 2-D), differentiable with a run-to-run
+    fixed backward (:class:`_GatherRows`): the gathers of every trained
+    scorer go through it."""
+    return _GatherRows.apply(table, ids)
+
+
+def _last_in_order(x: torch.Tensor) -> torch.Tensor:
+    return _seq_sum(lambda j: x[..., j], x.shape[-1])
+
+
+def in_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """``Σ_j x[..., j]`` over the last axis in index order ``j = 0 .. k-1``,
+    one rounding per addition, differentiable (:class:`_FixedOrderSum`)."""
+    return _FixedOrderSum.apply(x, _last_in_order)
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as ``util.pairwise_sum``'s balanced tree (the
+    same bits on every device, log2 n launches), differentiable."""
+    return _FixedOrderSum.apply(x, pairwise_sum)
+
+
+def seq_total(part: Callable[[int], torch.Tensor], k: int) -> torch.Tensor:
+    """``Σ_j part(j)`` in index order, the signed counterpart of
+    :func:`seq_distance` (half precision summed in float32, rounded once to
+    its dtype), for the bilinear and projection scorers."""
+    first = part(0)
+    total = _seq_sum(lambda j: _wide(first if j == 0 else part(j)), k)
+    return total.to(first.dtype)
 
 
 def _finish(total: torch.Tensor, dtype, norm: str) -> torch.Tensor:
@@ -136,8 +220,7 @@ def dissimilarity(x: torch.Tensor, norm: str) -> torch.Tensor:
     _check_norm(norm)
     w = _wide(x)
     terms = w.abs() if norm == "l1" else w * w
-    return _finish(_seq_sum(lambda j: terms[..., j], x.shape[-1]),
-                   x.dtype, norm)
+    return _finish(in_order_sum(terms), x.dtype, norm)
 
 
 def unit_rows(x: torch.Tensor) -> torch.Tensor:
@@ -145,8 +228,7 @@ def unit_rows(x: torch.Tensor) -> torch.Tensor:
     ``x / (sqrt(Σ_j x_j²) + 1e-12)`` with the squares summed in index
     order, so a projection gives the same bits on the CPU and the card."""
     w = _wide(x)
-    sq = w * w
-    norm = sqrt_rn(_seq_sum(lambda j: sq[..., j], x.shape[-1]).to(x.dtype))
+    norm = sqrt_rn(in_order_sum(w * w).to(x.dtype))
     return x / (norm[..., None] + 1e-12)
 
 
@@ -184,8 +266,9 @@ class EpochStats:
     """Bookkeeping one Map worker emits for the Reduce phase (with a
     leading worker axis when the epoch ran stacked workers)."""
 
-    # scalar, mean pair loss over the epoch: the mean over the steps of
-    # each step's mean over its pairs, both util.pairwise_mean
+    # scalar, mean loss over the epoch: util.pairwise_mean over the steps
+    # of each step's loss (its pairs' util.pairwise_mean, or the joint
+    # margin loss)
     mean_loss: torch.Tensor
     ent_count: torch.Tensor     # (E,) how many updates touched each entity
     # (E,) summed pair loss attributed to entity; None when the epoch was
@@ -195,17 +278,30 @@ class EpochStats:
     rel_loss: Optional[torch.Tensor]  # (R,)
 
 
-def _flatten_workers(params: Params, pos, neg):
-    """Stacked ``(W, N, k)`` tables as ``(W·N, k)`` and ``(W, B, 3)``
-    batches with each worker's ids offset onto its rows, so a plain
-    ``energy`` scores all workers at once; unstacked inputs pass through."""
+def _flatten_workers(params: Params, *trips):
+    """Stacked ``(W, N, k)`` tables as ``(W·N, k)`` and ``(W, …, 3)``
+    triplets with each worker's ids offset onto its rows, so a plain
+    scorer scores all workers at once, each against its own rows only;
+    unstacked inputs pass through.  Returns ``(params, *trips)``."""
     if params["ent"].dim() == 2:
-        return params, pos, neg
-    eo, ro = worker_offsets(pos, params["ent"].shape[1],
-                            params["rel"].shape[1])
-    off = torch.stack([eo, ro, eo], dim=-1)               # (W, 1, 3)
+        return (params,) + trips
     flat = {name: t.reshape(-1, t.shape[-1]) for name, t in params.items()}
-    return flat, pos.long() + off, neg.long() + off
+    out = []
+    for trip in trips:
+        eo, ro = worker_offsets(trip, params["ent"].shape[1],
+                                params["rel"].shape[1])
+        lead = (trip.shape[0],) + (1,) * (trip.dim() - 2)
+        off = torch.stack([eo.reshape(lead), ro.reshape(lead),
+                           eo.reshape(lead)], dim=-1)     # (W, 1…, 3)
+        out.append(trip.long() + off)
+    return (flat,) + tuple(out)
+
+
+def _masked_mean(hinges: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``Σ hinges / max(Σ valid, 1)`` over the last axis, the hinges summed
+    as a fixed tree (:func:`tree_sum`); ``valid`` holds 0s and 1s, whose
+    sum is exact in any order."""
+    return tree_sum(hinges) / valid.sum(-1).clamp_min(1.0)
 
 
 def _accumulate_touch(
@@ -270,6 +366,16 @@ class KGModel:
         out["ent"] = unit_rows(params["ent"])
         return out
 
+    def normalize_rows(self, name: str, rows: torch.Tensor) -> torch.Tensor:
+        """Row-local restriction of :meth:`normalize` for table ``name``:
+        the projection applied to a ``(n, k)`` slice of rows, so that
+        ``normalize(params)[name][ids]`` equals ``normalize_rows(name,
+        params[name][ids])`` bitwise (the sparse transport's contract).
+        Default: unit-L2 rows for ``"ent"``, identity elsewhere."""
+        if name == "ent":
+            return unit_rows(rows)
+        return rows
+
     def param_roles(self) -> Dict[str, str]:
         return dict(self.roles)
 
@@ -290,6 +396,18 @@ class KGModel:
         subst = trip[:, None, :].repeat(1, E, 1)
         subst[:, :, col] = torch.arange(E, device=trip.device)
         return self.energy(params, subst, norm)
+
+    def candidate_slice_energies(
+        self, params: Params, triplets: torch.Tensor, side: str,
+        norm: str = "l1", *, lo: int, n: int
+    ) -> torch.Tensor:
+        """Columns ``[lo, lo + n)`` of :meth:`candidate_energies`, ``(B, 3)
+        -> (B, n)``: the shard-local candidate scan of sharded tables.
+        Contract: **bitwise** the slice of the full matrix.  The generic
+        fallback slices the full matrix; models override to touch only the
+        candidate rows (the caller keeps ``lo + n <= E``)."""
+        return self.candidate_energies(
+            params, triplets, side, norm)[:, lo:lo + n]
 
     def relation_energies(
         self, params: Params, triplets: torch.Tensor, norm: str = "l1"
@@ -357,6 +475,110 @@ class KGModel:
             pos_batches, cfg.n_entities, cfg.sampling, head_prob_per_rel,
             generator=generator, uniform=uniform, offset=offset)
 
+    # -- joint negative scoring (DGL-KE's shared candidate pool) ------------
+    #
+    # Triplets may carry leading axes, ``(…, B, 3)``: the pool, the masks
+    # and the energies then carry them too, ``(…, C)`` and ``(…, B, C)``.
+    # With stacked ``(W, N, k)`` tables the leading axis is the worker
+    # axis, and each worker scores its own B positives against its own
+    # pool of C candidates, never another worker's.
+
+    def joint_parts(self, pos: torch.Tensor, neg: torch.Tensor,
+                    n_candidates: int) -> tuple:
+        """``(cand, side_head)``: the pool is the batch's first C corrupted
+        entities ``(…, C)``, and ``side_head`` ``(…, B)`` marks which side
+        each positive's corruption replaced.  No new randomness: the pool
+        reuses the per-triplet negatives."""
+        side_head = neg[..., 0] != pos[..., 0]
+        corrupted = torch.where(side_head, neg[..., 0], neg[..., 2])
+        B = corrupted.shape[-1]
+        C = B if n_candidates == 0 else min(n_candidates, B)
+        return corrupted[..., :C], side_head
+
+    def joint_energies(
+        self, params: Params, pos: torch.Tensor, cand: torch.Tensor,
+        side_head: torch.Tensor, norm: str = "l1"
+    ) -> torch.Tensor:
+        """Energy of every candidate substituted into every positive's
+        corruption side, ``(…, B, C)``, on unstacked tables.  The generic
+        fallback builds the ``(…, B, C, 3)`` substituted triplets and
+        scores them in one :meth:`energy` call, so with per-triplet
+        candidates its diagonal is ``energy(neg)`` bitwise.  Models
+        override with closed forms."""
+        pos = _long(pos)
+        e = _long(cand)[..., None, :]                     # (…, 1, C)
+        side = side_head[..., None]
+        h = torch.where(side, e, pos[..., 0, None])
+        t = torch.where(side, pos[..., 2, None], e)
+        trip = torch.stack([h, pos[..., 1, None].expand_as(h), t], dim=-1)
+        return self.energy(params, trip, norm)
+
+    def joint_hinges(
+        self, params: Params, pos: torch.Tensor, neg: torch.Tensor, *,
+        margin: float, norm: str, n_candidates: int = 0
+    ) -> tuple:
+        """The ``(…, B, C)`` hinge matrix of the joint objective and its
+        validity mask: a candidate equal to a positive's gold entity on the
+        corrupted side is a false negative and is masked out (Eq. 2's
+        constraint)."""
+        pos, neg = _long(pos), _long(neg)
+        cand, side_head = self.joint_parts(pos, neg, n_candidates)
+        gold = torch.where(side_head, pos[..., 0], pos[..., 2])
+        valid = (cand[..., None, :] != gold[..., None]).to(
+            params["ent"].dtype)
+        flat, fpos = _flatten_workers(params, pos)
+        if flat is not params:           # stacked: (W, C) onto worker rows
+            cand = cand + worker_offsets(cand, params["ent"].shape[1])[0]
+        d_pos = self.energy(flat, fpos, norm)              # (…, B)
+        d_cand = self.joint_energies(flat, fpos, cand, side_head, norm)
+        return pairwise_hinge(d_pos[..., None], d_cand, margin) * valid, valid
+
+    def joint_margin_loss(
+        self, params: Params, pos, neg, *, margin: float, norm: str,
+        n_candidates: int = 0
+    ) -> torch.Tensor:
+        """Mean hinge over the B·C valid (positive, candidate) pairs, ``Σ
+        hinges / max(Σ valid, 1)``: the joint analogue of
+        :meth:`margin_loss` and the joint step's loss."""
+        hinges, valid = self.joint_hinges(
+            params, pos, neg, margin=margin, norm=norm,
+            n_candidates=n_candidates)
+        return _masked_mean(hinges.flatten(-2), valid.flatten(-2))
+
+    def joint_pair_loss(
+        self, params: Params, pos, neg, *, margin: float, norm: str,
+        n_candidates: int = 0
+    ) -> torch.Tensor:
+        """Per positive, the mean hinge over its valid candidates, ``(…,
+        B)``: the joint analogue of :meth:`per_pair_loss`, for the touch
+        stats only (the step's loss is :meth:`joint_margin_loss`)."""
+        hinges, valid = self.joint_hinges(
+            params, pos, neg, margin=margin, norm=norm,
+            n_candidates=n_candidates)
+        return _masked_mean(hinges, valid)
+
+    def _objective(self, params: Params, pos, neg, cfg: KGConfig,
+                   check_ids: bool = True) -> tuple:
+        """``(pair losses, step loss)`` of one step from one scoring of the
+        batch, the step loss differentiable: the training objective
+        ``cfg.negatives`` selects (the reference's ``_loss_fn`` and
+        ``_pair_loss_fn`` in one).  Per-triplet: the model-dispatched hinge
+        of ``kernels/ops.kg_pair_loss`` (the kernels for fused models) and
+        its mean.  Joint: :meth:`joint_margin_loss`, with
+        :meth:`joint_pair_loss` for the touch stats only, in plain
+        PyTorch for every model, as the reference's is plain jnp."""
+        if cfg.negatives == "joint":
+            hinges, valid = self.joint_hinges(
+                params, pos, neg, margin=cfg.margin, norm=cfg.norm,
+                n_candidates=cfg.neg_candidates)
+            return (_masked_mean(hinges.detach(), valid),
+                    _masked_mean(hinges.flatten(-2), valid.flatten(-2)))
+        from repro_torch.kernels import ops
+
+        pair = ops.kg_pair_loss(self, params, pos, neg, margin=cfg.margin,
+                                norm=cfg.norm, check_ids=check_ids)
+        return pair, pair.mean(-1)
+
     # -- shared engine math (identical for every model) ---------------------
 
     def margin_loss(
@@ -373,27 +595,20 @@ class KGModel:
         self, params: Params, pos: torch.Tensor, neg: torch.Tensor, *,
         margin: float, norm: str
     ) -> torch.Tensor:
-        """Hinge per (pos, neg) pair, ``pos.shape[:-1]``."""
+        """Hinge per (pos, neg) pair, ``pos.shape[:-1]``; pos and neg are
+        scored in one :meth:`energy` call (elementwise per triplet, so the
+        same bits as two)."""
         params, pos, neg = _flatten_workers(params, pos, neg)
-        return pairwise_hinge(self.energy(params, pos, norm),
-                              self.energy(params, neg, norm), margin)
-
-    def _pair_loss_fn(self, cfg: KGConfig, check_ids: bool = True):
-        """The training objective ``(params, pos, neg) -> (…, B)`` per-pair
-        losses, differentiable: the model-dispatched loss of
-        ``kernels/ops.kg_pair_loss`` (the kernels for fused models).  Its
-        mean over the batch is the step's loss (the reference's
-        ``_loss_fn``) and the pairs feed the touch stats, so a step scores
-        each pair once."""
-        from repro_torch.kernels import ops
-
-        return functools.partial(ops.kg_pair_loss, self, margin=cfg.margin,
-                                 norm=cfg.norm, check_ids=check_ids)
+        d = self.energy(params, torch.stack([_long(pos), _long(neg)]), norm)
+        return pairwise_hinge(d[0], d[1], margin)
 
     def _pairs_and_grads(self, params: Params, pos, neg, cfg: KGConfig,
                          shared: bool = False, check_ids: bool = True):
-        """``(pair losses, mean loss, grads)`` of one step: the objective on
-        ``params`` and its gradient with respect to every table.
+        """``(pair losses, step loss, grads)`` of one step: the objective on
+        ``params`` (:meth:`_objective`) and its gradient with respect to
+        every table.  The step loss returned is summed in a fixed order
+        (``util.pairwise_mean`` of the pairs, or the joint loss's tree),
+        the same bits on every device.
 
         With ``shared`` and a ``(W, B, 3)`` batch the tables are one set of
         ``(N, k)`` tables that all W workers read (BGD): they enter as a
@@ -410,19 +625,23 @@ class KGModel:
                       for name, p in params.items()}
         names = sorted(leaves)
         with torch.enable_grad():
-            pair = self._pair_loss_fn(cfg, check_ids)(leaves, pos, neg)
-            loss = pair.mean(-1)
+            pair, loss = self._objective(leaves, pos, neg, cfg, check_ids)
             grads = torch.autograd.grad(loss.sum(),
                                         [leaves[n] for n in names])
-        return pair.detach(), loss.detach(), dict(zip(names, grads))
+        if cfg.negatives == "joint":
+            loss = loss.detach()
+        else:
+            pair = pair.detach()
+            loss = pairwise_mean(pair)
+        return pair, loss, dict(zip(names, grads))
 
     def sgd_step(
         self, params: Params, pos: torch.Tensor, neg: torch.Tensor,
         cfg: KGConfig
     ) -> tuple:
         """One (mini-batch) SGD step of Algorithm 1's inner loop:
-        ``(params, loss)``; stacked tables with a ``(W, B, 3)`` batch step
-        every worker's own copy."""
+        ``(params, loss)``, the objective from ``cfg.negatives``; stacked
+        tables with a ``(W, B, 3)`` batch step every worker's own copy."""
         _, loss, grads = self._pairs_and_grads(params, pos, neg, cfg)
         params = apply_gradients(params, grads, cfg.learning_rate)
         if cfg.normalize == "step":
@@ -463,21 +682,21 @@ class KGModel:
         zeros = lambda n: torch.zeros(W * n, dtype=cfg.dtype, device=dev)
         stats = (zeros(E), zeros(E) if touch_losses else None, zeros(R),
                  zeros(R) if touch_losses else None)
-        pairs = []
+        losses = []
         for s in range(pos_batches.shape[-3]):
             pos = pos_batches[:, s] if stacked else pos_batches[s]
             neg = neg_batches[:, s] if stacked else neg_batches[s]
-            pair, _, grads = self._pairs_and_grads(
+            pair, loss, grads = self._pairs_and_grads(
                 params, pos, neg, cfg, check_ids=check_ids)
             params = apply_gradients(params, grads, cfg.learning_rate)
             if cfg.normalize == "step":
                 params = self.normalize(params)
             stats = _accumulate_touch(stats, pos, neg, pair, E, R)
-            pairs.append(pair)
+            losses.append(loss)
         shape = lambda t, n: None if t is None else t.reshape(
             (W, n) if stacked else (n,))
         return params, EpochStats(
-            mean_loss=pairwise_mean(pairwise_mean(torch.stack(pairs)), 0),
+            mean_loss=pairwise_mean(torch.stack(losses), 0),
             ent_count=shape(stats[0], E),
             ent_loss=shape(stats[1], E),
             rel_count=shape(stats[2], R),

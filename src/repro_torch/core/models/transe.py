@@ -9,8 +9,10 @@ the tail side, ``t - r`` for the head side) and sweep the entity table one
 embedding column at a time (``base.seq_distance``), so a ``(B, E)`` score
 matrix never passes through a ``(B, E, k)`` tensor.  ``fused_rank_counts``
 hands the sweep to the CUDA rank kernel (``kernels/rank_topk.py``), and
-``fused_pair_loss`` / ``fused_margin_loss`` the training step to the
-``transe_score`` kernels (``kernels/transe_score.py``).
+``fused_pair_loss`` / ``fused_margin_loss`` the per-triplet training
+step to the ``transe_score`` kernels (``kernels/transe_score.py``).  The
+joint objective's ``joint_energies`` is plain PyTorch, as the reference's
+is plain jnp.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.models import base
 from repro_torch.core.models.base import (
-    KGConfig, Params, _long, dissimilarity, seq_distance)
+    KGConfig, Params, _long, dissimilarity, gather_rows, seq_distance)
+from repro_torch.util import sqrt_rn
 
 
 class TransE(base.KGModel):
@@ -44,9 +47,9 @@ class TransE(base.KGModel):
         self, params: Params, triplets: torch.Tensor, norm: str = "l1"
     ) -> torch.Tensor:
         trip = _long(triplets)
-        h = params["ent"][trip[..., 0]]
-        r = params["rel"][trip[..., 1]]
-        t = params["ent"][trip[..., 2]]
+        h = gather_rows(params["ent"], trip[..., 0])
+        r = gather_rows(params["rel"], trip[..., 1])
+        t = gather_rows(params["ent"], trip[..., 2])
         return dissimilarity(h + r - t, norm)
 
     def _query(self, params: Params, trip: torch.Tensor, side: str):
@@ -63,8 +66,24 @@ class TransE(base.KGModel):
         norm: str = "l1"
     ) -> torch.Tensor:
         """Closed form: ``||q - e||`` for every entity ``e``, ``(B, E)``."""
+        return self._candidates(params, triplets, params["ent"], side, norm)
+
+    def candidate_slice_energies(
+        self, params: Params, triplets: torch.Tensor, side: str,
+        norm: str = "l1", *, lo: int, n: int
+    ) -> torch.Tensor:
+        """Shard-local scan over entity rows ``[lo, lo + n)`` only: each
+        column is computed by the same elementwise operations and in-order
+        sum as in :meth:`candidate_energies`, so it is that column
+        bitwise."""
+        return self._candidates(params, triplets,
+                                params["ent"][lo:lo + n], side, norm)
+
+    def _candidates(self, params: Params, triplets, cent: torch.Tensor,
+                    side: str, norm: str) -> torch.Tensor:
+        """``(B, n)`` energies of the candidate rows ``cent`` ``(n, k)``."""
         q, _ = self._query(params, _long(triplets), side)
-        cols = params["ent"].t()                           # (k, E) view
+        cols = cent.t()                                    # (k, n) view
         if side == "tail":
             part = lambda j: q[:, j, None] - cols[j][None, :]
         else:
@@ -81,6 +100,34 @@ class TransE(base.KGModel):
         cols = params["rel"].t()                           # (k, R) view
         return seq_distance(
             lambda j: hmt[:, j, None] + cols[j][None, :], hmt.shape[1], norm)
+
+    def joint_energies(
+        self, params: Params, pos: torch.Tensor, cand: torch.Tensor,
+        side_head: torch.Tensor, norm: str = "l1"
+    ) -> torch.Tensor:
+        """Closed form, ``(…, B, C)``: a corrupted head scores
+        ``||c + r - t||`` and a corrupted tail ``||h + r - c||``; both norms
+        are sign-invariant, so each is ``||c - q||`` with the per-row query
+        ``q = t - r`` (head side) or ``h + r`` (tail side), and the pool is
+        gathered C times instead of B·C.  Under L2 the reference's
+        expansion ``sqrt(max(|q|² - 2 q·c + |c|², 0) + 1e-12)``, every
+        product summed in index order (no matrix product); under L1 the
+        ``(…, B, C, k)`` difference.  Plain ops, differentiable: no
+        ``transe_score`` kernel lies on the joint objective."""
+        ent, rel = params["ent"], params["rel"]
+        pos = _long(pos)
+        h, r, t = pos[..., 0], pos[..., 1], pos[..., 2]
+        q = torch.where(
+            side_head[..., None],
+            gather_rows(ent, t) - gather_rows(rel, r),
+            gather_rows(ent, h) + gather_rows(rel, r))     # (…, B, k)
+        cm = gather_rows(ent, _long(cand))                 # (…, C, k)
+        if norm == "l2":
+            qc = base.in_order_sum(q[..., :, None, :] * cm[..., None, :, :])
+            d2 = ((base.in_order_sum(q * q)[..., None] - 2.0 * qc)
+                  + base.in_order_sum(cm * cm)[..., None, :])
+            return sqrt_rn(torch.clamp_min(d2, 0.0) + 1e-12)
+        return dissimilarity(cm[..., None, :, :] - q[..., :, None, :], norm)
 
     # -- fused kernels (late imports: kernels/ops imports this package) -----
 

@@ -2,9 +2,13 @@
 ``repro.kernels.ops``).
 
 Training: models with a fused path (``supports_fused_kernel``, currently
-TransE) take their margin loss through the ``transe_score`` kernels —
-forward and closed-form backward, as a ``torch.autograd.Function`` — and
-every other model takes torch autograd of its plain ``per_pair_loss``.
+TransE) take their per-triplet margin loss through the ``transe_score``
+kernels — forward and closed-form backward, as a
+``torch.autograd.Function`` — and every other model takes torch autograd
+of its plain ``per_pair_loss``.  The joint objective
+(``KGConfig(negatives="joint")``) never comes here: it is plain PyTorch
+for every model (``core/models/base.py``), as the reference's is plain
+jnp.
 CUDA tables launch the kernels; CPU tables take their plain versions.
 
 Evaluation: fused models rank through the CUDA rank kernel; every other

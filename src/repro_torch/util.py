@@ -11,8 +11,9 @@ though each drops its own counts.  These are once-per-*call* reports.
 with float atomics, in an order that changes from run to run; ``sqrt_rn``
 because ``torch.sqrt`` of a float32 CPU tensor is not always correctly
 rounded (about 0.6 % of inputs come out one ulp off), while the card's and
-the CUDA kernels' (``__fsqrt_rn``) are; ``pairwise_mean`` because
-``torch.mean`` sums in another order on the card than on the CPU.
+the CUDA kernels' (``__fsqrt_rn``) are; ``pairwise_sum`` and
+``pairwise_mean`` because ``torch.sum`` and ``torch.mean`` sum in another
+order on the card than on the CPU.
 """
 from __future__ import annotations
 
@@ -39,13 +40,12 @@ def exact_div(x: torch.Tensor, n) -> torch.Tensor:
     return x / torch.full((), n, dtype=x.dtype, device=x.device)
 
 
-def pairwise_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Mean over ``dim`` with the same bits on every device: ``x`` padded
+def pairwise_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` with the same bits on every device: ``x`` padded
     with ``+0.0`` to a power-of-two length, summed as a balanced tree of
     pairwise additions (``x[0::2] + x[1::2]`` a level, one rounding per
-    addition), then one :func:`exact_div`.  ``torch.mean`` reduces in one
-    order on the CPU and in another on the card, so its last bit may
-    differ between them."""
+    addition).  ``torch.sum`` reduces in one order on the CPU and in
+    another on the card, so its last bit may differ between them."""
     x = x.movedim(dim, 0)
     n = x.shape[0]
     width = 1 << max(n - 1, 0).bit_length()
@@ -53,7 +53,13 @@ def pairwise_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         x = torch.cat([x, x.new_zeros((width - n,) + x.shape[1:])])
     while x.shape[0] > 1:
         x = x[0::2] + x[1::2]
-    return exact_div(x[0], n)
+    return x[0]
+
+
+def pairwise_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Mean over ``dim`` with the same bits on every device:
+    :func:`pairwise_sum`, then one :func:`exact_div`."""
+    return exact_div(pairwise_sum(x, dim), x.shape[dim])
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:

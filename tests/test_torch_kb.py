@@ -6,12 +6,16 @@ format against the reference's."""
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro import kb as ref_kb_lib
+from repro import kg as ref_kg
+from repro.core.models import get_model as ref_get_model
+from repro.core.models.base import KGConfig as RefKGConfig
 from repro.train import checkpoint as ref_ckpt
 from repro_torch import convert, kg as port_kg
 from repro_torch.kb import KnowledgeBase
@@ -135,7 +139,50 @@ def test_evaluate_matches_reference(kbs):
     assert port.evaluate() == want
     assert port_kg.evaluate(port.params, "transe", port_graph(ref.graph),
                             engine="host") == want
-    assert port_kg.models() == ("transe",)
+    assert port_kg.models() == ref_kg.models()
+
+
+@pytest.mark.parametrize("model,norm", [("transh", "l2"),
+                                        ("distmult", "l1")])
+def test_other_models_artifact_answers_as_the_reference(
+        tiny_kg, tmp_path, model, norm):
+    """A reference TransH or DistMult artifact loads in the port (its
+    third table included) and answers as the reference does: top-k ids
+    exact, energies at 1e-6, ranks and the evaluation's metric dict
+    exact, on the device engine and the host protocol; a
+    ``kb_from_reference`` of the same tables is the same artifact."""
+    params = ref_get_model(model).init_params(
+        jax.random.PRNGKey(4), RefKGConfig(tiny_kg.n_entities,
+                                            tiny_kg.n_relations, DIM))
+    ref = ref_kb_lib.KnowledgeBase(model=model, params=params,
+                                   graph=tiny_kg, norm=norm)
+    ref.save(str(tmp_path))
+    port = KnowledgeBase.load(str(tmp_path), device="cpu")
+    assert port.model.name == model and port.norm == norm
+    assert sorted(port.params) == sorted(params)
+    assert port.fingerprint() == ref.fingerprint()
+    tables = {k: np.asarray(v) for k, v in params.items()}
+    assert convert.kb_from_reference(
+        tables, model, tiny_kg, norm=norm,
+        device="cpu").fingerprint() == ref.fingerprint()
+    test = ref.graph.test[:60]
+    h, r, t = test[:, 0], test[:, 1], test[:, 2]
+    _same_answer(port.query_tails(h, r, k=10, filtered=True),
+                 ref.query_tails(h, r, k=10, filtered=True))
+    _same_answer(port.query_heads(t, r, k=10, chunk=16),
+                 ref.query_heads(t, r, k=10, chunk=16))
+    _same_answer(port.query_relations(h, t, k=3),
+                 ref.query_relations(h, t, k=3))
+    np.testing.assert_allclose(port.score(h, r, t), ref.score(h, r, t),
+                               **TOL)
+    tails, _ = ref.graph.eval_filter_candidates()
+    np.testing.assert_array_equal(
+        port.engine().rank(test, "tail", cand_masks=tails[:60]),
+        ref.engine().rank(test, "tail", cand_masks=tails[:60]))
+    port.graph._tc_negatives[0] = ref.graph.tc_negatives(0)
+    want = ref.evaluate()
+    assert port_kg.evaluate(port, engine="device") == want
+    assert port_kg.evaluate(port, engine="host") == want
 
 
 def test_artifact_without_graph(kbs, tmp_path):

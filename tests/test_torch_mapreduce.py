@@ -73,34 +73,57 @@ def replay_draws(graph, kcfg, mcfg, tables, seed, epochs):
     return out
 
 
+FIT_CELLS = [
+    # (model, paradigm, strategy, norm, sampling, extra fit keywords)
+    ("transe", "sgd", "average", "l1", "unif", {}),
+    ("transe", "sgd", "average_all", "l1", "unif", {}),
+    ("transe", "sgd", "random", "l1", "unif", {}),
+    ("transe", "sgd", "miniloss_perkey", "l1", "unif", {}),
+    ("transe", "sgd", "miniloss_global", "l1", "bern", {}),
+    ("transe", "sgd", "average", "l2", "unif", {}),
+    ("transe", "bgd", "average", "l1", "unif", {}),
+    ("transe", "bgd", "average", "l2", "bern", {}),
+    # the other models: TransH's third table through the Reduce (its
+    # relation touch stats under miniloss_perkey), DistMult under BGD
+    ("transh", "sgd", "average", "l1", "unif", {}),
+    ("transh", "sgd", "miniloss_perkey", "l1", "unif", {}),
+    ("distmult", "bgd", "average", "l1", "unif", {}),
+    # joint negatives: a capped pool under SGD, the full pool under BGD
+    ("transe", "sgd", "average", "l2", "unif",
+     dict(negatives="joint", neg_candidates=8)),
+    ("transe", "bgd", "average", "l1", "unif", dict(negatives="joint")),
+]
+
+
+def _fit_id(cell):
+    model, *rest, extra = cell
+    parts = ([] if model == "transe" else [model]) + list(rest)
+    if extra:
+        parts.append(f"joint{extra.get('neg_candidates', 0)}")
+    return "-".join(parts)
+
+
 @pytest.mark.filterwarnings("ignore:batch_size=64 does not divide")
-@pytest.mark.parametrize("paradigm,strategy,norm,sampling", [
-    ("sgd", "average", "l1", "unif"),
-    ("sgd", "average_all", "l1", "unif"),
-    ("sgd", "random", "l1", "unif"),
-    ("sgd", "miniloss_perkey", "l1", "unif"),
-    ("sgd", "miniloss_global", "l1", "bern"),
-    ("sgd", "average", "l2", "unif"),
-    ("bgd", "average", "l1", "unif"),
-    ("bgd", "average", "l2", "bern"),
-])
-def test_fit_matches_reference(graphs, paradigm, strategy, norm, sampling):
+@pytest.mark.parametrize("model,paradigm,strategy,norm,sampling,extra",
+                         FIT_CELLS, ids=[_fit_id(c) for c in FIT_CELLS])
+def test_fit_matches_reference(graphs, model, paradigm, strategy, norm,
+                               sampling, extra):
     ref_graph, graph = graphs
-    kw = dict(KW, strategy=strategy, norm=norm, sampling=sampling)
-    kcfg, mcfg = ref_kg.make_configs(ref_graph, "transe", paradigm, **kw)
-    init = ref_get_model("transe").init_params(jax.random.PRNGKey(1), kcfg)
+    kw = dict(KW, strategy=strategy, norm=norm, sampling=sampling, **extra)
+    kcfg, mcfg = ref_kg.make_configs(ref_graph, model, paradigm, **kw)
+    init = ref_get_model(model).init_params(jax.random.PRNGKey(1), kcfg)
     tables = {name: np.asarray(t) for name, t in init.items()}
-    want = ref_kg.fit(ref_graph, "transe", paradigm, epochs=EPOCHS, seed=0,
+    want = ref_kg.fit(ref_graph, model, paradigm, epochs=EPOCHS, seed=0,
                       params=init, **kw)
     draws = replay_draws(ref_graph, kcfg, mcfg, tables, 0, EPOCHS)
-    got = port_kg.fit(graph, "transe", paradigm, epochs=EPOCHS, seed=0,
+    got = port_kg.fit(graph, model, paradigm, epochs=EPOCHS, seed=0,
                       params=tables, device="cpu",
                       draws=lambda epoch: draws[epoch], **kw)
     np.testing.assert_allclose(got.loss_history, want.loss_history, **TOL)
     for name in tables:
         np.testing.assert_allclose(got.params[name].numpy(),
                                    np.asarray(want.params[name]), **TOL)
-    assert got.epochs_run == EPOCHS and got.model == "transe"
+    assert got.epochs_run == EPOCHS and got.model == model
 
 
 @pytest.mark.filterwarnings("ignore:batch_size=64 does not divide")
@@ -139,7 +162,7 @@ def test_epoch_draws_are_pure_in_seed_and_epoch():
     (dict(backend="shard_map"), 12),
     (dict(table_sharding="sharded", merge_transport="dense"), 12),
     (dict(staleness=1), 12),
-    (dict(negatives="joint"), 10),
+    (dict(negatives="joint", merge_transport="sparse"), 11),
     (dict(mesh=object()), 12),
 ])
 def test_options_not_ported(graphs, option, item):

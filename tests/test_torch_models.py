@@ -136,9 +136,11 @@ def test_init_params_seeded():
 
 
 def test_registry():
-    assert port_models.available() == ("transe",)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_models.get_model("distmult")
+    assert port_models.available() == ("distmult", "transe", "transh")
+    for name in port_models.available():
+        assert port_models.get_model(name).name == name
+        assert port_models.get_model(name).param_roles() == \
+            ref_get_model(name).param_roles()
     with pytest.raises(ValueError, match="unknown KG model"):
         port_models.get_model("rotate")
     with pytest.raises(ValueError, match="norm"):
@@ -192,8 +194,8 @@ def test_kgconfig_validates_as_the_reference():
             RefKGConfig(4, 2, **bad)
         with pytest.raises(ValueError):
             port_models.KGConfig(4, 2, **bad)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_models.KGConfig(4, 2, negatives="joint")
+    joint = port_models.KGConfig(4, 2, negatives="joint", neg_candidates=8)
+    assert (joint.negatives, joint.neg_candidates) == ("joint", 8)
     cfg = port_models.KGConfig(4, 2)
     assert (cfg.margin, cfg.norm, cfg.learning_rate, cfg.normalize,
             cfg.sampling) == (1.0, "l1", 0.01, "epoch", "unif")

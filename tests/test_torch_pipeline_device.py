@@ -114,6 +114,16 @@ CONFIGS = {
         repartition_every=2, partition="degree", block_epochs=4)),
     "bgd-l1": ("bgd", dict(norm="l1", block_epochs=2)),
     "bgd-l2": ("bgd", dict(norm="l2", block_epochs=2)),
+    # the other models (``model`` picks one; TransE otherwise): TransH's
+    # third table through the per-table priorities of ``random``, and
+    # DistMult under BGD; then joint negatives, bench_async's joint-48
+    "transh-sgd-random-merge2": ("sgd", dict(
+        model="transh", strategy="random", merge_every=2, block_epochs=4)),
+    "distmult-bgd": ("bgd", dict(model="distmult", block_epochs=2)),
+    "joint48-sgd-l2-merge2": ("sgd", dict(
+        negatives="joint", neg_candidates=48, norm="l2", merge_every=2,
+        block_epochs=4)),
+    "joint-bgd-l1": ("bgd", dict(negatives="joint", block_epochs=2)),
 }
 
 
@@ -129,12 +139,13 @@ def reference(graphs):
         if name not in cache:
             paradigm, opts = CONFIGS[name]
             kw = dict(KW, **opts)
-            kcfg, mcfg = ref_kg.make_configs(ref_graph, "transe", paradigm,
+            model = kw.pop("model", "transe")
+            kcfg, mcfg = ref_kg.make_configs(ref_graph, model, paradigm,
                                              **kw)
-            init = ref_get_model("transe").init_params(
+            init = ref_get_model(model).init_params(
                 jax.random.PRNGKey(1), kcfg)
             tables = {n: np.asarray(t) for n, t in init.items()}
-            want = ref_kg.fit(ref_graph, "transe", paradigm, epochs=EPOCHS,
+            want = ref_kg.fit(ref_graph, model, paradigm, epochs=EPOCHS,
                               seed=0, params=init, **kw)
             draws = replay_device_draws(ref_graph, kcfg, mcfg, tables, 0,
                                         EPOCHS)
@@ -155,9 +166,9 @@ def _close(got_params, got_history, want):
 def test_device_pipeline_matches_reference(graphs, reference, name):
     _, graph = graphs
     tables, kw, want, draws = reference(name)
-    paradigm = CONFIGS[name][0]
-    got = port_kg.fit(graph, "transe", paradigm, epochs=EPOCHS, seed=0,
-                      params=tables, device="cpu",
+    paradigm, opts = CONFIGS[name]
+    got = port_kg.fit(graph, opts.get("model", "transe"), paradigm,
+                      epochs=EPOCHS, seed=0, params=tables, device="cpu",
                       draws=lambda epoch: draws[epoch], **kw)
     _close({n: t.numpy() for n, t in got.params.items()}, got.loss_history,
            want)
@@ -185,6 +196,10 @@ def _same(a, b):
     ("sgd", dict(merge_every=2), (2, 4)),
     ("sgd", dict(repartition_every=2), (1, 4)),
     ("bgd", dict(repartition_every=2, partition="degree"), (1, 4)),
+    ("sgd", dict(model="transh", merge_every=2, strategy="random"), (2, 4)),
+    ("sgd", dict(negatives="joint", neg_candidates=48, norm="l2",
+                 merge_every=2), (2, 4)),
+    ("bgd", dict(model="distmult", negatives="joint"), (1, 4)),
 ])
 def test_block_invariance(graphs, paradigm, opts, blocks):
     """How epochs are grouped into blocks changes no bit: every draw is a

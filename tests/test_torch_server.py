@@ -48,8 +48,9 @@ TIMEOUT = 30
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
-def _tables(n_entities: int, n_relations: int, seed: int, device="cpu"):
-    return get_model("transe").init_params(
+def _tables(n_entities: int, n_relations: int, seed: int, device="cpu",
+            model="transe"):
+    return get_model(model).init_params(
         torch.Generator().manual_seed(seed),
         KGConfig(n_entities, n_relations, dim=DIM), device=device)
 
@@ -506,10 +507,15 @@ def test_drain_and_stop_without_drain(kb, graph, uniq):
 # The port's server against the reference's, on the same artifact
 # ---------------------------------------------------------------------------
 
-CROSS_CELLS = [("tails", "plain"), ("tails", "filtered"),
-               ("tails", "exclude"), ("heads", "plain"),
-               ("heads", "filtered"), ("heads", "exclude"),
-               ("relations", "plain")]
+CROSS_CELLS = [("transe", "tails", "plain"), ("transe", "tails", "filtered"),
+               ("transe", "tails", "exclude"), ("transe", "heads", "plain"),
+               ("transe", "heads", "filtered"),
+               ("transe", "heads", "exclude"),
+               ("transe", "relations", "plain"),
+               # DistMult's candidate-matrix path (no rank kernel)
+               ("distmult", "tails", "filtered"),
+               ("distmult", "heads", "exclude"),
+               ("distmult", "relations", "plain")]
 CROSS_SIZES = (1, 2, 3, 4)          # every bucket of max_batch=4, padded
 COUNTERS = ("requests", "completed", "cache_hits", "cache_misses", "waves",
             "bucket_waves", "swaps", "cache_invalidations")
@@ -517,33 +523,46 @@ COUNTERS = ("requests", "completed", "cache_hits", "cache_misses", "waves",
 
 @pytest.fixture(scope="module")
 def cross_kbs(tiny_kg, graph):
-    """(reference KB, port KB) over the same tables and splits, and the
-    same pair for a second artifact (the swap target)."""
+    """``cross_kbs(model)``: (reference KB, port KB) of ``model`` over the
+    same tables and splits, and the same pair for a second artifact (the
+    swap target)."""
     import jax.numpy as jnp
 
     from repro.kb import KnowledgeBase as RefKnowledgeBase
 
-    pairs = []
-    for seed in (0, 1):
-        tables = _tables(graph.n_entities, graph.n_relations, seed)
-        ref = RefKnowledgeBase(
-            model="transe", graph=tiny_kg,
-            params={n: jnp.asarray(t.numpy()) for n, t in tables.items()})
-        port = KnowledgeBase("transe", tables, graph=graph)
-        assert ref.fingerprint() == port.fingerprint()
-        pairs.append((ref, port))
-    return pairs
+    cache = {}
+
+    def build(model):
+        if model not in cache:
+            pairs = []
+            for seed in (0, 1):
+                tables = _tables(graph.n_entities, graph.n_relations, seed,
+                                 model=model)
+                ref = RefKnowledgeBase(
+                    model=model, graph=tiny_kg,
+                    params={n: jnp.asarray(t.numpy())
+                            for n, t in tables.items()})
+                port = KnowledgeBase(model, tables, graph=graph)
+                assert ref.fingerprint() == port.fingerprint()
+                pairs.append((ref, port))
+            cache[model] = pairs
+        return cache[model]
+
+    return build
 
 
-@pytest.mark.parametrize("kind,mode", CROSS_CELLS,
-                         ids=[f"{k}-{m}" for k, m in CROSS_CELLS])
-def test_served_like_the_reference(cross_kbs, graph, uniq, kind, mode):
+@pytest.mark.parametrize(
+    "model,kind,mode", CROSS_CELLS,
+    ids=[(f"{m}-" if m != "transe" else "") + f"{k}-{mo}"
+         for m, k, mo in CROSS_CELLS])
+def test_served_like_the_reference(cross_kbs, graph, uniq, model, kind,
+                                   mode):
     """The same scripted waves at every bucket, a cached repeat and a swap
     through both servers: ids equal, energies within 1e-6, counters
     equal."""
     from repro.serve import KGServer as RefKGServer
 
-    (ref_kb, port_kb), (ref_kb2, port_kb2) = cross_kbs
+    (ref_kb, port_kb), (ref_kb2, port_kb2) = cross_kbs(model)
     kw = dict(max_batch=4, max_wait_us=WAIT_US, default_k=10)
     ref_srv, port_srv = RefKGServer(ref_kb, **kw), KGServer(port_kb, **kw)
     try:

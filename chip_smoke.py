@@ -144,6 +144,38 @@
    Checks: each loss fell where its run took more than one epoch; the two
    block sizes give the same bits; every trained table is on the card.
 
+9. The sparse delta transport (``sparse_transport_path``,
+   ``merge_transport="sparse"``): the compact SGD step on the
+   ``transe_score`` kernels, the packed-delta Reduce and sparse BGD, each
+   run beside its dense twin.  (a) At phase 3's width and configuration
+   (where the capacity clamps to the whole table, so only the compact
+   step differs from dense): SGD ``average`` on the host pipeline, 2
+   epochs; BGD, 1 epoch; the device pipeline's SGD ``merge_every=2``,
+   ``repartition_every=2``, 4 epochs, dense in one block and sparse in
+   blocks of 4 and 2; one sparse block under
+   ``torch.cuda.set_sync_debug_mode("error")``, the peak memory of a
+   sparse block with ``donate_params`` on and off, and a sparse block
+   under ``torch.profiler``; the SGD and BGD sparse artifacts evaluated.
+   (b) TransH and DistMult, 1 SGD epoch on the host pipeline, and joint-48
+   TransE for one merge round on the device pipeline.  (c) The
+   million-entity cell of ``benchmarks/bench_scale.py`` (``SIZES[1e6]``
+   and ``task=roundtrip``): ``random_kg(1e6, 50,000, 100 relations, 16
+   held out, seed 5)``, TransE dim 16, 4 workers, batch 4,096, SGD
+   ``average``, lr 0.05, device pipeline, 2 epochs in one block per
+   transport (twice each), its three byte counts per Reduce and the
+   delta capacity, each run's peak memory, then ``kg.evaluate(kb,
+   engine="device")`` of the sparse artifact against all 1e6 entities.
+   All three kernels' counters are zeroed just before and read just
+   after.  Checks: every sparse run gives its dense twin's bits, and the
+   sparse runs give each other's across block sizes; the sync-checked
+   block raises nothing and gives the dense run's first losses; the
+   block makes no device→host copy; ``transe_score`` forward and backward
+   launched once a step of every TransE run (none for TransH, DistMult
+   and joint) and ``rank_counts`` as the evaluations' chunks predict; the
+   1e6 evaluation's metrics are finite and in range.  Reports epoch
+   seconds per transport, the profile (launches a step, idle share,
+   device→host copies a step) and peak memory.
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -166,9 +198,12 @@ PROBE_TRIPLETS = 60000
 N_QUERY_PAIRS = 1024
 HOST_CHECK_ROWS = 512
 KERNEL_CASES = ((14951, 256), (1_000_000, 4096))   # (E, B)
-# transe_score cases: (W, B, E, R); W = 1 is one unstacked table
+# transe_score cases: (W, B, E, R); W = 1 is one unstacked table.  The
+# last is the sparse transport's compact step at the training step's
+# shape: tables of the 4B entity and 2B relation rows a batch references
 TRANSE_CASES = ((4, 256, FB15K["n_entities"], FB15K["n_relations"]),
-                (1, 1 << 20, 1_000_000, FB15K["n_relations"]))
+                (1, 1 << 20, 1_000_000, FB15K["n_relations"]),
+                (4, 256, 4 * 256, 2 * 256))
 TRAIN = dict(n_workers=4, batch_size=256)   # kg.make_configs' defaults
 SGD_EPOCHS, BGD_EPOCHS = 4, 3
 # phase 6: the device pipeline's SGD configuration, and the counters its
@@ -217,6 +252,13 @@ FAMILY_CELLS = (("transh", "transh", {}), ("distmult", "distmult", {}),
 # broadcast's reduction in each device's own order, so the two may differ
 # in the last bits of a few rows: within 1e-5.
 FAMILY_CPU_TOL = 1e-5
+# phase 9: the sparse transport; (c) is benchmarks/bench_scale.py's
+# SIZES[1_000_000] row and its task=roundtrip (n_entities, n_triplets,
+# batch, epochs; relations, held-out triples, graph seed, dim, lr)
+SPARSE_DEVICE = dict(DEVICE_SGD, merge_transport="sparse")
+SCALE_CELL = dict(n_entities=1_000_000, n_triplets=50_000, batch=4_096,
+                  epochs=2, n_relations=100, n_eval=16, seed=5, dim=16,
+                  learning_rate=0.05)
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
@@ -2011,6 +2053,268 @@ def model_family_path(torch, graph):
     return info, launches
 
 
+def random_kg(torch, n_entities, n_triplets, n_relations, n_eval, seed):
+    """``benchmarks/bench_scale.py::random_kg`` rebuilt in numpy (the port
+    imports nothing of the reference): uniform-random triplets as int32
+    arrays, the train split first, then the valid and test splits."""
+    import numpy as np
+
+    from repro_torch.data import kg as kg_data
+
+    rng = np.random.default_rng(seed)
+
+    def draw(n):
+        return np.stack([rng.integers(0, n_entities, n),
+                         rng.integers(0, n_relations, n),
+                         rng.integers(0, n_entities, n)],
+                        axis=1).astype(np.int32)
+
+    return kg_data.KG(n_entities, n_relations, draw(n_triplets),
+                      draw(n_eval), draw(n_eval))
+
+
+def scale_bytes(torch, graph, kcfg, mcfg, part):
+    """bench_scale's three byte counts per Reduce (``_wire_bytes``): dense
+    ``W·n_rows·(k + 2)·4`` (W tables and two touch stats), sparse
+    ``W·C·(k + 3)·4`` (the capacity buffers: values, id, count, loss) and
+    touched ``n_touched·(k + 3)·4`` with the rows each worker's epoch-0
+    batches and negatives reference — here the device pipeline's own
+    epoch-0 draws, as the run took them."""
+    from repro_torch.core import keys, mapreduce, negative
+    from repro_torch.core.models import get_model
+    from repro_torch.data import kg as kg_data
+
+    W, B = mcfg.n_workers, mcfg.batch_size
+    model = get_model(mcfg.model)
+    k_data, k_neg, _, _ = keys.device_keys(0)
+    pos = kg_data.device_epoch_batches(keys.fold_in(k_data, 0), part, B)
+    wkeys = keys.fold_in(keys.fold_in(k_neg, 0),
+                         torch.arange(W, device=part.device))
+    uniform, offset = negative.device_draws(wkeys, pos.shape[:-1],
+                                            kcfg.n_entities, part.device)
+    neg = model.make_negatives(pos, kcfg, None, uniform=uniform,
+                               offset=offset)
+    steps = part.shape[1] // B
+    sizes = {"ent": kcfg.n_entities, "rel": kcfg.n_relations}
+    out = {"dense_merge_bytes": 0, "sparse_merge_bytes": 0,
+           "touched_merge_bytes": 0, "capacity": {}, "touched_rows": {}}
+    for name, role in sorted(model.param_roles().items()):
+        n_rows, k = sizes[role], kcfg.dim
+        cap = mapreduce._delta_capacity(mcfg, n_rows, steps, 1, role)
+        cols = (0, 2) if role == "ent" else (1,)
+        touched = [int(torch.unique(torch.cat(
+            [t[w][..., c].reshape(-1) for t in (pos, neg) for c in cols])
+            ).numel()) for w in range(W)]
+        out["dense_merge_bytes"] += W * n_rows * (k + 2) * 4
+        out["sparse_merge_bytes"] += W * cap * (k + 3) * 4
+        out["touched_merge_bytes"] += sum(touched) * (k + 3) * 4
+        out["capacity"][name] = cap
+        out["touched_rows"][name] = touched
+    return out
+
+
+def sparse_transport_path(torch, graph):
+    """The sparse delta transport (item 9 of the module docstring).
+    Returns the path's info and its launches of each kernel."""
+    from repro_torch import kg
+    from repro_torch.core import eval_device, mapreduce
+    from repro_torch.core.models import get_model
+    from repro_torch.data import kg as kg_data
+    from repro_torch.kernels import rank_topk, transe_score as ts
+
+    info = {}
+    steps = len(graph.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
+    base_kw = dict(seed=0, device=DEVICE, **TRAIN)
+    dense_dev = dict(base_kw, **DEVICE_SGD)
+    sparse_dev = dict(base_kw, **SPARSE_DEVICE)
+    marks = {}
+
+    def timer(label):                   # loss is a float: synchronized
+        marks[label] = [time.perf_counter()]
+        return lambda epoch, loss: marks[label].append(time.perf_counter())
+
+    def pair(label, *args, **kw):
+        """A run on each transport: ``(dense, sparse)``."""
+        return tuple(kg.fit(graph, *args, merge_transport=t,
+                            callback=timer(f"{label}_{t}"), **kw)
+                     for t in ("dense", "sparse"))
+
+    kcfg, mcfg = kg.make_configs(graph, "transe", "sgd", block_epochs=2,
+                                 **TRAIN, **SPARSE_DEVICE)
+    part = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+        0, graph.train, TRAIN["n_workers"]), device=DEVICE)
+    init = get_model("transe").init_params(
+        torch.Generator().manual_seed(0), kcfg, device=DEVICE)
+    scale = random_kg(torch, SCALE_CELL["n_entities"],
+                      SCALE_CELL["n_triplets"], SCALE_CELL["n_relations"],
+                      SCALE_CELL["n_eval"], SCALE_CELL["seed"])
+    scale_kw = dict(seed=0, device=DEVICE, n_workers=TRAIN["n_workers"],
+                    batch_size=SCALE_CELL["batch"], dim=SCALE_CELL["dim"],
+                    learning_rate=SCALE_CELL["learning_rate"],
+                    strategy="average", pipeline="device",
+                    block_epochs=SCALE_CELL["epochs"])
+    scale_steps = (len(scale.train) // TRAIN["n_workers"]
+                   // SCALE_CELL["batch"])
+    runs, evals, peaks_b = {}, {}, {}
+    t_phase = time.perf_counter()
+    ts.transe_score.launches = 0           # --- sparse transport path ---
+    ts.transe_score_bwd.launches = 0
+    rank_topk.rank_counts.launches = 0
+    # (a) phase 3's configuration
+    runs["sgd"] = pair("sgd", "transe", "sgd", strategy="average", epochs=2,
+                       **base_kw)
+    runs["bgd"] = pair("bgd", "transe", "bgd", epochs=1, **base_kw)
+    dense4 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
+                    callback=timer("device_dense"), **dense_dev)
+    sparse4 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
+                     callback=timer("device_sparse_block4"), **sparse_dev)
+    sparse2 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=2,
+                     callback=timer("device_sparse_block2"), **sparse_dev)
+    card_epochs = 2 * 2 + 2 * 1 + 3 * 4
+    block_fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
+                                       donate=True, with_overflow=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, losses, overflow = block_fn(dict(init), range(2))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    info["sync_checked_block"] = {"losses": losses.tolist(),
+                                  "overflow": int(overflow)}
+    for label, donate in (("donate_on", True), ("donate_off", False)):
+        fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
+                                     donate=donate)
+        given = {n: t.clone() for n, t in init.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out, _ = fn(given, range(2))
+        torch.cuda.synchronize()
+        peaks_b[label] = {"before_bytes": before,
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        del given, out
+    prof = profile_busy(torch, lambda: block_fn(dict(init), range(2)))
+    prof.update(epochs=2, steps=2 * steps,
+                launches_per_step=prof["launches"] / (2 * steps),
+                dtoh_copies_per_step=prof["dtoh_copies"] / (2 * steps))
+    card_epochs += 2 * 4
+    for label in ("sgd", "bgd"):
+        evals[label] = kg.evaluate(runs[label][1].kb, engine="device")
+    # (b) the other models and joint-48, one epoch or merge round each
+    for model in ("transh", "distmult"):
+        runs[model] = pair(model, model, "sgd", strategy="average",
+                           epochs=1, **base_kw)
+    runs["joint48"] = pair("joint48", "transe", "sgd", epochs=2,
+                           block_epochs=2, **dict(base_kw, **JOINT_SGD))
+    # (c) the million-entity cell, each transport twice
+    scale_runs = {}
+    for rep in (0, 1):
+        for t in ("dense", "sparse"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res, sec = wall(torch, lambda: kg.fit(
+                scale, "transe", "sgd", epochs=SCALE_CELL["epochs"],
+                merge_transport=t, **scale_kw))
+            scale_runs.setdefault(t, []).append(
+                (res, sec, torch.cuda.max_memory_allocated()))
+    scale_epochs = 2 * 2 * SCALE_CELL["epochs"]
+    scale_metrics, scale_eval_s = wall(torch, lambda: kg.evaluate(
+        scale_runs["sparse"][0][0].kb, engine="device"))
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+    info["runs_s"] = time.perf_counter() - t_phase
+    eval_chunks = lambda g: 2 * eval_device._layout(
+        len(g.test), eval_device.DEFAULT_CHUNK)[0]
+    predicted = {
+        "rank_counts": 2 * eval_chunks(graph) + eval_chunks(scale),
+        "transe_score": steps * card_epochs + scale_steps * scale_epochs,
+        "transe_score_bwd": steps * card_epochs + scale_steps * scale_epochs}
+
+    def per_epoch(label, epochs_per_block):
+        m = marks[label]
+        return [(t1 - t0) / epochs_per_block for t0, t1 in zip(m, m[1:])]
+
+    # the callback fires once a block on the device pipeline, and
+    # repartition_every=2 slices every block there at 2 epochs
+    block_epochs = {"device_dense": 2, "device_sparse_block4": 2,
+                    "device_sparse_block2": 2, "joint48_dense": 2,
+                    "joint48_sparse": 2}
+
+    skcfg, smcfg = kg.make_configs(scale, "transe", "sgd",
+                                   merge_transport="sparse", **{
+                                       k: v for k, v in scale_kw.items()
+                                       if k not in ("seed", "device")})
+    spart = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+        0, scale.train, TRAIN["n_workers"]), device=DEVICE)
+    info.update(
+        steps_per_epoch=steps, launches=launches,
+        launches_predicted=predicted,
+        epoch_s={k: per_epoch(k, block_epochs.get(k, 1)) for k in marks},
+        block_peak_memory=peaks_b, block_profile=prof,
+        loss_history={k: [r.loss_history for r in v]
+                      for k, v in runs.items()},
+        metrics_sgd_sparse=evals["sgd"],
+        scale={"graph": {"n_entities": scale.n_entities,
+                         "n_relations": scale.n_relations,
+                         "train": len(scale.train),
+                         "test": len(scale.test)},
+               "steps_per_epoch": scale_steps,
+               "seconds": {t: [r[1] for r in v]
+                           for t, v in scale_runs.items()},
+               "epoch_s": {t: [r[1] / SCALE_CELL["epochs"] for r in v]
+                           for t, v in scale_runs.items()},
+               "peak_bytes": {t: [r[2] for r in v]
+                              for t, v in scale_runs.items()},
+               "tables_bytes": sum(
+                   t.numel() * t.element_size()
+                   for t in scale_runs["dense"][0][0].params.values()),
+               **scale_bytes(torch, scale, skcfg, smcfg, spart),
+               "evaluate_s": scale_eval_s, "metrics": scale_metrics,
+               "loss_history": {t: v[0][0].loss_history
+                                for t, v in scale_runs.items()}})
+    info["bitwise"] = {
+        **{f"{k}_sparse_vs_dense": same_run(*v) for k, v in runs.items()},
+        "device_sparse_vs_dense": same_run(sparse4, dense4),
+        "device_sparse_block4_vs_block2": same_run(sparse4, sparse2),
+        "sync_checked_block_vs_fit": info["sync_checked_block"][
+            "losses"] == dense4.loss_history[:2],
+        "scale_sparse_vs_dense": same_run(scale_runs["sparse"][0][0],
+                                          scale_runs["dense"][0][0]),
+        "scale_reruns": same_run(scale_runs["sparse"][0][0],
+                                 scale_runs["sparse"][1][0])
+        and same_run(scale_runs["dense"][0][0], scale_runs["dense"][1][0]),
+        "sparse_sgd_metrics_vs_dense_params": evals["sgd"] == kg.evaluate(
+            runs["sgd"][0].kb, engine="device")}
+    info["phase_s"] = time.perf_counter() - t_phase
+    print("sparse transport " + json.dumps(info), flush=True)
+
+    if not all(info["bitwise"].values()):
+        fail(f"sparse-transport runs that should agree gave other bits: "
+             f"{info['bitwise']}")
+    if launches != predicted:
+        fail(f"launches {launches} on the sparse-transport path; the path "
+             f"predicts {predicted}")
+    if prof["dtoh_copies"] != 0 or info["sync_checked_block"]["overflow"]:
+        fail(f"a sparse block made {prof['dtoh_copies']} device-to-host "
+             f"copies, overflow {info['sync_checked_block']['overflow']}")
+    for label, (dense, sparse) in runs.items():
+        if not all(t.is_cuda for t in sparse.params.values()):
+            fail(f"{label}: a sparse-trained table is not on the card")
+        if not all(map(math.isfinite, sparse.loss_history)):
+            fail(f"{label}: non-finite sparse loss {sparse.loss_history}")
+    hist = runs["sgd"][1].loss_history
+    if not hist[-1] < hist[0]:
+        fail(f"the sparse SGD loss did not fall: {hist}")
+    ent = scale_metrics["entity_filtered"]
+    if not (ent["n"] == 2 * SCALE_CELL["n_eval"]
+            and 1 <= ent["mean_rank"] <= SCALE_CELL["n_entities"]
+            and all(math.isfinite(v) for v in ent.values())):
+        fail(f"the 1e6-entity evaluation is out of range: {ent}")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -2045,10 +2349,11 @@ def main():
     device_info, device_launches = device_pipeline_path(torch, graph)
     live_info, live_launches = serving_live_path(torch, sgd, bgd)
     family_info, family_launches = model_family_path(torch, graph)
+    sparse_info, sparse_launches = sparse_transport_path(torch, graph)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 init_metrics=init_metrics, eval_resume=resume_info,
                 device_pipeline=device_info, serving_live=live_info,
-                model_family=family_info)
+                model_family=family_info, sparse_transport=sparse_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -2071,14 +2376,16 @@ def main():
         "replaces": "src/repro/kernels/rank_topk.py:65",
         "launches": launches + phase_launches["rank_counts"]
         + device_launches["rank_counts"] + live_launches["rank_counts"]
-        + family_launches["rank_counts"],
+        + family_launches["rank_counts"] + sparse_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
                                  device_launches["rank_counts"],
                              "serving_live": live_launches["rank_counts"],
                              "model_family":
-                                 family_launches["rank_counts"]},
+                                 family_launches["rank_counts"],
+                             "sparse_transport":
+                                 sparse_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -2092,6 +2399,10 @@ def main():
     # the training step's shape: 4 workers x 256 triplets, L1, fp32
     step = next(c for c in ts_cases if c["W"] == TRAIN["n_workers"]
                 and c["norm"] == "l1" and c["dtype"] == "float32")
+    # the sparse transport's compact step: the same batch over the 4B / 2B
+    # rows it references
+    compact = next(c for c in ts_cases if c["E"] == 4 * TRAIN["batch_size"]
+                   and c["norm"] == "l1" and c["dtype"] == "float32")
     for kname, key, replaces, n in (
             ("transe_score", "fwd", "src/repro/kernels/transe_score.py:54",
              ts_launches[0]),
@@ -2102,18 +2413,23 @@ def main():
             "source": "src/repro_torch/kernels/csrc/transe_score.cu",
             "replaces": replaces,
             "launches": n + phase_launches[kname] + device_launches[kname]
-            + live_launches[kname] + family_launches[kname],
+            + live_launches[kname] + family_launches[kname]
+            + sparse_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
                                  "serving_live": live_launches[kname],
-                                 "model_family": family_launches[kname]},
+                                 "model_family": family_launches[kname],
+                                 "sparse_transport":
+                                     sparse_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
             "bound_ms": step[f"{key}_bound_ms"],
             "bound_by": step[f"{key}_bound_by"],
             "library_ms": step[f"{key}_library_ms"],
+            "compact_step": {f: compact[f"{key}_{f}"] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "cases": [{k: v for k, v in c.items()
                        if not k.startswith("fwd_" if key == "bwd"
                                            else "bwd_")}
@@ -2129,7 +2445,8 @@ def main():
     print(json.dumps({k: info[k] for k in info
                       if k not in ("metrics", "init_metrics", "training",
                                    "eval_resume", "device_pipeline",
-                                   "serving_live", "model_family")}),
+                                   "serving_live", "model_family",
+                                   "sparse_transport")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

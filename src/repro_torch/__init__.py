@@ -9,9 +9,10 @@ Ported so far: the three registered scoring models (TransE, TransH,
 DistMult) with per-triplet or joint negatives; training on the host and
 device pipelines (``kg.fit``,
 the paper's SGD and BGD paradigms with simulated workers and the dense
-Reduce; ``pipeline="device"`` runs blocks of epochs drawn on the device,
-with ``merge_every`` local epochs between Reduces and
-``repartition_every``), with
+or the sparse Reduce transport, ``merge_transport="sparse"``: compact
+steps and packed-delta Reduces with the dense bits; ``pipeline="device"``
+runs blocks of epochs drawn on the device, with ``merge_every`` local
+epochs between Reduces and ``repartition_every``), with
 in-training evaluation and early stopping (``eval_every``, ``patience``,
 ``keep_best``; ``core/trace.py``) and bit-identical checkpoint/resume
 (``ckpt_dir``, ``checkpoint_every``, ``resume``) in the reference's

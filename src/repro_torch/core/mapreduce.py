@@ -78,9 +78,25 @@ absolute epoch).  The manifest holds the reference's fields
 (:func:`resume_config` among them), so a checkpoint resumes in either
 package.
 
-Not ported yet, each raising and naming its ROADMAP.md item: the sparse
-transport (item 11), the ``shard_map`` backend, sharded tables and
-staleness (item 12).
+Two **Reduce transports**, selected by ``MapReduceConfig.merge_transport``
+(``core/merge.py``'s transport section):
+
+  * ``dense``  — the Map steps update whole stacked tables and the Reduce
+                 merges them whole.
+  * ``sparse`` — the SGD step works on compact tables of the rows its
+                 batch references (``KGModel.sgd_step_sparse``), and the
+                 Reduce merges each worker's packed delta buffer of the
+                 rows it touched (:func:`_merge_tables_sparse_stacked`);
+                 BGD restricts its gradient mean and update to the rows
+                 the step's batches reference.  The same bits as
+                 ``dense``, on either pipeline.  Buffers have a static
+                 capacity; a round touching more rows raises
+                 ``RuntimeError`` at its Reduce boundary
+                 (:func:`_raise_on_overflow`), read once an epoch on the
+                 host pipeline and once a block on the device pipeline.
+
+Not ported yet, each raising and naming its ROADMAP.md item: the
+``shard_map`` backend, sharded tables and staleness (item 12).
 """
 from __future__ import annotations
 
@@ -250,7 +266,7 @@ class MapReduceConfig:
     n_workers: int = 4
     paradigm: str = "sgd"           # 'sgd' | 'bgd'
     strategy: str = "average"       # merge_lib.STRATEGIES (sgd paradigm only)
-    merge_transport: str = "dense"  # 'dense' ('sparse' not ported yet)
+    merge_transport: str = "dense"  # 'dense' | 'sparse' (module docstring)
     backend: str = "vmap"           # 'vmap' ('shard_map' not ported yet)
     batch_size: int = 256
     # host partitioner (data/kg.PARTITIONERS): 'balanced' | 'stratified' |
@@ -270,7 +286,13 @@ class MapReduceConfig:
     # and a caller's tensors stay valid.  None = on.
     donate_params: Optional[bool] = None
     table_sharding: str = "replicated"   # 'sharded' not ported yet
-    touched_capacity: Optional[int] = None   # sparse transport only
+    # sparse transport: static per-round delta-buffer capacity override
+    # (touched rows per worker per table).  None = the analytic
+    # merge_lib.touched_capacity bound.  An override below the bound would
+    # make pack_delta drop rows, so train() checks it against the bound and
+    # raises before any epoch runs; the runtime overflow check
+    # (delta_overflow) is the second seatbelt.
+    touched_capacity: Optional[int] = None
     staleness: int = 0
 
     @property
@@ -287,6 +309,26 @@ class MapReduceConfig:
             raise ValueError(f"bad merge_transport {self.merge_transport!r}")
         if self.table_sharding not in ("replicated", "sharded"):
             raise ValueError(f"bad table_sharding {self.table_sharding!r}")
+        if self.table_sharding == "sharded" and self.merge_transport != "sparse":
+            raise ValueError(
+                "table_sharding='sharded' routes sparse delta buffers to "
+                "their owning shards — it needs merge_transport='sparse' "
+                "(the dense transport exchanges whole tables, which is the "
+                "replicated layout by definition)")
+        if self.touched_capacity is not None:
+            if self.merge_transport != "sparse":
+                raise ValueError(
+                    "touched_capacity sizes the sparse transport's delta "
+                    "buffers — set merge_transport='sparse' or drop it")
+            if self.paradigm != "sgd":
+                raise ValueError(
+                    "touched_capacity is an SGD-paradigm knob (the BGD "
+                    "sparse update sizes its buffers exactly from the "
+                    "batch shape)")
+            if self.touched_capacity < 1:
+                raise ValueError(
+                    f"touched_capacity must be >= 1 (or None for the "
+                    f"analytic bound), got {self.touched_capacity}")
         if self.backend not in ("vmap", "shard_map"):
             raise ValueError(f"bad backend {self.backend!r}")
         if self.pipeline not in ("host", "device"):
@@ -306,10 +348,6 @@ class MapReduceConfig:
         if self.staleness < 0:
             raise ValueError(
                 f"staleness must be >= 0, got {self.staleness}")
-        if self.merge_transport == "sparse" or \
-                self.touched_capacity is not None:
-            raise not_ported("merge_transport='sparse' (touched_capacity)",
-                             11)
         if self.backend == "shard_map":
             raise not_ported("backend='shard_map'", 12)
         if self.table_sharding == "sharded":
@@ -369,6 +407,98 @@ def _merge_tables_stacked(
     return out
 
 
+def _delta_capacity(
+    cfg: MapReduceConfig, n_rows: int, n_steps: int, k_epochs: int, role: str
+) -> int:
+    """The static delta-buffer capacity of one table: the analytic
+    ``merge_lib.touched_capacity`` bound, or the user override (checked
+    against the bound by :func:`_check_touched_capacity` before any epoch
+    runs; clamped to the table like the bound)."""
+    if cfg.touched_capacity is not None:
+        return int(min(n_rows, cfg.touched_capacity))
+    return merge_lib.touched_capacity(
+        n_rows, cfg.batch_size, n_steps, k_epochs, role)
+
+
+def _check_touched_capacity(
+    cfg: MapReduceConfig, tcfg: KGConfig, model: KGModel, n_steps: int
+) -> None:
+    """Raise at ``train()`` time when a capacity override is below the
+    analytic touched-rows bound for any table role: ``pack_delta`` would
+    drop the overflow rows otherwise.  (``MapReduceConfig`` allows an
+    override only on the SGD sparse transport.)"""
+    if cfg.touched_capacity is None:
+        return
+    rows = {"ent": tcfg.n_entities, "rel": tcfg.n_relations}
+    K = cfg.schedule.merge_every
+    for role in sorted(set(model.param_roles().values())):
+        n_rows = rows[role]
+        bound = merge_lib.touched_capacity(
+            n_rows, cfg.batch_size, n_steps, K, role)
+        if min(n_rows, cfg.touched_capacity) < bound:
+            raise ValueError(
+                f"touched_capacity={cfg.touched_capacity} is below the "
+                f"analytic bound {bound} for {role!r}-role tables "
+                f"({n_steps} steps x batch_size {cfg.batch_size} x "
+                f"merge_every {K}): pack_delta would silently drop touched "
+                "rows and corrupt the merge.  Raise the override or pass "
+                "None to use the bound.")
+
+
+def _virgin_repeats(tcfg: KGConfig, n_steps: int, k_epochs: int) -> int:
+    """How many times a row *no* step touched has been through the model's
+    constraint projection by Reduce time: once per epoch start
+    (``normalize='epoch'``), once per step (``'step'``), never
+    (``'none'``)."""
+    if tcfg.normalize == "epoch":
+        return k_epochs
+    if tcfg.normalize == "step":
+        return k_epochs * n_steps
+    return 0
+
+
+def _merge_tables_sparse_stacked(
+    model: KGModel,
+    cfg: MapReduceConfig,
+    stacked: Params,
+    stats: EpochStats,
+    priorities: Optional[Dict[str, torch.Tensor]],
+    base: Params,                # the shared round-input params
+    tcfg: KGConfig,
+    n_steps: int,
+    k_epochs: int,
+) -> tuple:
+    """Sparse-transport Reduce of the stacked params: pack each worker's
+    touched rows into static-capacity delta buffers, merge only the union
+    of the candidate rows, scatter them into the untouched rows' merged
+    value — bit-identical to :func:`_merge_tables_stacked`, table by table
+    in sorted name order.
+
+    Returns ``(params, overflow)``: ``overflow`` is the round's worst
+    per-table excess of touched rows over the capacity, an int64 device
+    scalar (0 under the analytic bound); the training drivers raise on a
+    positive value, since ``pack_delta`` dropped that many rows' updates."""
+    roles = model.param_roles()
+    m = _virgin_repeats(tcfg, n_steps, k_epochs)
+    out = {}
+    overflow = torch.zeros((), dtype=torch.int64,
+                           device=stats.ent_count.device)
+    for name in sorted(stacked):
+        count, loss = _stats_for_role(stats, roles[name])
+        n_rows = stacked[name].shape[1]
+        cap = _delta_capacity(cfg, n_rows, n_steps, k_epochs, roles[name])
+        overflow = torch.maximum(overflow,
+                                 merge_lib.delta_overflow(count, cap))
+        idx, vals, cnt, lss = merge_lib.pack_delta(stacked[name], count,
+                                                   loss, cap, n_rows)
+        out[name] = merge_lib.merge_sparse_stacked(
+            cfg.strategy, idx, vals, cnt, lss, stats.mean_loss,
+            stacked[name][0], base[name],
+            lambda rows, name=name: model.normalize_rows(name, rows), m,
+            None if priorities is None else priorities[name])
+    return out, overflow
+
+
 def sgd_epoch_vmap(
     params: Params,
     pos: torch.Tensor,               # (W, S, B, 3)
@@ -378,23 +508,74 @@ def sgd_epoch_vmap(
     priorities: Optional[Dict[str, torch.Tensor]] = None,
     model: Optional[KGModel] = None,
     check_ids: bool = True,
+    *,
+    with_overflow: bool = False,
 ) -> tuple:
     """Map (local epochs of all W workers from the shared params, side by
-    side on stacked copies) + Reduce (stacked merge): ``(params, loss)``.
+    side on stacked copies) + Reduce (stacked merge): ``(params, loss)``,
+    over the sparse transport when ``cfg.merge_transport == "sparse"``.
     ``check_ids=False``: the ids are proved in range, and the step makes
-    no host sync (``KGModel._pairs_and_grads``)."""
+    no host sync (``KGModel._pairs_and_grads``).  ``with_overflow``
+    appends the round's capacity overflow (an int64 device scalar, 0 on
+    the dense transport): ``(params, loss, overflow)``."""
     model = _resolve(cfg, model)
+    sparse = cfg.merge_transport == "sparse"
     stacked, stats = model.run_epoch(
-        _broadcast(params, pos.shape[0]), pos, neg, tcfg,
+        _broadcast(params, pos.shape[0]), pos, neg, tcfg, sparse_apply=sparse,
         touch_losses=cfg.strategy == "miniloss_perkey", check_ids=check_ids)
-    merged = _merge_tables_stacked(model, cfg.strategy, stacked, stats,
-                                   priorities)
-    return merged, merge_lib.worker_mean(stats.mean_loss)
+    if sparse:
+        merged, overflow = _merge_tables_sparse_stacked(
+            model, cfg, stacked, stats, priorities, params, tcfg,
+            pos.shape[1], 1)
+    else:
+        merged = _merge_tables_stacked(model, cfg.strategy, stacked, stats,
+                                       priorities)
+        overflow = torch.zeros((), dtype=torch.int64, device=pos.device)
+    loss = merge_lib.worker_mean(stats.mean_loss)
+    if with_overflow:
+        return merged, loss, overflow
+    return merged, loss
 
 
 # ---------------------------------------------------------------------------
 # BGD paradigm
 # ---------------------------------------------------------------------------
+
+def _bgd_candidate_ids(pos_b: torch.Tensor, neg_b: torch.Tensor, role: str,
+                       n_rows: int) -> torch.Tensor:
+    """The sorted union of the rows one BGD step can reference, in a
+    vector of static size padded with ``n_rows``: positive and corrupted
+    heads and tails (entity-role tables) or the batch's relations
+    (relation-role tables), over all W workers of a ``(W, B, 3)`` step."""
+    if role == "ent":
+        ids = torch.cat([pos_b[..., 0], pos_b[..., 2], neg_b[..., 0],
+                         neg_b[..., 2]], dim=-1)
+    else:
+        ids = torch.cat([pos_b[..., 1], neg_b[..., 1]], dim=-1)
+    flat = ids.reshape(-1).long()
+    return merge_lib.sized_unique(flat, int(min(n_rows, flat.numel())) + 1,
+                                  n_rows)
+
+
+def _bgd_sparse_update_stacked(
+    model: KGModel, tcfg: KGConfig, params: Params, grads: Params,
+    pos_b: torch.Tensor, neg_b: torch.Tensor,
+) -> Params:
+    """Sparse BGD Reduce: the workers' gradients are exactly ``+0.0`` at
+    rows no batch references, so the gradient mean and the update
+    restricted to the step's candidate rows give the dense update's bits
+    (``p - lr · 0.0`` is ``p``)."""
+    roles = model.param_roles()
+    out = {}
+    for name, table in params.items():
+        cand = _bgd_candidate_ids(pos_b, neg_b, roles[name], table.shape[0])
+        gc = merge_lib.worker_mean(merge_lib.take_fill(grads[name], cand, 1))
+        pc = merge_lib.take_fill(table, cand, 0)
+        # apply_gradients' update on the candidate rows
+        out[name] = merge_lib.apply_delta(
+            table, cand, pc - tcfg.learning_rate * gc)
+    return out
+
 
 def bgd_epoch_vmap(
     params: Params,
@@ -406,9 +587,10 @@ def bgd_epoch_vmap(
     check_ids: bool = True,
 ) -> tuple:
     """Per step: Map = per-worker gradients, Reduce = their mean, one global
-    update.  Mathematically single-thread minibatch SGD on the W·B-sized
-    union batch.  Returns ``(params, loss)``; ``check_ids`` as in
-    :func:`sgd_epoch_vmap`."""
+    update (on the sparse transport, on the step's candidate rows only:
+    :func:`_bgd_sparse_update_stacked`).  Mathematically single-thread
+    minibatch SGD on the W·B-sized union batch.  Returns ``(params,
+    loss)``; ``check_ids`` as in :func:`sgd_epoch_vmap`."""
     model = _resolve(cfg, model)
     if tcfg.normalize == "epoch":
         params = model.normalize(params)
@@ -417,8 +599,13 @@ def bgd_epoch_vmap(
         _, loss, grads = model._pairs_and_grads(
             params, pos[:, s], neg[:, s], tcfg, shared=True,
             check_ids=check_ids)
-        grads = {name: merge_lib.worker_mean(g) for name, g in grads.items()}
-        params = apply_gradients(params, grads, tcfg.learning_rate)
+        if cfg.merge_transport == "sparse":
+            params = _bgd_sparse_update_stacked(model, tcfg, params, grads,
+                                                pos[:, s], neg[:, s])
+        else:
+            grads = {name: merge_lib.worker_mean(g)
+                     for name, g in grads.items()}
+            params = apply_gradients(params, grads, tcfg.learning_rate)
         if tcfg.normalize == "step":
             params = model.normalize(params)
         losses.append(loss)
@@ -434,17 +621,26 @@ def bgd_epoch_vmap(
 
 def make_epoch_fn(
     cfg: MapReduceConfig, tcfg: KGConfig, model: Optional[KGModel] = None,
-    check_ids: bool = True,
+    check_ids: bool = True, *, with_overflow: bool = False,
 ) -> Callable:
     """``epoch_fn(params, pos, neg, priorities) -> (params, loss)`` for the
-    configured paradigm (BGD ignores ``priorities``); ``check_ids`` as in
+    configured paradigm (BGD ignores ``priorities``), or ``(params, loss,
+    overflow)`` with ``with_overflow`` (BGD's is a constant 0: its sparse
+    buffers are sized exactly from the batch); ``check_ids`` as in
     :func:`sgd_epoch_vmap`."""
     model = _resolve(cfg, model)
     if cfg.paradigm == "sgd":
         return lambda p, pos, neg, pri: sgd_epoch_vmap(
-            p, pos, neg, cfg, tcfg, pri, model, check_ids)
-    return lambda p, pos, neg, pri: bgd_epoch_vmap(
-        p, pos, neg, cfg, tcfg, model, check_ids)
+            p, pos, neg, cfg, tcfg, pri, model, check_ids,
+            with_overflow=with_overflow)
+
+    def bgd(p, pos, neg, pri):
+        out = bgd_epoch_vmap(p, pos, neg, cfg, tcfg, model, check_ids)
+        if with_overflow:
+            out += (torch.zeros((), dtype=torch.int64, device=pos.device),)
+        return out
+
+    return bgd
 
 
 # ---------------------------------------------------------------------------
@@ -514,10 +710,14 @@ def make_block_fn(
     donate: bool = False,
     strata: Optional[torch.Tensor] = None,
     draws: Optional[Callable[[int], DeviceDraws]] = None,
+    with_overflow: bool = False,
 ) -> Callable:
     """``block_fn(params, epoch_ids) -> (params, losses)``: the device
     pipeline's block of epochs (port of the reference's ``make_block_fn``,
-    ``vmap`` backend, dense Reduce).
+    ``vmap`` backend, either transport), or ``(params, losses, overflow)``
+    with ``with_overflow``: the block's worst sparse-transport capacity
+    excess, an int64 device scalar (a constant 0 under BGD and the dense
+    transport), which the caller reads at the block's end.
 
     ``epoch_ids`` are absolute epoch indices, host integers (a ``range``),
     as many as a multiple of ``schedule.merge_every``.  Every epoch's
@@ -534,7 +734,10 @@ def make_block_fn(
     SGD: each merge round broadcasts the shared params to W stacked
     copies; each worker runs K local epochs on its copy (``normalize=
     'epoch'`` at each epoch's start), the per-key stats summed over the K
-    epochs with ``mean_loss / K``; one Reduce ends the round.  BGD: one
+    epochs with ``mean_loss / K``; one Reduce ends the round.  On the
+    sparse transport the round input stays alive to its Reduce, which
+    rebuilds the rows a worker did not touch from it
+    (:func:`_merge_tables_sparse_stacked`).  BGD: one
     :func:`bgd_epoch_vmap` per epoch.
 
     ``schedule.repartition_every=M``: the partition in effect for the
@@ -544,7 +747,9 @@ def make_block_fn(
     (``train()`` slices blocks there).
 
     ``donate``: the block empties the params dict it is given and drops
-    its references as soon as it can (``MapReduceConfig.donate_params``).
+    its references as soon as it can (``MapReduceConfig.donate_params``;
+    on the sparse SGD transport the round input lives to the Reduce, so
+    donation frees nothing early there).
     ``draws(epoch)``, when given, returns that epoch's batches, negatives
     and (at a round's last epoch, ``random`` strategy) priorities as numpy
     arrays in place of the block's own (tests; a host copy per epoch)."""
@@ -554,6 +759,8 @@ def make_block_fn(
     E, dev = tcfg.n_entities, partitioned.device
     k_data, k_neg, k_merge, k_part = keys_lib.device_keys(seed)
     touch_losses = cfg.strategy == "miniloss_perkey"
+    sparse = cfg.merge_transport == "sparse"
+    n_steps = partitioned.shape[1] // B
     rows = {"ent": tcfg.n_entities, "rel": tcfg.n_relations}
     roles = model.param_roles()
     workers = torch.arange(W, device=dev)
@@ -595,25 +802,36 @@ def make_block_fn(
     def sgd_block(params: Params, epoch_ids: list) -> tuple:
         part = block_part(epoch_ids)
         losses = []
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
         for r0 in range(0, len(epoch_ids), K):
             eids = epoch_ids[r0:r0 + K]
             stacked = _broadcast(params, W)
-            params = None              # the round input, dead once copied
+            # the round input: the sparse Reduce rebuilds untouched rows
+            # from it; the dense one lets it go once copied
+            base = params if sparse else None
+            params = None
             acc = _zero_stats(tcfg, W, touch_losses, dev)
             for e in eids:
                 pos, neg, priorities = epoch_inputs(e, part)
                 stacked, stats = model.run_epoch(
-                    stacked, pos, neg, tcfg, touch_losses=touch_losses,
-                    check_ids=False)
+                    stacked, pos, neg, tcfg, sparse_apply=sparse,
+                    touch_losses=touch_losses, check_ids=False)
                 acc = _add_stats(acc, stats)
                 losses.append(merge_lib.worker_mean(stats.mean_loss))
             acc = dataclasses.replace(acc,
                                       mean_loss=exact_div(acc.mean_loss, K))
             if priorities is None:
                 priorities = own_priorities(eids[-1])
-            params = _merge_tables_stacked(model, cfg.strategy, stacked, acc,
-                                           priorities)
-        return params, torch.stack(losses)
+            if sparse:
+                params, o = _merge_tables_sparse_stacked(
+                    model, cfg, stacked, acc, priorities, base, tcfg,
+                    n_steps, K)
+                overflow = torch.maximum(overflow, o)
+                base = None
+            else:
+                params = _merge_tables_stacked(model, cfg.strategy, stacked,
+                                               acc, priorities)
+        return params, torch.stack(losses), overflow
 
     def bgd_block(params: Params, epoch_ids: list) -> tuple:
         part = block_part(epoch_ids)
@@ -623,7 +841,9 @@ def make_block_fn(
             params, loss = bgd_epoch_vmap(params, pos, neg, cfg, tcfg, model,
                                           check_ids=False)
             losses.append(loss)
-        return params, torch.stack(losses)
+        # BGD's sparse buffers are sized exactly from the batch: no overflow
+        return params, torch.stack(losses), torch.zeros(
+            (), dtype=torch.int64, device=dev)
 
     body = sgd_block if cfg.paradigm == "sgd" else bgd_block
 
@@ -634,14 +854,33 @@ def make_block_fn(
                 f"a block runs whole merge rounds: {len(epoch_ids)} epochs "
                 f"is not a positive multiple of merge_every={K}")
         if not donate:
-            return body(params, epoch_ids)
-        # the body's argument is then the only reference to the tables:
-        # this frame keeps none, so the body can drop them
-        given = [dict(params)]
-        params.clear()
-        return body(given.pop(), epoch_ids)
+            out = body(params, epoch_ids)
+        else:
+            # the body's argument is then the only reference to the
+            # tables: this frame keeps none, so the body can drop them
+            given = [dict(params)]
+            params.clear()
+            out = body(given.pop(), epoch_ids)
+        return out if with_overflow else out[:2]
 
     return block_fn
+
+
+def _raise_on_overflow(overflow, last_epoch: int) -> None:
+    """The host's check at a Reduce boundary: a positive sparse-transport
+    overflow means ``merge_lib.pack_delta`` dropped that many touched
+    rows' updates this round, so the merged tables are corrupt; stop
+    instead of training on.  Reads the device scalar (one host sync)."""
+    n = int(overflow)
+    if n > 0:
+        raise RuntimeError(
+            f"sparse-transport delta overflow at epoch {last_epoch}: a "
+            f"Reduce round touched {n} more rows than the packed buffer "
+            "capacity, so pack_delta dropped their updates and the merge "
+            "is corrupt.  The analytic touched_capacity bound makes this "
+            "impossible — an undersized MapReduceConfig.touched_capacity "
+            "override (or a bound regression) is the cause; raise the "
+            "override or pass None.")
 
 
 @dataclasses.dataclass
@@ -825,6 +1064,7 @@ def train(
         if cfg.strict_batching:
             raise ValueError(msg)
         warn_fresh(msg, stacklevel=2)
+    _check_touched_capacity(cfg, tcfg, model, n_w // cfg.batch_size)
 
     head_prob = None
     if tcfg.sampling == "bern":
@@ -880,8 +1120,11 @@ def train(
             strata=strata, draws=draws)
 
     # the ids are proved in range: the partition above, the own negatives
-    # by construction, injected ones as they come in
-    epoch_fn = make_epoch_fn(cfg, tcfg, model, check_ids=False)
+    # by construction, injected ones as they come in; a sparse SGD run's
+    # overflow is read at every Reduce (the loop reads the loss anyway)
+    with_overflow = cfg.paradigm == "sgd" and cfg.merge_transport == "sparse"
+    epoch_fn = make_epoch_fn(cfg, tcfg, model, check_ids=False,
+                             with_overflow=with_overflow)
     history = list(prior_history or [])
     epochs_run = epochs
     for epoch in range(start_epoch, epochs):
@@ -893,7 +1136,11 @@ def train(
                                          head_prob, seed, epoch)
         else:
             neg, priorities = _injected(draws(epoch), tcfg, device)
-        params, loss = epoch_fn(params, pos, neg, priorities)
+        if with_overflow:
+            params, loss, overflow = epoch_fn(params, pos, neg, priorities)
+            _raise_on_overflow(overflow, epoch)
+        else:
+            params, loss = epoch_fn(params, pos, neg, priorities)
         loss = float(loss)
         history.append(loss)
         if callback is not None:
@@ -952,13 +1199,14 @@ def _train_device(
             f"epochs={epochs} is not a multiple of "
             f"merge_every={sched.merge_every} — the trailing local epochs "
             "would never be Reduced into the shared params; pick a multiple")
+    with_overflow = cfg.paradigm == "sgd" and cfg.merge_transport == "sparse"
     block_fn = make_block_fn(
         cfg, tcfg, torch.as_tensor(partitioned, device=device), model=model,
         head_prob=head_prob, seed=seed,
         donate=cfg.donate_params is not False,
         strata=None if strata is None else torch.as_tensor(strata,
                                                            device=device),
-        draws=draws)
+        draws=draws, with_overflow=with_overflow)
 
     eval_every = eval_loop.eval_every if eval_loop is not None else None
     ckpt_every = writer.cfg.every if writer is not None else None
@@ -978,7 +1226,12 @@ def _train_device(
         for every in (eval_every, ckpt_every, repart):
             if every is not None:
                 length = min(length, every - start % every)
-        params, losses = block_fn(params, range(start, start + length))
+        if with_overflow:           # read once a block, never inside one
+            params, losses, overflow = block_fn(params,
+                                                range(start, start + length))
+            _raise_on_overflow(overflow, start + length - 1)
+        else:
+            params, losses = block_fn(params, range(start, start + length))
         loss_blocks.append(losses)
         start += length
         last = None

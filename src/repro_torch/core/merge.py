@@ -17,12 +17,50 @@ the worker with the smallest mean loss wins every key).
 Tables carry a leading worker axis, ``(W, N, k)``, with per-key stats
 ``counts`` / ``losses`` ``(W, N)`` and ``worker_loss`` ``(W,)``.  Sums over
 workers run in worker order (:func:`worker_sum`), so a merge gives the
-same bits on the CPU and the card.  The collective, sparse, sharded and
-stale merges are not ported yet (ROADMAP.md queue 1, items 11-12).
+same bits on the CPU and the card.
+
+Transport (``MapReduceConfig.merge_transport``)
+-----------------------------------------------
+
+``dense`` (the default) merges whole ``(W, N, k)`` tables.  ``sparse``
+merges compact per-worker *delta buffers* and gives the same bits:
+
+  * **pack** (:func:`pack_delta`): each worker gathers the rows its touch
+    stats mark updated (``count > 0``) into ``(C, k)`` values and ``(C,)``
+    counts and losses, with their sorted ``(C,)`` row ids.
+  * **capacity** (:func:`touched_capacity`): ``C`` is a static bound on
+    the rows a round touches, ``min(n_rows, f · batch_size ·
+    steps_per_epoch · merge_every)`` with ``f = 4`` for entity-role tables
+    (positive and corrupted heads and tails) and ``f = 1`` for
+    relation-role ones.  Unused slots hold the pad id ``n_rows`` (values
+    0), which every gather fills (:func:`take_fill`) and every scatter
+    drops (:func:`put_drop_`).  A round touching more than ``C`` rows
+    would lose the overflow's updates, so the engine counts touched rows
+    on the device (:func:`delta_overflow`) and the training drivers raise
+    on a positive count at the Reduce boundary.
+  * **merge** (:func:`merge_sparse_stacked`): only the union of the
+    workers' touched ids (:func:`sparse_candidates`) is merged.  A worker
+    that did not touch a candidate row holds its *virgin* value there —
+    the round-input row put through the model's ``normalize_rows`` once
+    per merged epoch (``normalize="epoch"``), once per merged step
+    (``"step"``) or never (``"none"``) — which is exactly its dense copy.
+    The dense formulas then run on the ``(W, U, k)`` candidate slices
+    (every one is per row, so the slices give the dense rows' bits), and
+    the merged rows are scattered into the untouched rows' merged value
+    (:func:`sparse_untouched_base`).
+
+Every sized set here has a static size and is built without a host sync:
+:func:`sized_unique` sorts, marks each run's first element, takes its
+slot from a cumulative sum and scatters into a buffer prefilled with the
+pad id, with one dump slot past the end for everything else.  So the
+device pipeline's blocks stay free of host syncs under either transport.
+
+The collective, sharded and stale merges are not ported yet (ROADMAP.md
+queue 1, item 12).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -145,3 +183,264 @@ def merge_stacked(
     if strategy == "miniloss_global":
         return merge_miniloss_global_stacked(stacked, worker_loss)
     raise ValueError(f"unknown strategy {strategy!r}; want one of {STRATEGIES}")
+
+
+# ---------------------------------------------------------------------------
+# Sparse delta transport (merge_transport="sparse") — see module docstring
+# ---------------------------------------------------------------------------
+
+def sized_unique(ids: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """The sorted distinct values of ``ids`` along its last axis, in a
+    buffer of static length ``size`` padded with ``fill`` (``jnp.unique(...,
+    size=, fill_value=)``, batched over leading axes), with no host sync:
+    sort, mark each run's first element, take its slot from a cumulative
+    sum, scatter into the prefilled buffer.  Elements past ``size``
+    distinct values and the repeats of a run all go to one dump slot past
+    the end, which is cut off."""
+    s = torch.sort(ids, dim=-1).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[..., 1:] = s[..., 1:] != s[..., :-1]
+    slot = torch.cumsum(first, -1) - 1
+    slot = torch.where(first & (slot < size), slot, size)
+    out = torch.full(ids.shape[:-1] + (size + 1,), fill, dtype=ids.dtype,
+                     device=ids.device)
+    return out.scatter_(-1, slot, s)[..., :size].contiguous()
+
+
+def take_fill(x: torch.Tensor, ids: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` gathered along ``dim`` at ``ids``, with zeros where an id is
+    ``x.shape[dim]`` or more (``jnp.take(..., mode="fill",
+    fill_value=0)``).  ``ids`` is one ``(U,)`` vector for every index of
+    the leading axes, or shaped ``x.shape[:dim] + (U,)``: each leading
+    index its own ids (a worker's rows of a stacked table)."""
+    n = x.shape[dim]
+    safe = ids.long().clamp(max=n - 1)
+    tail = (1,) * (x.dim() - dim - 1)
+    if ids.dim() == 1:
+        out = x.index_select(dim, safe)
+        valid = (ids < n).reshape((1,) * dim + ids.shape + tail)
+    else:
+        index = safe.reshape(safe.shape + tail).expand(
+            safe.shape + x.shape[dim + 1:])
+        out = x.gather(dim, index)
+        valid = (ids < n).reshape(ids.shape + tail)
+    return torch.where(valid, out, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+
+
+def put_drop_(x: torch.Tensor, ids: torch.Tensor,
+              rows: torch.Tensor) -> torch.Tensor:
+    """In place, ``x[ids[i]] = rows[i]`` for every id below ``n_rows =
+    x.shape[ids.dim() - 1]``; pad ids (``n_rows`` and up) write nothing
+    (``.at[ids].set(rows, mode="drop")``).  ``x`` is ``(N, k)`` with ids
+    ``(U,)``, or stacked ``(W, N, k)`` with each worker's ids ``(W, U)``;
+    the ids are distinct and sorted, pads last.
+
+    Without a host sync and deterministically: a pad is redirected to the
+    first id with the first id's row, so it repeats that write with the
+    same bytes (or, when every id is a pad, to row 0 with row 0's own
+    value).  Returns ``x``."""
+    n = x.shape[ids.dim() - 1]
+    head = ids[..., :1]
+    real = head < n
+    cur = x.narrow(ids.dim() - 1, 0, 1)
+    pad_id = torch.where(real, head, torch.zeros_like(head))
+    pad_row = torch.where(real[..., None], rows[..., :1, :], cur)
+    pad = ids >= n
+    tgt = torch.where(pad, pad_id, ids)
+    vals = torch.where(pad[..., None], pad_row, rows)
+    flat = x.view(-1, x.shape[-1])
+    if ids.dim() == 2:
+        tgt = tgt + torch.arange(ids.shape[0], device=ids.device)[:, None] * n
+    flat.index_copy_(0, tgt.reshape(-1).long(),
+                     vals.reshape(-1, x.shape[-1]))
+    return x
+
+
+def touched_capacity(
+    n_rows: int, batch_size: int, steps_per_epoch: int, merge_every: int,
+    role: str,
+) -> int:
+    """Static per-worker delta-buffer capacity for one Reduce round: one
+    SGD step touches at most ``4 * batch_size`` entity rows (positive and
+    corrupted heads and tails) and ``batch_size`` relation rows (a
+    corruption keeps the relation), so ``f·B·S·K`` bounds a round of K
+    local epochs of S steps; never more than the table."""
+    per_step = (4 if role == "ent" else 1) * batch_size
+    return int(min(n_rows, per_step * steps_per_epoch * merge_every))
+
+
+def pack_delta(
+    table: torch.Tensor, count: torch.Tensor, loss: Optional[torch.Tensor],
+    capacity: int, n_rows: int,
+) -> tuple:
+    """Each worker's padded delta buffer: the rows its touch stats mark
+    updated.  ``table`` ``(W, N, k)``, ``count`` / ``loss`` ``(W, N)``
+    (``loss`` may be ``None``: only ``miniloss_perkey`` reads it).
+    Returns ``(idx, vals, cnt, lss)``: ``idx`` ``(W, capacity)`` the
+    sorted touched row ids padded with ``n_rows``, the others their
+    ``(W, capacity, k)`` / ``(W, capacity)`` gathers, zero at pads.
+
+    A cumulative sum gives each touched row its slot and one scatter puts
+    the row ids there (untouched rows, and touched rows past
+    ``capacity``, into a dump slot past the end): one linear pass, the
+    same ascending ids as a sized ``nonzero`` without its host sync."""
+    mask = count > 0
+    slot = torch.cumsum(mask, -1) - 1
+    slot = torch.where(mask & (slot < capacity), slot, capacity)
+    rows = torch.arange(n_rows, device=count.device).expand(mask.shape)
+    idx = torch.full(mask.shape[:-1] + (capacity + 1,), n_rows,
+                     dtype=torch.int64, device=count.device)
+    idx = idx.scatter_(-1, slot, rows)[..., :capacity].contiguous()
+    d = idx.dim() - 1
+    return (idx, take_fill(table, idx, d), take_fill(count, idx, d),
+            None if loss is None else take_fill(loss, idx, d))
+
+
+def delta_overflow(count: torch.Tensor, capacity: int) -> torch.Tensor:
+    """How many touched rows :func:`pack_delta` would drop this round:
+    ``max(touched - capacity, 0)``, maxed over the worker axis, an int64
+    device scalar.  Zero under the analytic :func:`touched_capacity`
+    bound; the training drivers raise on a positive value."""
+    touched = (count > 0).sum(-1)
+    return torch.clamp_min(touched - capacity, 0).max()
+
+
+def sparse_candidates(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The union of every worker's touched row ids: ``idx`` is the stacked
+    ``(W, C)`` id vectors; returns the sorted distinct ids in a vector of
+    static size ``min(n_rows, W·C) + 1`` padded with ``n_rows`` (the +1
+    slot takes the pad id itself when a buffer is underfull)."""
+    W, C = idx.shape
+    return sized_unique(idx.reshape(-1), int(min(n_rows, W * C)) + 1,
+                        n_rows)
+
+
+def _found(idx: torch.Tensor, cand: torch.Tensor, n_rows: int) -> tuple:
+    """Per worker, where each candidate sits in its sorted ``idx`` (``(W,
+    C)``) and whether it is there: ``(pos (W, U), found (W, U))``."""
+    C = idx.shape[-1]
+    query = cand.expand(idx.shape[:-1] + cand.shape).contiguous()
+    pos = torch.searchsorted(idx, query.to(idx.dtype)).clamp(0, C - 1)
+    return pos, (idx.gather(-1, pos) == cand) & (cand < n_rows)
+
+
+def _at(vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``vals`` ``(W, C, k)`` gathered at ``pos`` ``(W, U)``."""
+    return vals.gather(-2, pos[..., None].expand(pos.shape + vals.shape[-1:]))
+
+
+def lookup_rows(
+    idx: torch.Tensor, vals: torch.Tensor, cand: torch.Tensor,
+    virgin: torch.Tensor, n_rows: int,
+) -> torch.Tensor:
+    """Each worker's rows at the candidate ids, ``(W, U, k)``: its packed
+    value where ``cand`` is in its sorted ``idx``, the shared ``virgin``
+    row ``(U, k)`` otherwise."""
+    pos, found = _found(idx, cand, n_rows)
+    return torch.where(found[..., None], _at(vals, pos), virgin)
+
+
+def lookup_delta(
+    idx: torch.Tensor, vals: torch.Tensor, cnt: torch.Tensor,
+    lss: Optional[torch.Tensor], cand: torch.Tensor, virgin: torch.Tensor,
+    n_rows: int,
+) -> tuple:
+    """Each worker's table slice and touch stats at the candidate rows,
+    ``(W, U, k)`` and ``(W, U)``: packed values where the worker touched
+    the row, the shared ``virgin`` value and zero count and loss (as the
+    dense stats hold) where it did not.  ``idx`` sorted, as
+    :func:`pack_delta` gives it; ``lss`` may be ``None``."""
+    pos, found = _found(idx, cand, n_rows)
+    zero = torch.zeros((), dtype=cnt.dtype, device=cnt.device)
+    val = torch.where(found[..., None], _at(vals, pos), virgin)
+    c = torch.where(found, cnt.gather(-1, pos), zero)
+    l = None if lss is None else torch.where(found, lss.gather(-1, pos),
+                                             zero)
+    return val, c, l
+
+
+def virgin_rows(rows: torch.Tensor, normalize_row_fn: Callable,
+                repeats: int) -> torch.Tensor:
+    """The value every worker's copy of a row it did *not* touch holds at
+    Reduce time: ``repeats`` chained applications of the model's row-local
+    projection to the round-input row (repeats = epochs merged for
+    ``normalize="epoch"``, steps merged for ``"step"``, 0 for
+    ``"none"``).  Each application is the projection's own operations on
+    the rows, so the chain gives the dense copies' bits."""
+    for _ in range(repeats):
+        rows = normalize_row_fn(rows)
+    return rows
+
+
+def sparse_untouched_base(strategy: str, local: torch.Tensor,
+                          W: int) -> torch.Tensor:
+    """The merged value of rows *no* worker touched, from one worker's
+    copy (all copies agree there).  A selection strategy picks one of the
+    identical copies: the copy itself.  The averaging strategies replay
+    the dense :func:`worker_mean` on W views of the copy, for every W: the
+    in-order sum ``((x + x) + x) + …`` divided by W is ``x`` for W = 1, 2
+    and 4, but not for 3, nor for 8 (about 47 % of float32 values come
+    back one ulp off), so only the replay gives the dense bits."""
+    if strategy not in ("average", "average_all"):
+        return local
+    return worker_mean(local.expand((W,) + local.shape))
+
+
+def merge_candidates(
+    strategy: str,
+    cand: torch.Tensor,                   # (U,) sorted ids, pads n_rows
+    svals: torch.Tensor,                  # (W, U, k) rows per worker
+    scnt: torch.Tensor,                   # (W, U)
+    sloss: Optional[torch.Tensor],        # (W, U)
+    worker_loss: torch.Tensor,            # (W,)
+    n_rows: int,
+    priorities: Optional[torch.Tensor] = None,   # (W, n_rows)
+) -> torch.Tensor:
+    """:func:`merge_stacked` on the candidate rows: the dense formulas run
+    on the ``(W, U, k)`` slices, and every one of them is per row (sums in
+    worker order, ``exact_div``, ``clamp_min``, argmax over the worker
+    axis), so the result is the dense output's candidate rows, bitwise.
+    ``random`` takes its full ``(W, n_rows)`` priorities and gathers the
+    candidate columns (zero at pads)."""
+    if priorities is not None:
+        priorities = take_fill(priorities, cand, 1)
+    return merge_stacked(strategy, svals, scnt, sloss, worker_loss,
+                         priorities)
+
+
+def apply_delta(base: torch.Tensor, cand: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """A copy of ``base`` with the merged candidate rows scattered in; pad
+    candidates (id ``n_rows``) drop out."""
+    return put_drop_(base.clone(), cand, rows)
+
+
+def merge_sparse_stacked(
+    strategy: str,
+    idx: torch.Tensor,                    # (W, C) packed row ids
+    vals: torch.Tensor,                   # (W, C, k)
+    cnts: torch.Tensor,                   # (W, C)
+    losses: Optional[torch.Tensor],       # (W, C)
+    worker_loss: torch.Tensor,            # (W,)
+    local: torch.Tensor,                  # (N, k) any one worker's table
+    base: torch.Tensor,                   # (N, k) the round-input table
+    normalize_row_fn: Callable,
+    repeats: int,
+    priorities: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Merge the W workers' packed delta buffers into the full table,
+    bit-identical to :func:`merge_stacked` on the dense copies.  ``local``
+    gives the untouched rows (any worker's copy: they agree there);
+    ``base``, ``normalize_row_fn`` and ``repeats`` rebuild what a
+    candidate row a worker did not touch evolved into
+    (:func:`virgin_rows`)."""
+    W = idx.shape[0]
+    n_rows = base.shape[0]
+    cand = sparse_candidates(idx, n_rows)
+    virgin = virgin_rows(take_fill(base, cand, 0), normalize_row_fn, repeats)
+    svals, scnt, sloss = lookup_delta(idx, vals, cnts, losses, cand, virgin,
+                                      n_rows)
+    rows = merge_candidates(strategy, cand, svals, scnt, sloss, worker_loss,
+                            n_rows, priorities)
+    return apply_delta(sparse_untouched_base(strategy, local, W), cand, rows)

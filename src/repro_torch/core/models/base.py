@@ -40,7 +40,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core import negative
+from repro_torch.core import merge, negative
 from repro_torch.util import (
     not_ported, ordered_index_add, pairwise_mean, pairwise_sum, sqrt_rn,
     worker_offsets)
@@ -648,6 +648,94 @@ class KGModel:
             params = self.normalize(params)
         return params, loss
 
+    def _compact_batch(
+        self, params: Params, pos: torch.Tensor, neg: torch.Tensor,
+        cfg: KGConfig
+    ) -> tuple:
+        """``(cand, compact, pos_c, neg_c)`` for one batch: per table role
+        the rows the batch references, distinct and sorted, in a buffer of
+        static size (``min(E, 4B)`` entity and ``min(R, 2B)`` relation
+        slots, padded with the out-of-range id ``n_rows``); the tables
+        gathered at them (zero at pads); the triplets remapped onto them.
+        With stacked ``(W, N, k)`` tables and ``(W, B, 3)`` batches every
+        worker has its own candidates, ``(W, U)``, and compact tables,
+        ``(W, U, k)``.  Under the joint objective the pool is the
+        negatives' corrupted heads or tails, which the entity candidates
+        hold.  The remap is a binary search in the sorted candidates:
+        monotonic and injective, so it keeps the order of every row's
+        contributions and every equality between ids."""
+        pos, neg = pos.long(), neg.long()
+        ent_ids = torch.cat([pos[..., 0], pos[..., 2], neg[..., 0],
+                             neg[..., 2]], dim=-1)
+        rel_ids = torch.cat([pos[..., 1], neg[..., 1]], dim=-1)
+        E, R = cfg.n_entities, cfg.n_relations
+        cand = {
+            "ent": merge.sized_unique(
+                ent_ids, int(min(E, ent_ids.shape[-1])), E),
+            "rel": merge.sized_unique(
+                rel_ids, int(min(R, rel_ids.shape[-1])), R),
+        }
+        roles = self.param_roles()
+        d = pos.dim() - 2                       # 1 for stacked tables
+        compact = {name: merge.take_fill(t, cand[roles[name]], d)
+                   for name, t in params.items()}
+
+        def remap(t):
+            return torch.stack([
+                torch.searchsorted(cand[role], t[..., col].contiguous())
+                for col, role in enumerate(("ent", "rel", "ent"))], dim=-1)
+
+        return cand, compact, remap(pos), remap(neg)
+
+    def _sparse_update_(
+        self, params: Params, pos: torch.Tensor, neg: torch.Tensor,
+        cfg: KGConfig, check_ids: bool = True
+    ) -> tuple:
+        """The compact SGD step written in place into ``params`` (tables
+        the caller owns): the objective and its gradient on the compact
+        tables of :meth:`_compact_batch`, ``compact - lr · grad``, and
+        those rows scattered back (pads dropped).  Returns ``(pair
+        losses, step loss)``; the projection of ``normalize="step"`` is
+        the caller's."""
+        cand, compact, pos_c, neg_c = self._compact_batch(params, pos, neg,
+                                                          cfg)
+        # the remap keeps id (in)equality, so the joint objective's sides,
+        # pool and gold masks are the same booleans on the compact ids
+        pair, loss, grads = self._pairs_and_grads(compact, pos_c, neg_c, cfg,
+                                                  check_ids=check_ids)
+        stepped = apply_gradients(compact, grads, cfg.learning_rate)
+        roles = self.param_roles()
+        for name in params:
+            merge.put_drop_(params[name], cand[roles[name]], stepped[name])
+        return pair, loss
+
+    def sgd_step_sparse(
+        self, params: Params, pos: torch.Tensor, neg: torch.Tensor,
+        cfg: KGConfig, update_mask: Optional[Params] = None
+    ) -> tuple:
+        """:meth:`sgd_step` touching only the rows the batch references —
+        the Map half of the sparse transport (``merge_transport=
+        "sparse"``): per step one gather and one scatter of the batch's
+        rows, and the objective, its gradient (for TransE the
+        ``transe_score`` kernels) and the update on compact ``(…, U, k)``
+        tables instead of the whole ``(…, N, k)`` ones.
+
+        The same bits as :meth:`sgd_step`: gathers compose, so the forward
+        computes the same floats; the gradient sums each row's
+        contributions in the same order (the remap is monotonic, and the
+        sums are in-order or sorted stably by row); and a row no id
+        references has a dense gradient of exactly ``+0.0``, where ``p -
+        lr · 0.0`` is ``p``, so leaving it out changes nothing.
+        ``update_mask`` (the online tier's masked fine-tune) is not ported
+        yet."""
+        if update_mask is not None:
+            raise not_ported("sgd_step_sparse(update_mask=...)", 14)
+        params = {name: p.clone() for name, p in params.items()}
+        _, loss = self._sparse_update_(params, pos, neg, cfg)
+        if cfg.normalize == "step":
+            params = self.normalize(params)
+        return params, loss
+
     def run_epoch(
         self,
         params: Params,
@@ -667,14 +755,19 @@ class KGModel:
         per-key loss sums out (``None``): only ``miniloss_perkey`` reads
         them, and they are the dearest part of the stats (and their
         in-order sums, ``util.ordered_index_add``, read a count back to the
-        host).  ``check_ids``: see :meth:`_pairs_and_grads`.  Returns
-        ``(params, EpochStats)``."""
-        if sparse_apply:
-            raise not_ported("run_epoch(sparse_apply=True)", 11)
+        host).  ``check_ids``: see :meth:`_pairs_and_grads`.
+        ``sparse_apply`` takes the compact step of :meth:`sgd_step_sparse`
+        in place of the dense one (same bits), writing the stepped rows in
+        place into copies of the tables the epoch owns; per worker for
+        stacked batches.  Returns ``(params, EpochStats)``."""
         if update_mask is not None:
             raise not_ported("run_epoch(update_mask=...)", 14)
+        given = params
         if cfg.normalize == "epoch":
             params = self.normalize(params)
+        if sparse_apply:
+            params = {name: p.clone() if p is given[name] else p
+                      for name, p in params.items()}
         stacked = pos_batches.dim() == 4
         W = pos_batches.shape[0] if stacked else 1
         E, R = cfg.n_entities, cfg.n_relations
@@ -686,9 +779,13 @@ class KGModel:
         for s in range(pos_batches.shape[-3]):
             pos = pos_batches[:, s] if stacked else pos_batches[s]
             neg = neg_batches[:, s] if stacked else neg_batches[s]
-            pair, loss, grads = self._pairs_and_grads(
-                params, pos, neg, cfg, check_ids=check_ids)
-            params = apply_gradients(params, grads, cfg.learning_rate)
+            if sparse_apply:
+                pair, loss = self._sparse_update_(params, pos, neg, cfg,
+                                                  check_ids)
+            else:
+                pair, loss, grads = self._pairs_and_grads(
+                    params, pos, neg, cfg, check_ids=check_ids)
+                params = apply_gradients(params, grads, cfg.learning_rate)
             if cfg.normalize == "step":
                 params = self.normalize(params)
             stats = _accumulate_touch(stats, pos, neg, pair, E, R)

@@ -21,6 +21,9 @@ local epochs between Reduces and ``repartition_every``); see
 ``repro_torch.core.mapreduce``.  ``fit(eval_every=K)`` traces quality
 against epochs from inside the loop, and ``fit(ckpt_dir=,
 checkpoint_every=, resume=True)`` checkpoints and resumes bit-identically.
+``fit(merge_transport="sparse")`` trains on compact tables of the rows a
+step references and Reduces packed deltas of the touched rows, with the
+dense transport's bits.
 """
 from __future__ import annotations
 
@@ -91,8 +94,21 @@ def make_configs(
     triplets across workers on the device every M epochs;
     ``donate_params`` (default on) lets each block drop the tables it was
     given early (``MapReduceConfig.donate_params``).  ``pipeline='host'``
-    (the default) runs one epoch at a time.  Options of the reference that
-    are not ported raise, naming their ROADMAP.md item."""
+    (the default) runs one epoch at a time.
+
+    ``merge_transport='sparse'`` makes every Reduce exchange only the rows
+    the round's touch stats mark updated (static-capacity padded delta
+    buffers) instead of whole tables, and every SGD step work on compact
+    tables of the rows its batch references — bit-identical results on
+    every strategy, paradigm and pipeline (see the transport section of
+    ``core/merge.py``); 'dense' (the default) is the reference.
+    ``touched_capacity`` overrides the analytic per-round touched-row
+    bound of the sparse delta buffers (rows per worker per Reduce); an
+    undersized override is rejected at config time and an overflow at run
+    time raises instead of silently dropping updates.
+    ``table_sharding='sharded'`` requires the sparse transport and is not
+    ported yet.  Options of the reference that are not ported raise,
+    naming their ROADMAP.md item."""
     model = get_model(model)
     if partitioner is not None:
         partition = partitioner
@@ -197,9 +213,13 @@ def fit(
     device pipeline ``eval_every`` and ``checkpoint_every`` must be
     multiples of ``merge_every``, as must ``epochs``.
 
-    Not ported yet, each raising and naming its ROADMAP.md item: the
-    sparse transport (item 11), ``mesh=``, ``backend='shard_map'``,
-    sharded tables and staleness (item 12)."""
+    ``merge_transport='sparse'`` and ``touched_capacity`` (see
+    :func:`make_configs`) give the dense transport's bits, so a checkpoint
+    of either transport resumes under the other.
+
+    Not ported yet, each raising and naming its ROADMAP.md item:
+    ``mesh=``, ``backend='shard_map'``, sharded tables and staleness
+    (item 12)."""
     if "mesh" in config_kw:
         raise not_ported("kg.fit(mesh=...) (the shard_map backend)", 12)
     device = resolve_device(device)

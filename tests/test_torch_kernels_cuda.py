@@ -412,3 +412,76 @@ def test_fit_trains_through_the_kernels(cuda, paradigm):
     for name in card.params:
         assert torch.equal(card.params[name], again.params[name])
     assert card.loss_history == again.loss_history
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", ["epoch", "step"])
+@pytest.mark.parametrize("model_name", ["transe", "transh", "distmult"])
+def test_compact_step_matches_dense_step_on_the_card(cuda, model_name,
+                                                     normalize):
+    """The sparse transport's compact SGD step gives the dense step's bits
+    on the card, for one table set and for stacked per-worker tables; for
+    TransE both go through the ``transe_score`` kernels, the compact step
+    on ``(W, 4B, k)`` / ``(W, 2B, k)`` tables."""
+    model = get_model(model_name)
+    E, R, B = 3000, 300, 64
+    kcfg = KGConfig(E, R, dim=32, learning_rate=0.05, normalize=normalize)
+    params = model.init_params(torch.Generator().manual_seed(1), kcfg,
+                               device=cuda)
+    stacked = {n: t.unsqueeze(0).repeat(4, 1, 1) + 0.01 * torch.arange(
+        4.0, device=cuda)[:, None, None] for n, t in params.items()}
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for p, lead in ((params, (B,)), (stacked, (4, B))):
+        pos, neg = (torch.stack([
+            torch.randint(0, n, lead, generator=g, device=cuda)
+            for n in (E, R, E)], dim=-1) for _ in range(2))
+        before = transe_score.transe_score.launches
+        dense_p, dense_l = model.sgd_step(p, pos, neg, kcfg)
+        sparse_p, sparse_l = model.sgd_step_sparse(p, pos, neg, kcfg)
+        torch.cuda.synchronize()
+        if model_name == "transe":
+            assert transe_score.transe_score.launches == before + 2
+        assert torch.equal(dense_l.view(torch.int32),
+                           sparse_l.view(torch.int32))
+        for name in dense_p:
+            assert torch.equal(dense_p[name].view(torch.int32),
+                               sparse_p[name].view(torch.int32)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paradigm,opts", [
+    ("sgd", dict(merge_every=2, repartition_every=2, block_epochs=2)),
+    ("sgd", dict(strategy="random", block_epochs=2)),
+    ("bgd", dict(block_epochs=2)),
+])
+def test_sparse_block_makes_no_host_sync(cuda, paradigm, opts):
+    """A sparse-transport block on the card makes no host sync, launches
+    both kernels once a step, and gives the dense block's bits; its
+    overflow is a device scalar, 0."""
+    graph = kg_data.synthetic_kg(0, n_entities=4000, n_relations=300,
+                                 n_triplets=5000)
+    part = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+        0, graph.train, 4), device=cuda)
+    out = {}
+    for transport in ("dense", "sparse"):
+        kcfg, mcfg = kg.make_configs(
+            graph, "transe", paradigm, dim=32, batch_size=128,
+            pipeline="device", merge_transport=transport, **opts)
+        init = get_model("transe").init_params(
+            torch.Generator().manual_seed(0), kcfg, device=cuda)
+        block_fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=3,
+                                           with_overflow=True)
+        before = (transe_score.transe_score.launches,
+                  transe_score.transe_score_bwd.launches)
+        with _NoHostSync():
+            out[transport] = block_fn(init, range(2))
+        steps = 2 * (part.shape[1] // 128)
+        assert (transe_score.transe_score.launches - before[0],
+                transe_score.transe_score_bwd.launches - before[1]) == (
+                    steps, steps)
+    (p_d, l_d, _), (p_s, l_s, ovf) = out["dense"], out["sparse"]
+    assert ovf.is_cuda and int(ovf) == 0
+    assert torch.equal(l_d, l_s)
+    for name in p_d:
+        assert torch.equal(p_d[name].view(torch.int32),
+                           p_s[name].view(torch.int32)), name

@@ -157,12 +157,12 @@ def test_epoch_draws_are_pure_in_seed_and_epoch():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(merge_transport="sparse"), 11),
-    (dict(touched_capacity=64), 11),
+    (dict(merge_transport="sparse", staleness=1), 12),
+    (dict(merge_transport="sparse", backend="shard_map"), 12),
     (dict(backend="shard_map"), 12),
-    (dict(table_sharding="sharded", merge_transport="dense"), 12),
+    (dict(table_sharding="sharded", merge_transport="sparse"), 12),
     (dict(staleness=1), 12),
-    (dict(negatives="joint", merge_transport="sparse"), 11),
+    (dict(negatives="joint", merge_transport="sparse", staleness=1), 12),
     (dict(mesh=object()), 12),
 ])
 def test_options_not_ported(graphs, option, item):

@@ -319,12 +319,19 @@ def test_batch_gradients_matches_reference(tables, norm):
 
 
 def test_run_epoch_options_not_ported(tables):
+    """``update_mask`` (item 14) raises on either step; ``sparse_apply``
+    (the compact step) is ported and gives the dense epoch's bits."""
     _, _, pm, pp = _models(tables)
     _, pcfg = _train_cfgs()
     pos, neg = (torch.tensor(a) for a in _batches((2,), 8, 6))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pm.run_epoch(pp, pos, neg, pcfg, sparse_apply=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        pm.run_epoch(pp, pos, neg, pcfg,
-                     update_mask={n: torch.ones(len(p), dtype=torch.bool)
-                                  for n, p in pp.items()})
+    mask = {n: torch.ones(len(p), dtype=torch.bool) for n, p in pp.items()}
+    for sparse in (False, True):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            pm.run_epoch(pp, pos, neg, pcfg, sparse_apply=sparse,
+                         update_mask=mask)
+    dense, dense_stats = pm.run_epoch(pp, pos, neg, pcfg)
+    sparse, sparse_stats = pm.run_epoch(pp, pos, neg, pcfg,
+                                        sparse_apply=True)
+    assert torch.equal(dense_stats.mean_loss, sparse_stats.mean_loss)
+    for name in dense:
+        assert torch.equal(dense[name], sparse[name])

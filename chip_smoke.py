@@ -176,6 +176,42 @@
    seconds per transport, the profile (launches a step, idle share,
    device→host copies a step) and peak memory.
 
+10. Bounded staleness and sharded tables (``stale_sharded_path``). (a)
+   At phase 3's width, SGD ``average`` on the device pipeline with a
+   Reduce every epoch, 6 epochs: the synchronous run, ``staleness=0``,
+   ``staleness=1`` in one block and in blocks of 2, ``staleness=2``, and
+   ``staleness=1`` on the sparse transport; one stale block per transport
+   under ``torch.cuda.set_sync_debug_mode("error")``; a stale block's and
+   a synchronous block's peak memory and profile.  (b)
+   ``benchmarks/bench_async.py``'s ``sync``, ``stale-1`` and ``stale-2``
+   cells at its own configuration (``synthetic_kg(1, 300, 10, 6000)``,
+   dim 64, L2, batch 270, 4 workers, lr 32, 32 epochs, ``eval_every=2``,
+   device pipeline): each cell's final filtered mean rank and whether it
+   lies within 1.3 times the sync cell's (the bench's band), and its
+   2-epoch block's ms; then 2 rounds of ``staleness=1`` on the CPU and on
+   the card, and the refresh phases drawn on both.  (c) Sharded tables
+   at phase 3's width, each run beside its replicated twin: SGD on the
+   sparse transport, host pipeline, 2 epochs, ``average`` and
+   ``random``; phase 6's device configuration on the sparse transport;
+   BGD sparse, 1 epoch; ``staleness=1`` sharded against (a)'s sparse
+   run.  Then on the sharded SGD artifact ``kg.evaluate(kb,
+   engine="device", table_sharding="sharded", n_workers=4)`` against the
+   replicated evaluation with ``fused=False`` and the fused one, sharded
+   filtered ``query_tails`` / ``query_heads`` of 1,024 pairs at k = 10
+   against the replicated engine, and the launches of an evaluation per
+   layout (profiled on two chunks).  (d) Phase 9 (c)'s 1e6-entity cell on
+   the sparse transport per layout (peak memory each), and its sharded
+   ``kg.evaluate`` against the replicated one, fused and plain.  All
+   three kernels' counters are zeroed just before and read just after.
+   Checks: ``staleness=0`` gives the synchronous bits and ``staleness=1``
+   does not; block sizes, transports, layouts, evaluations and answers
+   give equal bits; the CPU and the card give equal bits and phases; the
+   sync-checked blocks raise nothing and give the runs' first losses;
+   ``transe_score`` forward and backward launched once a step of every
+   TransE run on the card, ``rank_counts`` once a chunk side of every
+   evaluation that takes it (the sharded scan and ``fused=False`` take
+   none).
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -259,6 +295,19 @@ SPARSE_DEVICE = dict(DEVICE_SGD, merge_transport="sparse")
 SCALE_CELL = dict(n_entities=1_000_000, n_triplets=50_000, batch=4_096,
                   epochs=2, n_relations=100, n_eval=16, seed=5, dim=16,
                   learning_rate=0.05)
+# phase 10: bounded staleness at phase 3's width (SGD average on the
+# device pipeline, a Reduce every epoch), and benchmarks/bench_async.py's
+# sync / stale-1 / stale-2 cells at its own configuration (graph seed and
+# sizes, dim, norm, batch, workers, lr, epochs, eval_every, the 1.3 quality
+# band around the sync cell's final rank), its blocks timed as the bench
+# does (the median of rounds of calls, round-robin over the cells)
+STALE_EPOCHS = 6
+STALE_SGD = dict(strategy="average", pipeline="device", merge_every=1)
+ASYNC_CELL = dict(graph=(1, 300, 10, 6000), dim=64, norm="l2",
+                  batch_size=270, n_workers=4, learning_rate=32.0,
+                  epochs=32, eval_every=2, ref_band=1.3)
+ASYNC_STALENESS = (("sync", 0), ("stale-1", 1), ("stale-2", 2))
+ASYNC_REPEATS, ASYNC_ITERS = 3, 5
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
@@ -2315,6 +2364,378 @@ def sparse_transport_path(torch, graph):
     return info, launches
 
 
+def block_memory(torch, fn, state):
+    """``(before, peak)`` bytes of one call of ``fn(state)`` on the card:
+    memory allocated before it and the peak during it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(state)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return {"before_bytes": before, "peak_bytes": peak}
+
+
+def stale_state(params, W):
+    """A stale block's input state: the global view and W local copies."""
+    from repro_torch.core import mapreduce
+
+    return (dict(params), mapreduce._broadcast(params, W))
+
+
+def async_cells(torch, info):
+    """Phase 10 (b): benchmarks/bench_async.py's sync, stale-1 and stale-2
+    cells at its own configuration, each cell's trajectory (its final
+    filtered mean rank) and its steady-state 2-epoch block (ms, the median
+    of ASYNC_REPEATS rounds of ASYNC_ITERS calls, round-robin over the
+    cells); then 2 rounds of S = 1 on the CPU and on the card, and the
+    refresh phases drawn on both.  Returns the card epochs and evaluations
+    it ran."""
+    import numpy as np
+
+    from repro_torch import kg
+    from repro_torch.core import keys, mapreduce
+    from repro_torch.core.models import get_model
+    from repro_torch.data import kg as kg_data
+
+    c = ASYNC_CELL
+    graph = kg_data.synthetic_kg(*c["graph"])
+    fit_kw = dict(n_workers=c["n_workers"], batch_size=c["batch_size"],
+                  dim=c["dim"], norm=c["norm"],
+                  learning_rate=c["learning_rate"], pipeline="device")
+    steps = len(graph.train) // c["n_workers"] // c["batch_size"]
+    rows, blocks = {}, {}
+    for name, S in ASYNC_STALENESS:
+        res = kg.fit(graph, "transe", "sgd", epochs=c["epochs"],
+                     block_epochs=c["epochs"], seed=0, device=DEVICE,
+                     eval_every=c["eval_every"], staleness=S, **fit_kw)
+        rows[name] = {
+            "staleness": S,
+            "final_rank": res.trace.entries[-1].metrics[
+                "entity_filtered"]["mean_rank"],
+            "curve": [e.metrics["entity_filtered"]["mean_rank"]
+                      for e in res.trace.entries],
+            "loss_history": res.loss_history}
+        kcfg, mcfg = kg.make_configs(graph, "transe", "sgd", staleness=S,
+                                     block_epochs=c["eval_every"], **fit_kw)
+        part = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+            0, graph.train, c["n_workers"]), device=DEVICE)
+        init = get_model("transe").init_params(
+            torch.Generator().manual_seed(0), kcfg, device=DEVICE)
+        fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0)
+        state = stale_state(init, c["n_workers"]) if S else init
+        blocks[name] = (fn, state)
+        fn(state, range(c["eval_every"]))            # warm-up
+    samples = {name: [] for name in blocks}
+    for _ in range(ASYNC_REPEATS):
+        for name, (fn, state) in blocks.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ASYNC_ITERS):
+                fn(state, range(c["eval_every"]))
+            torch.cuda.synchronize()
+            samples[name].append((time.perf_counter() - t0) / ASYNC_ITERS)
+    target = rows["sync"]["final_rank"] * c["ref_band"]
+    for name, row in rows.items():
+        row["block_ms"] = float(np.median(samples[name])) * 1e3
+        row["block_ms_samples"] = [s * 1e3 for s in samples[name]]
+        row["in_band"] = row["final_rank"] <= target
+    # 2 rounds of S = 1 on the CPU and on the card, from the same init
+    kcfg, _ = kg.make_configs(graph, "transe", "sgd", staleness=1, **fit_kw)
+    init = get_model("transe").init_params(
+        torch.Generator().manual_seed(0), kcfg, device="cpu")
+    two = {dev: kg.fit(graph, "transe", "sgd", epochs=2, block_epochs=2,
+                       seed=0, device=dev, staleness=1,
+                       params={n: t.to(dev) for n, t in init.items()},
+                       **fit_kw)
+           for dev in ("cpu", DEVICE)}
+    k = keys.stale_key(0)
+    offsets = {S: [keys.stale_offsets(k, 4096, S, dev).cpu()
+                   for dev in ("cpu", DEVICE)] for S in (1, 2)}
+    info["async"] = {
+        "graph": {"train": len(graph.train), "test": len(graph.test)},
+        "steps_per_epoch": steps, "cells": rows, "ref_band": c["ref_band"],
+        "cpu_vs_card": {
+            "params_bitwise": all(bits_equal(two[DEVICE].params[n].cpu(),
+                                             two["cpu"].params[n])
+                                  for n in init),
+            "losses": [two[DEVICE].loss_history, two["cpu"].loss_history],
+            "losses_bitwise": (two[DEVICE].loss_history
+                               == two["cpu"].loss_history),
+            "offsets_bitwise": all(torch.equal(a, b)
+                                   for a, b in offsets.values())}}
+    n_blocks = 1 + ASYNC_REPEATS * ASYNC_ITERS
+    card_epochs = (len(ASYNC_STALENESS) * (c["epochs"]
+                                           + n_blocks * c["eval_every"])
+                   + 2)
+    n_evals = len(ASYNC_STALENESS) * (c["epochs"] // c["eval_every"])
+    return graph, steps * card_epochs, n_evals
+
+
+def stale_sharded_path(torch, graph):
+    """Bounded staleness and sharded tables (item 10 of the module
+    docstring).  Returns the path's info and its launches of each
+    kernel."""
+    import numpy as np
+
+    from repro_torch import kg
+    from repro_torch.core import eval_device, mapreduce
+    from repro_torch.core.models import get_model
+    from repro_torch.data import kg as kg_data
+    from repro_torch.kernels import rank_topk, transe_score as ts
+
+    info = {}
+    W = TRAIN["n_workers"]
+    steps = len(graph.train) // W // TRAIN["batch_size"]
+    base_kw = dict(seed=0, device=DEVICE, **TRAIN)
+    stale_kw = dict(base_kw, **STALE_SGD)
+    marks = {}
+
+    def timer(label):                   # loss is a float: synchronized
+        marks[label] = [time.perf_counter()]
+        return lambda epoch, loss: marks[label].append(time.perf_counter())
+
+    def stale_fit(label, S, blocks=STALE_EPOCHS, **kw):
+        return kg.fit(graph, "transe", "sgd", epochs=STALE_EPOCHS,
+                      block_epochs=blocks, staleness=S,
+                      callback=timer(label), **dict(stale_kw, **kw))
+
+    kcfg, _ = kg.make_configs(graph, "transe", "sgd", **TRAIN)
+    part = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+        0, graph.train, W), device=DEVICE)
+    init = get_model("transe").init_params(
+        torch.Generator().manual_seed(0), kcfg, device=DEVICE)
+    scale = random_kg(torch, SCALE_CELL["n_entities"],
+                      SCALE_CELL["n_triplets"], SCALE_CELL["n_relations"],
+                      SCALE_CELL["n_eval"], SCALE_CELL["seed"])
+    scale_kw = dict(seed=0, device=DEVICE, n_workers=W,
+                    batch_size=SCALE_CELL["batch"], dim=SCALE_CELL["dim"],
+                    learning_rate=SCALE_CELL["learning_rate"],
+                    strategy="average", pipeline="device",
+                    merge_transport="sparse",
+                    block_epochs=SCALE_CELL["epochs"])
+    scale_steps = len(scale.train) // W // SCALE_CELL["batch"]
+    eval_chunks = lambda g: 2 * eval_device._layout(
+        len(g.test), eval_device.DEFAULT_CHUNK)[0]
+    runs, secs = {}, {}
+    t_phase = time.perf_counter()
+    ts.transe_score.launches = 0         # --- stale and sharded path ---
+    ts.transe_score_bwd.launches = 0
+    rank_topk.rank_counts.launches = 0
+    # (a) staleness at FB15k width, beside the synchronous run
+    runs["sync"] = kg.fit(graph, "transe", "sgd", epochs=STALE_EPOCHS,
+                          block_epochs=STALE_EPOCHS, callback=timer("sync"),
+                          **stale_kw)
+    runs["s0"] = stale_fit("s0", 0)
+    runs["s1"] = stale_fit("s1", 1)
+    runs["s1_block2"] = stale_fit("s1_block2", 1, blocks=2)
+    runs["s2"] = stale_fit("s2", 2)
+    runs["s1_sparse"] = stale_fit("s1_sparse", 1, merge_transport="sparse")
+    card_epochs = 6 * STALE_EPOCHS
+    blocks = {}
+    for label, S, transport in (("sync", 0, "dense"), ("s1", 1, "dense"),
+                                ("s1_sparse", 1, "sparse")):
+        kc, mc = kg.make_configs(graph, "transe", "sgd", staleness=S,
+                                 merge_transport=transport, block_epochs=2,
+                                 **TRAIN, **STALE_SGD)
+        blocks[label] = (mapreduce.make_block_fn(
+            mc, kc, part, seed=0, with_overflow=True), S)
+    sync_checked = {}
+    for label in ("s1", "s1_sparse"):
+        fn, S = blocks[label]
+        state = stale_state(init, W)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, losses, overflow = fn(state, range(2))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync_checked[label] = {"losses": losses.tolist(),
+                               "overflow": int(overflow)}
+    state = None        # its locals would count in the blocks' peaks below
+    card_epochs += 2 * 2
+    peaks_b, profs = {}, {}
+    for label in ("sync", "s1"):
+        fn, S = blocks[label]
+        make = (lambda: stale_state(init, W)) if S else (lambda: dict(init))
+        peaks_b[label] = block_memory(
+            torch, lambda st: fn(st, range(2)), make())
+        state = make()
+        prof = profile_busy(torch, lambda: fn(state, range(2)))
+        state = None
+        prof.update(steps=2 * steps,
+                    launches_per_step=prof["launches"] / (2 * steps),
+                    dtoh_copies_per_step=prof["dtoh_copies"] / (2 * steps))
+        profs[label] = prof
+    card_epochs += 2 * 2 * 2
+    # (b) bench_async's cells at their own configuration
+    async_graph, async_launches, async_evals = async_cells(torch, info)
+    # (c) sharded tables at FB15k width, each beside its replicated twin
+    pairs = {}
+
+    def pair(label, *args, **kw):
+        pairs[label] = tuple(
+            kg.fit(graph, *args, table_sharding=t,
+                   callback=timer(f"{label}_{t}"), **kw)
+            for t in ("replicated", "sharded"))
+
+    for strategy in ("average", "random"):
+        pair(f"sgd_host_{strategy}", "transe", "sgd", epochs=2,
+             strategy=strategy, merge_transport="sparse", **base_kw)
+    pair("sgd_device", "transe", "sgd", epochs=4, block_epochs=4,
+         **dict(base_kw, **SPARSE_DEVICE))
+    pair("bgd_host", "transe", "bgd", epochs=1, merge_transport="sparse",
+         **base_kw)
+    runs["s1_sparse_sharded"] = stale_fit(
+        "s1_sparse_sharded", 1, merge_transport="sparse",
+        table_sharding="sharded")
+    card_epochs += 2 * (2 + 2 + 4 + 1) + STALE_EPOCHS
+    kb = pairs["sgd_host_average"][1].kb
+    evals = {}
+    for label, kw in (("sharded", dict(table_sharding="sharded",
+                                       n_workers=W)),
+                      ("replicated", dict(fused=False)),
+                      ("fused", {})):
+        evals[label], secs[f"evaluate_{label}"] = wall(
+            torch, lambda: kg.evaluate(kb, engine="device", **kw))
+    pairs_q = graph.test[:N_QUERY_PAIRS]
+    answers = {}
+    for label, kw in (("replicated", {}),
+                      ("sharded", dict(table_sharding="sharded",
+                                       n_workers=W))):
+        answers[label], secs[f"queries_{label}"] = wall(torch, lambda: (
+            kb.query_tails(pairs_q[:, 0], pairs_q[:, 1], k=10,
+                           filtered=True, **kw),
+            kb.query_heads(pairs_q[:, 2], pairs_q[:, 1], k=10,
+                           filtered=True, **kw)))
+    # (d) bench_scale's 1e6-entity cell, sparse, per layout
+    scale_runs = {}
+    for layout in ("replicated", "sharded"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, sec = wall(torch, lambda: kg.fit(
+            scale, "transe", "sgd", epochs=SCALE_CELL["epochs"],
+            table_sharding=layout, **scale_kw))
+        scale_runs[layout] = (res, sec, torch.cuda.max_memory_allocated())
+    scale_evals = {}
+    for label, kw in (("sharded", dict(table_sharding="sharded",
+                                       n_workers=W)),
+                      ("replicated", {}), ("replicated_plain",
+                                           dict(fused=False))):
+        scale_evals[label], secs[f"scale_evaluate_{label}"] = wall(
+            torch, lambda: kg.evaluate(scale_runs["sharded"][0].kb,
+                                       engine="device", **kw))
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+    info["runs_s"] = time.perf_counter() - t_phase
+    scale_epochs = 2 * SCALE_CELL["epochs"]
+    train_launches = (steps * card_epochs + async_launches
+                      + scale_steps * scale_epochs)
+    predicted = {"rank_counts": async_evals * eval_chunks(async_graph)
+                 + eval_chunks(graph) + eval_chunks(scale),
+                 "transe_score": train_launches,
+                 "transe_score_bwd": train_launches}
+    # the launches of one evaluation, per layout, measured on the first
+    # two chunks of the test split
+    sub = kg_data.KG(graph.n_entities, graph.n_relations, graph.train,
+                     graph.valid, graph.test[:2 * eval_device.DEFAULT_CHUNK])
+    eval_prof = {}
+    for label, kw in (("sharded", dict(table_sharding="sharded",
+                                       n_workers=W)),
+                      ("replicated", dict(fused=False))):
+        p = profile_busy(torch, lambda: eval_device.entity_ranks_device(
+            kb.params, sub.test, "l1", model="transe", **kw))
+        p["launches_per_chunk"] = p["launches"] / 2
+        p["launches_per_evaluation"] = (p["launches_per_chunk"]
+                                        * eval_chunks(graph) / 2)
+        p.pop("top")
+        eval_prof[label] = p
+
+    def per_epoch(label, epochs_per_block):
+        m = marks[label]
+        return [(t1 - t0) / epochs_per_block for t0, t1 in zip(m, m[1:])]
+
+    per_block = {"sync": STALE_EPOCHS, "s0": STALE_EPOCHS,
+                 "s1": STALE_EPOCHS, "s1_block2": 2, "s2": STALE_EPOCHS,
+                 "s1_sparse": STALE_EPOCHS,
+                 "s1_sparse_sharded": STALE_EPOCHS,
+                 "sgd_device_replicated": 2, "sgd_device_sharded": 2}
+    tables_bytes = sum(t.numel() * t.element_size() for t in init.values())
+    info.update(
+        steps_per_epoch=steps, launches=launches,
+        launches_predicted=predicted,
+        epoch_s={k: per_epoch(k, per_block.get(k, 1)) for k in marks},
+        sync_checked_blocks=sync_checked,
+        block_peak_memory={"tables_bytes": tables_bytes, **peaks_b},
+        block_profile=profs, evaluate_s=secs, evaluate_profile=eval_prof,
+        loss_history={k: v.loss_history for k, v in runs.items()},
+        scale={"steps_per_epoch": scale_steps,
+               "seconds": {t: r[1] for t, r in scale_runs.items()},
+               "peak_bytes": {t: r[2] for t, r in scale_runs.items()},
+               "metrics": scale_evals["sharded"]})
+    same_answer = lambda a, b: (np.array_equal(a.ids, b.ids) and
+                                np.array_equal(a.energies, b.energies))
+    info["bitwise"] = {
+        "s0_vs_sync": same_run(runs["s0"], runs["sync"]),
+        "s1_block6_vs_block2": same_run(runs["s1"], runs["s1_block2"]),
+        "s1_sparse_vs_dense": same_run(runs["s1_sparse"], runs["s1"]),
+        "s1_sync_checked_vs_fit": sync_checked["s1"]["losses"]
+        == runs["s1"].loss_history[:2],
+        "s1_sparse_sync_checked_vs_fit": sync_checked["s1_sparse"][
+            "losses"] == runs["s1"].loss_history[:2],
+        **{f"{k}_sharded_vs_replicated": same_run(*v)
+           for k, v in pairs.items()},
+        "s1_sparse_sharded_vs_replicated": same_run(
+            runs["s1_sparse_sharded"], runs["s1_sparse"]),
+        "evaluate_sharded_vs_replicated": evals["sharded"]
+        == evals["replicated"],
+        "evaluate_sharded_vs_fused_l1": evals["sharded"] == evals["fused"],
+        "query_tails_sharded": same_answer(answers["sharded"][0],
+                                           answers["replicated"][0]),
+        "query_heads_sharded": same_answer(answers["sharded"][1],
+                                           answers["replicated"][1]),
+        "scale_sharded_vs_replicated": same_run(
+            scale_runs["sharded"][0], scale_runs["replicated"][0]),
+        "scale_evaluate_sharded_vs_replicated": scale_evals["sharded"]
+        == scale_evals["replicated"] == scale_evals["replicated_plain"],
+        "async_cpu_vs_card": all(v for k, v in info["async"][
+            "cpu_vs_card"].items() if k != "losses")}
+    info["stale_differs_from_sync"] = not same_run(runs["s1"], runs["sync"])
+    info["phase_s"] = time.perf_counter() - t_phase
+    print("stale and sharded " + json.dumps(info), flush=True)
+
+    if not all(info["bitwise"].values()):
+        fail(f"stale or sharded runs that should agree gave other bits: "
+             f"{info['bitwise']}")
+    if not info["stale_differs_from_sync"]:
+        fail("the S = 1 run gave the synchronous run's bits")
+    if launches != predicted:
+        fail(f"launches {launches} on the stale and sharded path; the path "
+             f"predicts {predicted}")
+    for label, c in sync_checked.items():
+        if c["overflow"]:
+            fail(f"the sync-checked {label} block overflowed: {c}")
+    if profs["s1"]["dtoh_copies"] != 0:
+        fail(f"a stale block made {profs['s1']['dtoh_copies']} "
+             "device-to-host copies")
+    for label, res in list(runs.items()) + [
+            (f"{k}_sharded", v[1]) for k, v in pairs.items()]:
+        if not all(t.is_cuda for t in res.params.values()):
+            fail(f"{label}: a trained table is not on the card")
+        if not all(map(math.isfinite, res.loss_history)):
+            fail(f"{label}: non-finite loss {res.loss_history}")
+    for label in ("s1", "s2"):
+        hist = runs[label].loss_history
+        if not hist[-1] < hist[0]:
+            fail(f"the {label} loss did not fall: {hist}")
+    for label, a in zip(("tails", "heads"), answers["sharded"]):
+        check_topk(a, N_QUERY_PAIRS, 10, f"sharded {label}")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -2350,10 +2771,12 @@ def main():
     live_info, live_launches = serving_live_path(torch, sgd, bgd)
     family_info, family_launches = model_family_path(torch, graph)
     sparse_info, sparse_launches = sparse_transport_path(torch, graph)
+    stale_info, stale_launches = stale_sharded_path(torch, graph)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 init_metrics=init_metrics, eval_resume=resume_info,
                 device_pipeline=device_info, serving_live=live_info,
-                model_family=family_info, sparse_transport=sparse_info)
+                model_family=family_info, sparse_transport=sparse_info,
+                stale_sharded=stale_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -2376,7 +2799,8 @@ def main():
         "replaces": "src/repro/kernels/rank_topk.py:65",
         "launches": launches + phase_launches["rank_counts"]
         + device_launches["rank_counts"] + live_launches["rank_counts"]
-        + family_launches["rank_counts"] + sparse_launches["rank_counts"],
+        + family_launches["rank_counts"] + sparse_launches["rank_counts"]
+        + stale_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -2385,7 +2809,8 @@ def main():
                              "model_family":
                                  family_launches["rank_counts"],
                              "sparse_transport":
-                                 sparse_launches["rank_counts"]},
+                                 sparse_launches["rank_counts"],
+                             "stale_sharded": stale_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -2414,14 +2839,15 @@ def main():
             "replaces": replaces,
             "launches": n + phase_launches[kname] + device_launches[kname]
             + live_launches[kname] + family_launches[kname]
-            + sparse_launches[kname],
+            + sparse_launches[kname] + stale_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
                                  "serving_live": live_launches[kname],
                                  "model_family": family_launches[kname],
                                  "sparse_transport":
-                                     sparse_launches[kname]},
+                                     sparse_launches[kname],
+                                 "stale_sharded": stale_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -2446,7 +2872,7 @@ def main():
                       if k not in ("metrics", "init_metrics", "training",
                                    "eval_resume", "device_pipeline",
                                    "serving_live", "model_family",
-                                   "sparse_transport")}),
+                                   "sparse_transport", "stale_sharded")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,14 +12,17 @@ the paper's SGD and BGD paradigms with simulated workers and the dense
 or the sparse Reduce transport, ``merge_transport="sparse"``: compact
 steps and packed-delta Reduces with the dense bits; ``pipeline="device"``
 runs blocks of epochs drawn on the device, with ``merge_every`` local
-epochs between Reduces and ``repartition_every``), with
+epochs between Reduces, ``repartition_every`` and bounded staleness,
+``staleness``; ``table_sharding="sharded"`` routes each merged row to
+the shard that owns it), with
 in-training evaluation and early stopping (``eval_every``, ``patience``,
 ``keep_best``; ``core/trace.py``) and bit-identical checkpoint/resume
 (``ckpt_dir``, ``checkpoint_every``, ``resume``) in the reference's
 format; and the serving and evaluation path — ``KnowledgeBase`` save /
 load, top-k queries, the live serving tier (``serve.KGServer``: waves,
 power-of-two buckets, warm-up, the LRU answer cache, hot swap and
-tenants), and the paper's three-task evaluation.  The
+tenants), and the paper's three-task evaluation, over whole or sharded
+tables.  The
 reference's two Pallas kernels are hand-written CUDA kernels for Hopper:
 the entity-ranking sweep (``kernels/rank_topk.py``) and TransE's
 training step, forward and backward (``kernels/transe_score.py``).  What

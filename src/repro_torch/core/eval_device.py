@@ -22,8 +22,15 @@ uses, so ranks — and metrics — are identical to ``engine="host"``.  The
 fused path takes the gold distance in a second form and may differ where
 a candidate lies within an ulp of the gold.
 
-The reference's W-worker split of the query axis has no counterpart on
-one GPU; ``table_sharding="sharded"`` is not ported yet.
+``table_sharding="sharded"`` shards the *candidate* axis over
+``n_workers`` shards (:func:`_entity_ranks_sharded`): each shard scores
+only its block of entity rows (``candidate_slice_energies``), and the
+partial results combine exactly, so ranks are the replicated scan's,
+bitwise.  On one device the shards run one after another.  The
+reference's W-worker split of the query axis (``n_workers`` with
+replicated tables) changes no number and has no counterpart on one GPU:
+the port accepts ``n_workers`` and scans the queries whole.  The
+``shard_map`` backend is not ported (ROADMAP.md queue 1, item 12c).
 """
 from __future__ import annotations
 
@@ -33,7 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import eval as host_eval
+from repro_torch.core import merge as merge_lib
 from repro_torch.core.models import KGModel, Params, get_model
+from repro_torch.util import not_ported
 
 DEFAULT_CHUNK = 256
 
@@ -66,16 +75,52 @@ def _chunks(arr: np.ndarray, S: int, C: int, device) -> torch.Tensor:
         device=device)
 
 
-def _check_replicated(table_sharding: str) -> None:
-    if table_sharding == "sharded":
-        raise NotImplementedError(
-            "table_sharding='sharded' is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 12: multi-GPU backend and table "
-            "sharding)")
-    if table_sharding != "replicated":
+def check_layout(table_sharding: str, n_workers: int, backend: str,
+                 mesh) -> None:
+    """Validate an engine's layout keywords (the reference's names): a bad
+    ``table_sharding`` or ``backend`` raises ``ValueError``; the
+    ``shard_map`` backend and ``mesh`` raise, naming item 12c."""
+    if table_sharding not in ("replicated", "sharded"):
         raise ValueError(
             f"table_sharding must be 'replicated' or 'sharded', got "
             f"{table_sharding!r}")
+    if backend not in ("vmap", "shard_map"):
+        raise ValueError(f"bad backend {backend!r}")
+    if n_workers < 1:
+        raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+    if table_sharding == "sharded":
+        _check_sharded_mesh(backend, mesh, n_workers)
+    if backend == "shard_map":
+        raise not_ported("backend='shard_map'", "12c")
+    if mesh is not None:
+        raise not_ported("mesh=... (the shard_map backend)", "12c")
+
+
+def _pad_ent_tables(model: KGModel, params: Params, padded_E: int) -> Params:
+    """Every entity-role table zero-padded to ``padded_E`` rows, so the
+    shards' equal row blocks of the sharded scan tile it exactly.  Pad
+    rows never count: the rank and top-k scans mask candidates by ``id <
+    n_entities``."""
+    roles = model.param_roles()
+    out = dict(params)
+    for name, t in params.items():
+        if roles.get(name) == "ent" and t.shape[0] < padded_E:
+            out[name] = torch.cat([t, t.new_zeros(
+                (padded_E - t.shape[0],) + t.shape[1:])])
+    return out
+
+
+def _check_sharded_mesh(backend: str, mesh, n_shards: int) -> None:
+    """The sharded scan over ``shard_map`` puts row block ``i`` on mesh
+    position ``i``; the vmap backend simulates the shards on one device
+    and needs no mesh.  The shard_map form is item 12c."""
+    if backend != "shard_map":
+        return
+    if mesh is None:
+        raise ValueError("backend='shard_map' needs a mesh")
+    raise not_ported(
+        f"table_sharding='sharded' over shard_map ({n_shards} shards)",
+        "12c")
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +175,68 @@ def _relation_chunk(model: KGModel, params: Params, q: torch.Tensor,
     return (1 + (scores < gold).sum(dim=1)).int()
 
 
+# ---------------------------------------------------------------------------
+# Sharded tables: shard-local candidate scan + exact cross-shard combine
+# ---------------------------------------------------------------------------
+
+def _shard_slice_parts(model: KGModel, params: Params, q: torch.Tensor,
+                       side: str, norm: str, gold_ids: torch.Tensor,
+                       lo: int, n: int) -> tuple:
+    """One shard's ``(C, n)`` score slice over candidate rows ``[lo, lo +
+    n)`` and its part of the gold score: the owning shard reads it out of
+    its slice, every other shard gives +inf, so the min over shards is
+    the gold score of the full matrix, bitwise."""
+    s = model.candidate_slice_energies(params, q, side, norm, lo=lo, n=n)
+    off = gold_ids - lo
+    own = (off >= 0) & (off < n)
+    gp = s.gather(1, off.clamp(0, n - 1)[:, None])[:, 0]
+    return s, torch.where(own, gp, torch.inf)
+
+
+def _entity_ranks_sharded(
+    model: KGModel,
+    params: Params,          # entity-role tables padded to n_shards * R
+    chunk: torch.Tensor,     # (C, 3)
+    cands: torch.Tensor,     # (C, P) padded candidate ids (pad id = E)
+    side: str,
+    norm: str,
+    n_shards: int,
+    n_entities: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_entity_chunk` with the candidate axis sharded (the
+    reference's ``_entity_ranks_sharded``, vmap form): each of ``n_shards``
+    shards scores only its block of ``R = shard_rows(E, W)`` entity rows,
+    and the parts combine exactly —
+
+      * the gold score: the min over the shards' parts (the owner's value;
+        every other shard holds +inf), an operand returned bit-exactly;
+      * the raw rank: 1 + an *integer* sum of each shard's strictly-better
+        count, pad rows masked by ``id < E``;
+      * the filtered rank: each known candidate is owned by exactly one
+        shard, which checks it against the combined gold; counts summed
+        as integers.
+
+    So the ranks are the replicated scan's, bitwise."""
+    E, W = n_entities, n_shards
+    R = merge_lib.shard_rows(E, W)
+    gold_ids = chunk[:, 2] if side == "tail" else chunk[:, 0]
+    cols = torch.arange(R, device=chunk.device)
+    parts = [_shard_slice_parts(model, params, chunk, side, norm, gold_ids,
+                                s * R, R) for s in range(W)]
+    gold = torch.stack([gp for _, gp in parts]).amin(0)
+    raw = 1
+    better = 0
+    for s, (sc, _) in enumerate(parts):
+        lo = s * R
+        raw = raw + ((sc < gold[:, None]) & (lo + cols < E)[None, :]).sum(1)
+        off = cands - lo
+        inr = (off >= 0) & (off < R) & (cands < E)
+        cv = sc.gather(1, off.clamp(0, R - 1))
+        better = better + (inr & (cv < gold[:, None])
+                           & (cands != gold_ids[:, None])).sum(1)
+    return raw.int(), (raw - better).clamp(min=1).int()
+
+
 def entity_ranks_device(
     params: Params,
     test: np.ndarray,
@@ -138,6 +245,9 @@ def entity_ranks_device(
     *,
     model: "str | KGModel" = "transe",
     chunk: int = DEFAULT_CHUNK,
+    n_workers: int = 1,
+    backend: str = "vmap",
+    mesh=None,
     fused: Optional[bool] = None,
     relations: bool = False,
     table_sharding: str = "replicated",
@@ -148,10 +258,24 @@ def entity_ranks_device(
     (``filtered_ranks`` only with ``cand_masks``).  ``relations=True``
     also returns ``"relation_ranks"``, computed in the same pass.
     ``fused`` forces the rank kernel on or off (default: on for models
-    with a kernel and CUDA tables)."""
+    with a kernel and CUDA tables).
+
+    ``table_sharding="sharded"`` scans the candidate axis in
+    ``n_workers`` shards (:func:`_entity_ranks_sharded`), with the same
+    ranks bitwise; it takes no rank kernel (``fused=True`` raises, and
+    ``fused=None`` picks the plain scan), as in the reference, whose
+    kernel streams the whole table."""
     model = get_model(model)
-    _check_replicated(table_sharding)
-    fused = _resolve_fused(model, fused, params)
+    check_layout(table_sharding, n_workers, backend, mesh)
+    sharded = table_sharding == "sharded"
+    if sharded:
+        if fused:
+            raise ValueError(
+                "fused=True is incompatible with table_sharding='sharded' "
+                "(the rank kernel streams the full entity table)")
+        fused = False
+    else:
+        fused = _resolve_fused(model, fused, params)
     test = np.asarray(test, np.int32)
     Q = len(test)
     E = params["ent"].shape[0]
@@ -168,14 +292,21 @@ def entity_ranks_device(
     tc = _chunks(_pad_rows(np.asarray(tails, np.int32), Qp), S, C, dev)
     hc = _chunks(_pad_rows(np.asarray(heads, np.int32), Qp), S, C, dev)
 
+    if sharded:
+        scan = _pad_ent_tables(
+            model, params, n_workers * merge_lib.shard_rows(E, n_workers))
+        entity_chunk = lambda chunk, cands, side: _entity_ranks_sharded(
+            model, scan, chunk, cands, side, norm, n_workers, E)
+    else:
+        entity_chunk = lambda chunk, cands, side: _entity_chunk(
+            model, params, chunk, cands, side, norm, fused)
     outs = {name: [] for name in (
         "tail_raw", "tail_filtered", "head_raw", "head_filtered",
         "relation")}
     with torch.no_grad():
         for s in range(S):
             for side, cands in (("tail", tc[s]), ("head", hc[s])):
-                raw, filt = _entity_chunk(
-                    model, params, q[s], cands, side, norm, fused)
+                raw, filt = entity_chunk(q[s], cands, side)
                 outs[f"{side}_raw"].append(raw)
                 outs[f"{side}_filtered"].append(filt)
             if relations:
@@ -192,6 +323,36 @@ def entity_ranks_device(
             "tail": host("tail_filtered"), "head": host("head_filtered")}
     if relations:
         out["relation_ranks"] = host("relation")
+    return out
+
+
+def entity_inference_device(
+    params: Params,
+    test: np.ndarray,
+    norm: str = "l1",
+    cand_masks: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    *,
+    model: "str | KGModel" = "transe",
+    chunk: int = DEFAULT_CHUNK,
+    n_workers: int = 1,
+    backend: str = "vmap",
+    mesh=None,
+    fused: Optional[bool] = None,
+    table_sharding: str = "replicated",
+) -> Dict[str, "host_eval.RankMetrics"]:
+    """Device-engine entity inference: raw (and, with ``cand_masks``,
+    filtered) metrics identical to the host engine's."""
+    ranks = entity_ranks_device(
+        params, test, norm, cand_masks, model=model, chunk=chunk,
+        n_workers=n_workers, backend=backend, mesh=mesh, fused=fused,
+        table_sharding=table_sharding)
+    raw = ranks["raw_ranks"]
+    out = {"raw": host_eval._metrics_from_ranks(
+        np.concatenate([raw["tail"], raw["head"]]))}
+    if cand_masks is not None:
+        filt = ranks["filtered_ranks"]
+        out["filtered"] = host_eval._metrics_from_ranks(
+            np.concatenate([filt["tail"], filt["head"]]))
     return out
 
 
@@ -287,6 +448,9 @@ def evaluate_all_device(
     model: "str | KGModel" = "transe",
     *,
     chunk: int = DEFAULT_CHUNK,
+    n_workers: int = 1,
+    backend: str = "vmap",
+    mesh=None,
     fused: Optional[bool] = None,
     max_fanout: Optional[int] = None,
     table_sharding: str = "replicated",
@@ -296,11 +460,14 @@ def evaluate_all_device(
     over the test queries (``entity_ranks_device(relations=True)``).
     ``chunk`` queries are scored per step; ``fused`` forces the rank
     kernel on or off (default: auto); ``max_fanout`` caps the padded
-    filter-mask width (``KG.eval_filter_candidates``)."""
+    filter-mask width (``KG.eval_filter_candidates``);
+    ``table_sharding="sharded"`` scans the entity table in ``n_workers``
+    shards, with the same metrics bitwise (:func:`entity_ranks_device`)."""
     model = get_model(model)
     masks = kg.eval_filter_candidates(max_fanout) if filtered else None
     ranks = entity_ranks_device(
-        params, kg.test, norm, masks, model=model, chunk=chunk, fused=fused,
+        params, kg.test, norm, masks, model=model, chunk=chunk,
+        n_workers=n_workers, backend=backend, mesh=mesh, fused=fused,
         relations=True, table_sharding=table_sharding)
     raw = ranks["raw_ranks"]
     rp = host_eval._metrics_from_ranks(ranks["relation_ranks"])

@@ -38,6 +38,7 @@ M32 = 0xFFFFFFFF
 # (repro.core.mapreduce), copied
 DEVICE_STREAM_TAG = 0xD417A
 REPARTITION_TAG = 0x5917
+STALENESS_TAG = 0x57A1E
 # sub-streams of one key
 _DATA, _NEGATIVES, _MERGE = 0, 1, 2
 _KEY_SALT = 0x5BD1E995
@@ -70,14 +71,36 @@ def seed_key(seed: int) -> int:
     return fold_in(fold_in(0, seed & M32), (seed >> 32) & M32)
 
 
+def _root(seed: int) -> int:
+    return fold_in(seed_key(seed), DEVICE_STREAM_TAG)
+
+
 def device_keys(seed: int) -> tuple:
     """``(k_data, k_neg, k_merge, k_part)``: the device pipeline's per-
     purpose base keys.  Every per-epoch key is ``fold_in(base, epoch)``
     (per worker, ``fold_in`` of that with the worker), as in the
     reference's ``_device_keys``."""
-    root = fold_in(seed_key(seed), DEVICE_STREAM_TAG)
+    root = _root(seed)
     return (fold_in(root, _DATA), fold_in(root, _NEGATIVES),
             fold_in(root, _MERGE), fold_in(root, REPARTITION_TAG))
+
+
+def stale_key(seed: int) -> int:
+    """``k_stale``, the fifth key of the reference's ``_device_keys``: the
+    bounded-staleness refresh phases' stream, folded off the same root
+    with its own tag (:data:`STALENESS_TAG`), so the four keys of
+    :func:`device_keys` keep their bits."""
+    return fold_in(_root(seed), STALENESS_TAG)
+
+
+def stale_offsets(k_stale: int, n_workers: int, staleness: int,
+                  device=None) -> torch.Tensor:
+    """The bounded-staleness refresh phases ``o_w`` in ``[0, staleness]``,
+    ``(n_workers,)`` int64: worker ``w``'s is one :func:`randint` draw of
+    ``fold_in(k_stale, w)``, a pure function of (seed, w), as the
+    reference's ``_stale_offsets`` draws them."""
+    w = torch.arange(n_workers, dtype=torch.int64, device=device)
+    return randint(fold_in(k_stale, w), 1, 0, staleness + 1, device)[:, 0]
 
 
 def _counters(key: Key, n: int, device) -> tuple:

@@ -95,8 +95,26 @@ Two **Reduce transports**, selected by ``MapReduceConfig.merge_transport``
                  (:func:`_raise_on_overflow`), read once an epoch on the
                  host pipeline and once a block on the device pipeline.
 
+Two **table layouts**, selected by ``MapReduceConfig.table_sharding``
+(sparse transport only): ``replicated`` merges whole tables, ``sharded``
+routes each merged row to the shard that owns it (shard ``s`` owns rows
+``[s·R, (s+1)·R)``, ``R = ceil(N / W)``; ``core/merge.py``'s sharded
+section) and, under BGD, updates each shard's candidate rows apart.  On
+the ``vmap`` backend the W shards run one after another on one device;
+the result is the replicated layout's, bitwise.
+
+**Bounded staleness** (``MapReduceConfig.staleness=S > 0``, SGD on the
+device pipeline): each worker keeps its own local copy across rounds and
+adopts the global view only every ``S + 1`` rounds, at a phase ``o_w`` in
+``[0, S]`` drawn from (seed, w) (``core/keys.stale_offsets``), and always
+at round 0.  Its Reduce is participation-masked (``core/merge.py``'s
+stale section).  The block state is then ``(global_view,
+worker_locals)``; evaluation, callbacks and the result read the global
+view.  A stale run cannot checkpoint or resume (its state holds every
+worker's local tables); it reproduces by rerunning.
+
 Not ported yet, each raising and naming its ROADMAP.md item: the
-``shard_map`` backend, sharded tables and staleness (item 12).
+``shard_map`` backend and ``mesh=`` (item 12c).
 """
 from __future__ import annotations
 
@@ -267,7 +285,7 @@ class MapReduceConfig:
     paradigm: str = "sgd"           # 'sgd' | 'bgd'
     strategy: str = "average"       # merge_lib.STRATEGIES (sgd paradigm only)
     merge_transport: str = "dense"  # 'dense' | 'sparse' (module docstring)
-    backend: str = "vmap"           # 'vmap' ('shard_map' not ported yet)
+    backend: str = "vmap"           # 'vmap' ('shard_map': item 12c)
     batch_size: int = 256
     # host partitioner (data/kg.PARTITIONERS): 'balanced' | 'stratified' |
     # 'degree' | 'overlap'
@@ -285,7 +303,9 @@ class MapReduceConfig:
     # tensors are never written, so results are bit-identical on and off
     # and a caller's tensors stay valid.  None = on.
     donate_params: Optional[bool] = None
-    table_sharding: str = "replicated"   # 'sharded' not ported yet
+    # 'replicated' | 'sharded' (module docstring; needs the sparse
+    # transport)
+    table_sharding: str = "replicated"
     # sparse transport: static per-round delta-buffer capacity override
     # (touched rows per worker per table).  None = the analytic
     # merge_lib.touched_capacity bound.  An override below the bound would
@@ -293,6 +313,7 @@ class MapReduceConfig:
     # raises before any epoch runs; the runtime overflow check
     # (delta_overflow) is the second seatbelt.
     touched_capacity: Optional[int] = None
+    # bounded staleness S (module docstring): SGD on the device pipeline
     staleness: int = 0
 
     @property
@@ -348,12 +369,16 @@ class MapReduceConfig:
         if self.staleness < 0:
             raise ValueError(
                 f"staleness must be >= 0, got {self.staleness}")
+        if self.staleness > 0 and (
+            self.paradigm != "sgd" or self.pipeline != "device"
+        ):
+            raise ValueError(
+                "staleness > 0 is the bounded-staleness SGD Reduce on the "
+                "device pipeline (BGD's gradient Reduce has no local copies "
+                "to go stale; the host loop Reduces synchronously every "
+                "epoch) — set paradigm='sgd', pipeline='device'")
         if self.backend == "shard_map":
-            raise not_ported("backend='shard_map'", 12)
-        if self.table_sharding == "sharded":
-            raise not_ported("table_sharding='sharded'", 12)
-        if self.staleness > 0:
-            raise not_ported("staleness > 0", 12)
+            raise not_ported("backend='shard_map'", "12c")
         if self.pipeline == "host" and (
             self.schedule.block_epochs != 1
             or self.schedule.merge_every != 1
@@ -478,24 +503,90 @@ def _merge_tables_sparse_stacked(
     per-table excess of touched rows over the capacity, an int64 device
     scalar (0 under the analytic bound); the training drivers raise on a
     positive value, since ``pack_delta`` dropped that many rows' updates."""
-    roles = model.param_roles()
     m = _virgin_repeats(tcfg, n_steps, k_epochs)
     out = {}
+    overflow, packed = _pack_tables(model, cfg, stacked, stats, n_steps,
+                                    k_epochs)
+    for name, deltas in packed.items():
+        args = (cfg.strategy, *deltas, stats.mean_loss, stacked[name][0],
+                base[name],
+                lambda rows, name=name: model.normalize_rows(name, rows), m,
+                None if priorities is None else priorities[name])
+        if cfg.table_sharding == "sharded":
+            out[name] = merge_lib.merge_sparse_sharded_stacked(
+                *args, n_shards=cfg.n_workers)
+        else:
+            out[name] = merge_lib.merge_sparse_stacked(*args)
+    return out, overflow
+
+
+def _pack_tables(model: KGModel, cfg: MapReduceConfig, stacked: Params,
+                 stats: EpochStats, n_steps: int, k_epochs: int) -> tuple:
+    """``(overflow, {name: (idx, vals, cnt, lss)})``: every table's packed
+    per-worker delta buffers (:func:`merge_lib.pack_delta`), in sorted name
+    order, and the round's worst capacity excess over them."""
+    roles = model.param_roles()
     overflow = torch.zeros((), dtype=torch.int64,
                            device=stats.ent_count.device)
+    packed = {}
     for name in sorted(stacked):
         count, loss = _stats_for_role(stats, roles[name])
         n_rows = stacked[name].shape[1]
         cap = _delta_capacity(cfg, n_rows, n_steps, k_epochs, roles[name])
         overflow = torch.maximum(overflow,
                                  merge_lib.delta_overflow(count, cap))
-        idx, vals, cnt, lss = merge_lib.pack_delta(stacked[name], count,
-                                                   loss, cap, n_rows)
-        out[name] = merge_lib.merge_sparse_stacked(
-            cfg.strategy, idx, vals, cnt, lss, stats.mean_loss,
-            stacked[name][0], base[name],
-            lambda rows, name=name: model.normalize_rows(name, rows), m,
-            None if priorities is None else priorities[name])
+        packed[name] = merge_lib.pack_delta(stacked[name], count, loss, cap,
+                                            n_rows)
+    return overflow, packed
+
+
+def _merge_tables_stale_stacked(
+    model: KGModel, strategy: str, stacked: Params, stats: EpochStats,
+    priorities: Optional[Dict[str, torch.Tensor]], base: Params,
+) -> Params:
+    """The bounded-staleness Reduce of the stacked worker copies into the
+    global view ``base``, table by table in sorted name order, each
+    participation-masked (:func:`merge_lib.merge_stacked_stale`): per row
+    only this round's touchers take part, and rows nobody touched keep the
+    global view."""
+    roles = model.param_roles()
+    out = {}
+    for name in sorted(stacked):
+        count, loss = _stats_for_role(stats, roles[name])
+        out[name] = merge_lib.merge_stacked_stale(
+            strategy, stacked[name], count, loss, stats.mean_loss,
+            base[name], None if priorities is None else priorities[name])
+    return out
+
+
+def _merge_tables_stale_sparse(
+    model: KGModel,
+    cfg: MapReduceConfig,
+    stacked: Params,
+    stats: EpochStats,
+    priorities: Optional[Dict[str, torch.Tensor]],
+    base: Params,                # the global view being merged into
+    n_steps: int,
+    k_epochs: int,
+) -> tuple:
+    """The sparse-transport bounded-staleness Reduce: each worker's touched
+    rows packed, the candidate union stale-merged into the global view
+    (shard by shard under ``table_sharding="sharded"``) — bit-identical to
+    :func:`_merge_tables_stale_stacked`.  No virgin rows are rebuilt: a
+    worker that did not touch a row takes no part in it, so the transport
+    needs no shared round input.  Returns ``(params, overflow)`` as
+    :func:`_merge_tables_sparse_stacked` does."""
+    out = {}
+    overflow, packed = _pack_tables(model, cfg, stacked, stats, n_steps,
+                                    k_epochs)
+    for name, deltas in packed.items():
+        args = (cfg.strategy, *deltas, stats.mean_loss, base[name],
+                None if priorities is None else priorities[name])
+        if cfg.table_sharding == "sharded":
+            out[name] = merge_lib.merge_sparse_stale_sharded_stacked(
+                *args, n_shards=cfg.n_workers)
+        else:
+            out[name] = merge_lib.merge_sparse_stale(*args)
     return out, overflow
 
 
@@ -558,22 +649,35 @@ def _bgd_candidate_ids(pos_b: torch.Tensor, neg_b: torch.Tensor, role: str,
 
 
 def _bgd_sparse_update_stacked(
-    model: KGModel, tcfg: KGConfig, params: Params, grads: Params,
-    pos_b: torch.Tensor, neg_b: torch.Tensor,
+    model: KGModel, cfg: MapReduceConfig, tcfg: KGConfig, params: Params,
+    grads: Params, pos_b: torch.Tensor, neg_b: torch.Tensor,
 ) -> Params:
     """Sparse BGD Reduce: the workers' gradients are exactly ``+0.0`` at
     rows no batch references, so the gradient mean and the update
     restricted to the step's candidate rows give the dense update's bits
-    (``p - lr · 0.0`` is ``p``)."""
+    (``p - lr · 0.0`` is ``p``).  Under ``table_sharding="sharded"`` each
+    shard updates the candidates it owns (:func:`merge_lib.own_candidates`),
+    one shard after another: the mean and the update never mix rows, so
+    the result is the same bits."""
     roles = model.param_roles()
     out = {}
     for name, table in params.items():
-        cand = _bgd_candidate_ids(pos_b, neg_b, roles[name], table.shape[0])
-        gc = merge_lib.worker_mean(merge_lib.take_fill(grads[name], cand, 1))
-        pc = merge_lib.take_fill(table, cand, 0)
-        # apply_gradients' update on the candidate rows
-        out[name] = merge_lib.apply_delta(
-            table, cand, pc - tcfg.learning_rate * gc)
+        n_rows = table.shape[0]
+        cand = _bgd_candidate_ids(pos_b, neg_b, roles[name], n_rows)
+
+        def update(ids, table=table, grad=grads[name]):
+            gc = merge_lib.worker_mean(merge_lib.take_fill(grad, ids, 1))
+            pc = merge_lib.take_fill(table, ids, 0)
+            # apply_gradients' update on the candidate rows
+            return ids, pc - tcfg.learning_rate * gc
+
+        if cfg.table_sharding == "sharded":
+            R = merge_lib.shard_rows(n_rows, cfg.n_workers)
+            out[name] = merge_lib.scatter_blocks(table.clone(), [
+                update(merge_lib.own_candidates(cand, s * R, R, n_rows))
+                for s in range(cfg.n_workers)])
+        else:
+            out[name] = merge_lib.apply_delta(table, *update(cand))
     return out
 
 
@@ -600,8 +704,8 @@ def bgd_epoch_vmap(
             params, pos[:, s], neg[:, s], tcfg, shared=True,
             check_ids=check_ids)
         if cfg.merge_transport == "sparse":
-            params = _bgd_sparse_update_stacked(model, tcfg, params, grads,
-                                                pos[:, s], neg[:, s])
+            params = _bgd_sparse_update_stacked(
+                model, cfg, tcfg, params, grads, pos[:, s], neg[:, s])
         else:
             grads = {name: merge_lib.worker_mean(g)
                      for name, g in grads.items()}
@@ -711,6 +815,7 @@ def make_block_fn(
     strata: Optional[torch.Tensor] = None,
     draws: Optional[Callable[[int], DeviceDraws]] = None,
     with_overflow: bool = False,
+    stale_offsets=None,
 ) -> Callable:
     """``block_fn(params, epoch_ids) -> (params, losses)``: the device
     pipeline's block of epochs (port of the reference's ``make_block_fn``,
@@ -746,18 +851,38 @@ def make_block_fn(
     drawn once per call — so a block may not cross a round boundary
     (``train()`` slices blocks there).
 
+    Bounded staleness (``cfg.staleness=S > 0``, SGD): the block's state,
+    taken and returned in place of ``params``, is ``(global_view,
+    worker_locals)``, the locals stacked ``(W, N, k)``.  Each round worker
+    ``w`` adopts the global view when its absolute round ``r = e // K``
+    is 0 or ``(r + o_w) % (S + 1) == 0`` (``o_w`` from
+    ``keys.stale_offsets``; ``stale_offsets``, ``(W,)`` ints, replaces
+    them, for tests), and keeps its local copy otherwise; then K local
+    epochs, and one participation-masked Reduce into the global view
+    (:func:`_merge_tables_stale_stacked`, or
+    :func:`_merge_tables_stale_sparse`).  The gate reads the absolute
+    round, so block splits change no bit.
+
     ``donate``: the block empties the params dict it is given and drops
     its references as soon as it can (``MapReduceConfig.donate_params``;
     on the sparse SGD transport the round input lives to the Reduce, so
-    donation frees nothing early there).
+    donation frees nothing early there).  On the stale state it empties
+    both dicts: the input locals are freed once the first round has built
+    its copies from them, and the input global view at the first Reduce.
     ``draws(epoch)``, when given, returns that epoch's batches, negatives
     and (at a round's last epoch, ``random`` strategy) priorities as numpy
     arrays in place of the block's own (tests; a host copy per epoch)."""
     model = _resolve(cfg, model)
     W, B, K = cfg.n_workers, cfg.batch_size, cfg.schedule.merge_every
-    M = cfg.schedule.repartition_every
+    M, S = cfg.schedule.repartition_every, cfg.staleness
     E, dev = tcfg.n_entities, partitioned.device
     k_data, k_neg, k_merge, k_part = keys_lib.device_keys(seed)
+    if S > 0:
+        offsets = (keys_lib.stale_offsets(keys_lib.stale_key(seed), W, S,
+                                          dev)
+                   if stale_offsets is None else
+                   torch.as_tensor(np.asarray(stale_offsets, np.int64),
+                                   device=dev))
     touch_losses = cfg.strategy == "miniloss_perkey"
     sparse = cfg.merge_transport == "sparse"
     n_steps = partitioned.shape[1] // B
@@ -799,29 +924,35 @@ def make_block_fn(
                     rows[roles[name]], dev)
                 for i, name in enumerate(sorted(roles))}
 
+    def local_round(stacked: Params, eids: list, part: torch.Tensor,
+                    losses: list) -> tuple:
+        """K local epochs of all W workers from their copies ``stacked``:
+        ``(stacked, summed stats with mean_loss / K, priorities)``."""
+        acc = _zero_stats(tcfg, W, touch_losses, dev)
+        for e in eids:
+            pos, neg, priorities = epoch_inputs(e, part)
+            stacked, stats = model.run_epoch(
+                stacked, pos, neg, tcfg, sparse_apply=sparse,
+                touch_losses=touch_losses, check_ids=False)
+            acc = _add_stats(acc, stats)
+            losses.append(merge_lib.worker_mean(stats.mean_loss))
+        acc = dataclasses.replace(acc, mean_loss=exact_div(acc.mean_loss, K))
+        if priorities is None:
+            priorities = own_priorities(eids[-1])
+        return stacked, acc, priorities
+
     def sgd_block(params: Params, epoch_ids: list) -> tuple:
         part = block_part(epoch_ids)
         losses = []
         overflow = torch.zeros((), dtype=torch.int64, device=dev)
         for r0 in range(0, len(epoch_ids), K):
-            eids = epoch_ids[r0:r0 + K]
             stacked = _broadcast(params, W)
             # the round input: the sparse Reduce rebuilds untouched rows
             # from it; the dense one lets it go once copied
             base = params if sparse else None
             params = None
-            acc = _zero_stats(tcfg, W, touch_losses, dev)
-            for e in eids:
-                pos, neg, priorities = epoch_inputs(e, part)
-                stacked, stats = model.run_epoch(
-                    stacked, pos, neg, tcfg, sparse_apply=sparse,
-                    touch_losses=touch_losses, check_ids=False)
-                acc = _add_stats(acc, stats)
-                losses.append(merge_lib.worker_mean(stats.mean_loss))
-            acc = dataclasses.replace(acc,
-                                      mean_loss=exact_div(acc.mean_loss, K))
-            if priorities is None:
-                priorities = own_priorities(eids[-1])
+            stacked, acc, priorities = local_round(
+                stacked, epoch_ids[r0:r0 + K], part, losses)
             if sparse:
                 params, o = _merge_tables_sparse_stacked(
                     model, cfg, stacked, acc, priorities, base, tcfg,
@@ -832,6 +963,34 @@ def make_block_fn(
                 params = _merge_tables_stacked(model, cfg.strategy, stacked,
                                                acc, priorities)
         return params, torch.stack(losses), overflow
+
+    def sgd_block_stale(state: tuple, epoch_ids: list) -> tuple:
+        g, local = state
+        state = None        # under donation the locals die with `local`
+        part = block_part(epoch_ids)
+        losses = []
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        for r0 in range(0, len(epoch_ids), K):
+            eids = epoch_ids[r0:r0 + K]
+            r = eids[0] // K
+            gate = (offsets + r) % (S + 1) == 0
+            if r == 0:
+                gate = torch.ones_like(gate)
+            adopt = gate[:, None, None]
+            stacked = {name: torch.where(adopt, g[name], local[name])
+                       for name in sorted(g)}
+            local = None
+            stacked, acc, priorities = local_round(stacked, eids, part,
+                                                   losses)
+            if sparse:
+                g, o = _merge_tables_stale_sparse(
+                    model, cfg, stacked, acc, priorities, g, n_steps, K)
+                overflow = torch.maximum(overflow, o)
+            else:
+                g = _merge_tables_stale_stacked(model, cfg.strategy, stacked,
+                                                acc, priorities, g)
+            local = stacked
+        return (g, local), torch.stack(losses), overflow
 
     def bgd_block(params: Params, epoch_ids: list) -> tuple:
         part = block_part(epoch_ids)
@@ -845,25 +1004,33 @@ def make_block_fn(
         return params, torch.stack(losses), torch.zeros(
             (), dtype=torch.int64, device=dev)
 
-    body = sgd_block if cfg.paradigm == "sgd" else bgd_block
+    if cfg.paradigm == "bgd":
+        body = bgd_block
+    else:
+        body = sgd_block_stale if S > 0 else sgd_block
 
-    def block_fn(params: Params, epoch_ids) -> tuple:
+    def block_fn(params, epoch_ids) -> tuple:
         epoch_ids = list(epoch_ids)
         if not epoch_ids or len(epoch_ids) % K:
             raise ValueError(
                 f"a block runs whole merge rounds: {len(epoch_ids)} epochs "
                 f"is not a positive multiple of merge_every={K}")
-        if not donate:
-            out = body(params, epoch_ids)
-        else:
-            # the body's argument is then the only reference to the
-            # tables: this frame keeps none, so the body can drop them
-            given = [dict(params)]
-            params.clear()
-            out = body(given.pop(), epoch_ids)
+        # donated, the body's argument is the only reference to the
+        # tables: this frame keeps none, so the body can drop them
+        out = body(_take_state(params) if donate else params, epoch_ids)
         return out if with_overflow else out[:2]
 
     return block_fn
+
+
+def _take_state(state):
+    """A block's state (a params dict, or the stale ``(global_view,
+    worker_locals)`` pair of dicts) copied, the given dicts emptied."""
+    if isinstance(state, tuple):
+        return tuple(_take_state(d) for d in state)
+    taken = dict(state)
+    state.clear()
+    return taken
 
 
 def _raise_on_overflow(overflow, last_epoch: int) -> None:
@@ -971,6 +1138,7 @@ def train(
     start_epoch: int = 0,
     resume_fresh_init: bool = True,
     prior_history: Optional[list] = None,
+    stale_offsets=None,
 ) -> TrainResult:
     """Training driver: balanced partitioning, deterministic batches,
     negative sampling, Map/Reduce epochs, loss history.  With
@@ -1013,6 +1181,12 @@ def train(
     into later manifests, where the reference's resume needs it to replay
     its key chain.
 
+    Bounded staleness (``cfg.staleness > 0``) cannot checkpoint or resume
+    (it raises): the run's state holds every worker's local tables, which
+    a Reduce-boundary checkpoint does not.  ``stale_offsets`` (``(W,)``
+    ints in ``[0, staleness]``) replaces the run's own refresh phases, as
+    ``draws`` replaces its draws (tests).
+
     ``cfg.n_workers == 1`` reproduces single-thread Algorithm 1 (the
     paper's baseline) for the chosen model."""
     model = _resolve(cfg, model)
@@ -1034,6 +1208,22 @@ def train(
             f"checkpoint every={checkpoint.every} is not a multiple of "
             f"merge_every={cfg.schedule.merge_every} — checkpoints are "
             "shared-model states, which only exist at Reduce boundaries")
+    if cfg.staleness > 0 and (checkpoint is not None or start_epoch > 0):
+        raise ValueError(
+            f"staleness={cfg.staleness} cannot checkpoint or resume — the "
+            "run state includes every worker's stale local tables, which "
+            "the Reduce-boundary manifest does not capture; bounded-"
+            "staleness runs reproduce by full rerun instead (all their "
+            "randomness is a fold_in-pure function of (seed, round, "
+            "worker))")
+    if stale_offsets is not None:
+        offs = np.asarray(stale_offsets)
+        if cfg.staleness == 0 or offs.shape != (cfg.n_workers,) or (
+                offs.min() < 0 or offs.max() > cfg.staleness):
+            raise ValueError(
+                f"stale_offsets must be {cfg.n_workers} ints in "
+                f"[0, staleness] of a staleness > 0 run; got {offs!r} "
+                f"with staleness={cfg.staleness}")
     partitioned = kg_lib.PARTITIONERS[cfg.partition](
         seed, kg.train, cfg.n_workers)
     _check_ids(partitioned, tcfg, "the training split")
@@ -1117,7 +1307,7 @@ def train(
             epochs=epochs, seed=seed, device=device, callback=callback,
             recorder=recorder, eval_loop=eval_loop, writer=writer,
             start_epoch=start_epoch, prior_history=prior_history,
-            strata=strata, draws=draws)
+            strata=strata, draws=draws, stale_offsets=stale_offsets)
 
     # the ids are proved in range: the partition above, the own negatives
     # by construction, injected ones as they come in; a sparse SGD run's
@@ -1182,6 +1372,7 @@ def _train_device(
     prior_history: Optional[list],
     strata: Optional[np.ndarray],
     draws: Optional[Callable[[int], DeviceDraws]],
+    stale_offsets=None,
 ) -> TrainResult:
     """Device-pipeline driver: put the partition (and the degree strata)
     on the device once, then run epochs in blocks (:func:`make_block_fn`).
@@ -1192,7 +1383,11 @@ def _train_device(
     needs them: the callback and an evaluation read the last one, a
     checkpoint and the result the history.  A resume starts the epoch ids
     at ``start_epoch``; every draw is a pure function of (seed, epoch), so
-    nothing is replayed."""
+    nothing is replayed.  Under bounded staleness the blocks thread
+    ``(global_view, worker_locals)``, the locals starting as W copies of
+    the initial tables (round 0 refreshes every worker anyway) and
+    surviving every block boundary; evaluation, the callback and the
+    result read the global view."""
     sched = cfg.schedule
     if epochs % sched.merge_every != 0:
         raise ValueError(
@@ -1206,7 +1401,10 @@ def _train_device(
         donate=cfg.donate_params is not False,
         strata=None if strata is None else torch.as_tensor(strata,
                                                            device=device),
-        draws=draws, with_overflow=with_overflow)
+        draws=draws, with_overflow=with_overflow,
+        stale_offsets=stale_offsets)
+    stale = cfg.staleness > 0
+    state = (params, _broadcast(params, cfg.n_workers)) if stale else params
 
     eval_every = eval_loop.eval_every if eval_loop is not None else None
     ckpt_every = writer.cfg.every if writer is not None else None
@@ -1227,11 +1425,12 @@ def _train_device(
             if every is not None:
                 length = min(length, every - start % every)
         if with_overflow:           # read once a block, never inside one
-            params, losses, overflow = block_fn(params,
-                                                range(start, start + length))
+            state, losses, overflow = block_fn(state,
+                                               range(start, start + length))
             _raise_on_overflow(overflow, start + length - 1)
         else:
-            params, losses = block_fn(params, range(start, start + length))
+            state, losses = block_fn(state, range(start, start + length))
+        params = state[0] if stale else state
         loss_blocks.append(losses)
         start += length
         last = None

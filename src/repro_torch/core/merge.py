@@ -55,8 +55,31 @@ slot from a cumulative sum and scatters into a buffer prefilled with the
 pad id, with one dump slot past the end for everything else.  So the
 device pipeline's blocks stay free of host syncs under either transport.
 
-The collective, sharded and stale merges are not ported yet (ROADMAP.md
-queue 1, item 12).
+Sharded tables (``table_sharding="sharded"``)
+---------------------------------------------
+
+Shard ``s`` owns rows ``[s·R, min((s+1)·R, N))``, ``R = shard_rows(N,
+W)``.  The sparse Reduce splits the candidate union into the shards'
+blocks (:func:`own_candidates`) and merges each block on its own
+(:func:`merge_sparse_sharded_stacked`); every strategy's math is per row,
+so the blocks reassemble the replicated merge bitwise.  On one device the
+W shards run one after another, each holding one block's transient
+buffers.
+
+Bounded staleness (``MapReduceConfig.staleness > 0``)
+-----------------------------------------------------
+
+Workers then start a round from their own stale copies, not from one
+shared round input, so the stale merges are *participation-masked*
+(:func:`merge_candidates_stale`): per row only the workers that touched
+it this round take part, under every strategy, and a row nobody touched
+keeps the global view exactly (it is not re-normalized).  The dense
+(:func:`merge_stacked_stale`), sparse (:func:`merge_sparse_stale`) and
+sharded sparse (:func:`merge_sparse_stale_sharded_stacked`) forms give
+the same bits.
+
+The collective merges of the multi-device backend are not ported yet
+(ROADMAP.md queue 1, item 12c).
 """
 from __future__ import annotations
 
@@ -444,3 +467,224 @@ def merge_sparse_stacked(
     rows = merge_candidates(strategy, cand, svals, scnt, sloss, worker_loss,
                             n_rows, priorities)
     return apply_delta(sparse_untouched_base(strategy, local, W), cand, rows)
+
+
+# ---------------------------------------------------------------------------
+# Sharded tables: shard-routed merge (table_sharding="sharded")
+# ---------------------------------------------------------------------------
+
+def shard_rows(n_rows: int, n_shards: int) -> int:
+    """The row-block size of a shard: shard ``s`` owns rows ``[s·R,
+    min((s+1)·R, n_rows))`` with ``R = ceil(n_rows / n_shards)``.  Every
+    table is cut by this rule, so a row's owner is a pure function of its
+    id."""
+    return -(-n_rows // n_shards)
+
+
+def own_candidates(cand: torch.Tensor, lo: int, block: int,
+                   n_rows: int) -> torch.Tensor:
+    """One shard's slice of the candidate union: the (still sorted) ids in
+    ``[lo, lo + block)``, compacted into a static ``min(block, U-1) + 1``
+    buffer padded with ``n_rows``, by a cumulative sum and a scatter (no
+    host sync).  A shard owns at most ``block`` real rows and ``cand``
+    holds at most ``U - 1`` real ids, so the buffer never overflows."""
+    U = cand.shape[0]
+    cap = int(min(block, U - 1)) + 1
+    mask = (cand >= lo) & (cand < lo + block) & (cand < n_rows)
+    slot = torch.where(mask, torch.cumsum(mask, 0) - 1, cap)
+    out = torch.full((cap + 1,), n_rows, dtype=cand.dtype,
+                     device=cand.device)
+    return out.scatter_(0, slot, cand)[:cap].contiguous()
+
+
+def _merge_own_block(
+    strategy, idx, vals, cnts, losses, worker_loss, base, normalize_row_fn,
+    repeats, lo, block, cand, priorities,
+) -> tuple:
+    """``(own, rows)``: the candidates shard ``[lo, lo + block)`` owns and
+    their merged rows, each computed exactly as
+    :func:`merge_sparse_stacked` computes that row (``random`` gathers the
+    owned columns of the same full priorities)."""
+    n_rows = base.shape[0]
+    own = own_candidates(cand, lo, block, n_rows)
+    virgin = virgin_rows(take_fill(base, own, 0), normalize_row_fn, repeats)
+    svals, scnt, sloss = lookup_delta(idx, vals, cnts, losses, own, virgin,
+                                      n_rows)
+    return own, merge_candidates(strategy, own, svals, scnt, sloss,
+                                 worker_loss, n_rows, priorities)
+
+
+def scatter_blocks(out: torch.Tensor, blocks: list) -> torch.Tensor:
+    """``out`` with every shard's ``(own, rows)`` scattered in, pads
+    dropped, in one :func:`put_drop_`: the owned id sets are disjoint, and
+    a pad rewrites the first id with its own row (or row 0 with itself
+    when shard 0 owns nothing, since then no shard owns row 0)."""
+    owns = torch.cat([own for own, _ in blocks])
+    rows = torch.cat([r for _, r in blocks])
+    return put_drop_(out, owns, rows)
+
+
+def merge_sparse_sharded_stacked(
+    strategy: str,
+    idx: torch.Tensor,                    # (W, C) packed row ids
+    vals: torch.Tensor,                   # (W, C, k)
+    cnts: torch.Tensor,                   # (W, C)
+    losses: Optional[torch.Tensor],       # (W, C)
+    worker_loss: torch.Tensor,            # (W,)
+    local: torch.Tensor,                  # (N, k) any one worker's table
+    base: torch.Tensor,                   # (N, k) the round-input table
+    normalize_row_fn: Callable,
+    repeats: int,
+    priorities: Optional[torch.Tensor] = None,
+    *,
+    n_shards: int,
+) -> torch.Tensor:
+    """Shard-routed :func:`merge_sparse_stacked`: the candidate union is
+    cut into ``n_shards`` contiguous row blocks and each block is merged
+    on its own, one shard after another — bit-identical to the monolithic
+    merge, since the blocks partition the union and every strategy is per
+    row."""
+    W = idx.shape[0]
+    n_rows = base.shape[0]
+    R = shard_rows(n_rows, n_shards)
+    cand = sparse_candidates(idx, n_rows)
+    blocks = [_merge_own_block(strategy, idx, vals, cnts, losses,
+                               worker_loss, base, normalize_row_fn, repeats,
+                               s * R, R, cand, priorities)
+              for s in range(n_shards)]
+    return scatter_blocks(
+        sparse_untouched_base(strategy, local, W).clone(), blocks)
+
+
+# ---------------------------------------------------------------------------
+# Bounded staleness: participation-masked merges (staleness > 0)
+# ---------------------------------------------------------------------------
+
+def merge_candidates_stale(
+    strategy: str,
+    cand: torch.Tensor,                   # (U,) sorted ids, pads n_rows
+    svals: torch.Tensor,                  # (W, U, k) worker rows
+    scnt: torch.Tensor,                   # (W, U) this-round touch counts
+    sloss: Optional[torch.Tensor],        # (W, U)
+    worker_loss: torch.Tensor,            # (W,)
+    bcand: torch.Tensor,                  # (U, k) the global view there
+    n_rows: int,
+    priorities: Optional[torch.Tensor] = None,   # (W, n_rows)
+) -> torch.Tensor:
+    """The bounded-staleness Reduce of the candidate rows: per row only
+    the workers whose round touched it take part (a non-toucher holds an
+    arbitrary stale value, not a shared round input), under every
+    strategy, and a row nobody touched keeps the global view ``bcand``
+    exactly.  ``average_all`` averages the touchers; ``random`` gives
+    non-touchers priority ``-1e30``; ``miniloss_global`` lets the best
+    *toucher* of each row win.  Per row over the worker axis (sums in
+    worker order), so the dense and the packed forms give the same
+    bits."""
+    touched = scnt > 0
+    any_touch = touched.any(0)                                  # (U,)
+    if strategy in ("average", "average_all"):
+        w = (scnt if strategy == "average"
+             else touched.to(svals.dtype))[..., None]
+        merged = worker_sum(svals * w) / torch.clamp_min(worker_sum(w), 1.0)
+    elif strategy == "random":
+        if priorities is None:
+            raise ValueError("'random' strategy needs priorities")
+        u = take_fill(priorities, cand, 1)
+        merged = _select_by_priority_stacked(
+            svals, torch.where(touched, u, -_BIG))
+    elif strategy == "miniloss_perkey":
+        if sloss is None:
+            raise ValueError("'miniloss_perkey' strategy needs losses")
+        mean_loss = torch.where(touched, sloss / torch.clamp_min(scnt, 1.0),
+                                _BIG)
+        merged = _select_by_priority_stacked(svals, -mean_loss)
+    elif strategy == "miniloss_global":
+        merged = _select_by_priority_stacked(
+            svals, torch.where(touched, -worker_loss[:, None], -_BIG))
+    else:
+        raise ValueError(
+            f"unknown strategy {strategy!r}; want one of {STRATEGIES}")
+    return torch.where(any_touch[:, None], merged, bcand)
+
+
+def merge_stacked_stale(
+    strategy: str,
+    stacked: torch.Tensor,                # (W, N, k) copies after the round
+    counts: torch.Tensor,                 # (W, N) this-round touch counts
+    losses: Optional[torch.Tensor],       # (W, N)
+    worker_loss: torch.Tensor,            # (W,)
+    base: torch.Tensor,                   # (N, k) the global view
+    priorities: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The dense bounded-staleness Reduce: :func:`merge_candidates_stale`
+    over every row of the table."""
+    N = counts.shape[1]
+    cand = torch.arange(N, device=counts.device)
+    return merge_candidates_stale(strategy, cand, stacked, counts, losses,
+                                  worker_loss, base, N, priorities)
+
+
+def _stale_block(strategy, idx, vals, cnts, losses, worker_loss, base,
+                 cand, priorities) -> torch.Tensor:
+    """The stale merge of the rows ``cand``: no virgin rows are rebuilt,
+    because a worker that did not touch a row has count 0 there and takes
+    no part (its zero placeholder never counts)."""
+    n_rows = base.shape[0]
+    placeholder = torch.zeros((), dtype=base.dtype, device=base.device)
+    svals, scnt, sloss = lookup_delta(idx, vals, cnts, losses, cand,
+                                      placeholder, n_rows)
+    return merge_candidates_stale(strategy, cand, svals, scnt, sloss,
+                                  worker_loss, take_fill(base, cand, 0),
+                                  n_rows, priorities)
+
+
+def merge_sparse_stale(
+    strategy: str,
+    idx: torch.Tensor,                    # (W, C) packed row ids
+    vals: torch.Tensor,                   # (W, C, k)
+    cnts: torch.Tensor,                   # (W, C)
+    losses: Optional[torch.Tensor],       # (W, C)
+    worker_loss: torch.Tensor,            # (W,)
+    base: torch.Tensor,                   # (N, k) the global view
+    priorities: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The sparse-transport bounded-staleness Reduce: the union of the
+    workers' touched rows merged into the global view, bit-identical to
+    :func:`merge_stacked_stale` on the dense copies."""
+    cand = sparse_candidates(idx, base.shape[0])
+    rows = _stale_block(strategy, idx, vals, cnts, losses, worker_loss,
+                        base, cand, priorities)
+    return apply_delta(base, cand, rows)
+
+
+def _merge_own_block_stale(strategy, idx, vals, cnts, losses, worker_loss,
+                           base, lo, block, cand, priorities) -> tuple:
+    """``(own, rows)`` of one shard's block under the stale merge."""
+    own = own_candidates(cand, lo, block, base.shape[0])
+    return own, _stale_block(strategy, idx, vals, cnts, losses, worker_loss,
+                             base, own, priorities)
+
+
+def merge_sparse_stale_sharded_stacked(
+    strategy: str,
+    idx: torch.Tensor,
+    vals: torch.Tensor,
+    cnts: torch.Tensor,
+    losses: Optional[torch.Tensor],
+    worker_loss: torch.Tensor,
+    base: torch.Tensor,
+    priorities: Optional[torch.Tensor] = None,
+    *,
+    n_shards: int,
+) -> torch.Tensor:
+    """Shard-routed :func:`merge_sparse_stale`: each shard stale-merges
+    the candidates it owns, one shard after another — bit-identical to
+    the monolithic stale merge."""
+    n_rows = base.shape[0]
+    R = shard_rows(n_rows, n_shards)
+    cand = sparse_candidates(idx, n_rows)
+    blocks = [_merge_own_block_stale(strategy, idx, vals, cnts, losses,
+                                     worker_loss, base, s * R, R, cand,
+                                     priorities)
+              for s in range(n_shards)]
+    return scatter_blocks(base.clone(), blocks)

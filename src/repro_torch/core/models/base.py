@@ -95,7 +95,7 @@ def _check_norm(norm: str) -> None:
 _HALF = (torch.bfloat16, torch.float16)
 
 
-def _wide(x: torch.Tensor) -> torch.Tensor:
+def wide(x: torch.Tensor) -> torch.Tensor:
     """``x`` widened to float32 when it is half precision (its ``|x|`` and
     ``x²`` are then exact), else ``x`` itself."""
     return x.float() if x.dtype in _HALF else x
@@ -171,25 +171,62 @@ def in_order_sum(x: torch.Tensor) -> torch.Tensor:
     return _FixedOrderSum.apply(x, _last_in_order)
 
 
+class _SpreadLast(torch.autograd.Function):
+    """``x[..., None]`` expanded to ``k`` along a new last axis, whose
+    backward sums the ``k`` gradient terms in index order: autograd's own
+    backward of a broadcast reduces with ``torch.sum``, in one order on
+    the CPU and in another on the card."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        return x[..., None].expand(*x.shape, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _last_in_order(g), None
+
+
+def spread_last(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``x`` broadcast along a new last axis of length ``k``, with a
+    backward that gives the same bits on every device
+    (:class:`_SpreadLast`): a trained scorer broadcasts a per-row value
+    over the embedding axis through it."""
+    return _SpreadLast.apply(x, k)
+
+
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis as ``util.pairwise_sum``'s balanced tree (the
     same bits on every device, log2 n launches), differentiable."""
     return _FixedOrderSum.apply(x, pairwise_sum)
 
 
-def seq_total(part: Callable[[int], torch.Tensor], k: int) -> torch.Tensor:
+def seq_total(part: Callable[[int], torch.Tensor], k: int,
+              dtype=None) -> torch.Tensor:
     """``Σ_j part(j)`` in index order, the signed counterpart of
     :func:`seq_distance` (half precision summed in float32, rounded once to
-    its dtype), for the bilinear and projection scorers."""
+    ``dtype``, by default that of the terms), for the bilinear and
+    projection scorers.  A scorer whose terms are products of half
+    precision columns passes them widened (:func:`wide`) with the tables'
+    ``dtype``: the reference does not round a product that feeds a sum."""
     first = part(0)
-    total = _seq_sum(lambda j: _wide(first if j == 0 else part(j)), k)
-    return total.to(first.dtype)
+    total = _seq_sum(lambda j: wide(first if j == 0 else part(j)), k)
+    return total.to(first.dtype if dtype is None else dtype)
+
+
+def in_order_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``Σ_j a_j b_j`` over the last axis in index order
+    (:func:`in_order_sum`), differentiable.  Half-precision factors are
+    multiplied and summed in float32 and the sum rounded once to ``a``'s
+    dtype, as the reference's ``jnp.sum`` of a bf16 product is on the CPU
+    (XLA keeps the product that feeds a sum unrounded); float32 factors
+    give the bits of ``in_order_sum(a * b)``."""
+    return in_order_sum(wide(a) * wide(b)).to(a.dtype)
 
 
 def _finish(total: torch.Tensor, dtype, norm: str) -> torch.Tensor:
     """A distance's sum rounded once to its inputs' ``dtype``, then the L2
     root when ``norm`` asks for it.  Half-precision inputs are summed in
-    float32 from exact terms (:func:`_wide`), as the reference's
+    float32 from exact terms (:func:`wide`), as the reference's
     ``jnp.sum`` of bf16 is: a bf16 sum rounded at every addition would
     move energies by an ulp and reorder top-k answers."""
     total = total.to(dtype)
@@ -207,7 +244,7 @@ def seq_distance(
     first = part(0)
 
     def term(j):
-        x = _wide(first if j == 0 else part(j))
+        x = wide(first if j == 0 else part(j))
         return x.abs() if norm == "l1" else x * x
 
     return _finish(_seq_sum(term, k), first.dtype, norm)
@@ -218,7 +255,7 @@ def dissimilarity(x: torch.Tensor, norm: str) -> torch.Tensor:
     operations as :func:`seq_distance`, with the elementwise ``|x|`` or
     ``x²`` taken in one pass over ``x``."""
     _check_norm(norm)
-    w = _wide(x)
+    w = wide(x)
     terms = w.abs() if norm == "l1" else w * w
     return _finish(in_order_sum(terms), x.dtype, norm)
 
@@ -226,10 +263,10 @@ def dissimilarity(x: torch.Tensor, norm: str) -> torch.Tensor:
 def unit_rows(x: torch.Tensor) -> torch.Tensor:
     """Row-wise L2 normalization (the constraint projection primitive),
     ``x / (sqrt(Σ_j x_j²) + 1e-12)`` with the squares summed in index
-    order, so a projection gives the same bits on the CPU and the card."""
-    w = _wide(x)
-    norm = sqrt_rn(in_order_sum(w * w).to(x.dtype))
-    return x / (norm[..., None] + 1e-12)
+    order, so a projection gives the same bits on the CPU and the card,
+    its gradient too (:func:`spread_last`)."""
+    norm = sqrt_rn(in_order_dot(x, x))
+    return x / spread_last(norm + 1e-12, x.shape[-1])
 
 
 def uniform_table(

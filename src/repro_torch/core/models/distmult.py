@@ -23,7 +23,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.models import base
 from repro_torch.core.models.base import (
-    KGConfig, Params, _long, gather_rows, in_order_sum, seq_total)
+    KGConfig, Params, _long, gather_rows, in_order_dot, seq_total, wide)
 
 
 class DistMult(base.KGModel):
@@ -48,7 +48,7 @@ class DistMult(base.KGModel):
         h = gather_rows(params["ent"], trip[..., 0])
         r = gather_rows(params["rel"], trip[..., 1])
         t = gather_rows(params["ent"], trip[..., 2])
-        return -in_order_sum(h * r * t)
+        return -in_order_dot(h * r, t)
 
     def candidate_energies(
         self, params: Params, triplets: torch.Tensor, side: str,
@@ -77,10 +77,10 @@ class DistMult(base.KGModel):
             fixed = params["ent"][trip[:, 2]]
         else:
             raise ValueError(f"bad side {side!r}")
-        fr = fixed * params["rel"][trip[:, 1]]             # (B, k)
-        cols = cent.t()                                    # (k, n) view
+        fr = wide(fixed * params["rel"][trip[:, 1]])       # (B, k)
+        cols = wide(cent.t())                              # (k, n) view
         return -seq_total(lambda j: fr[:, j, None] * cols[j][None, :],
-                          fr.shape[1])
+                          fr.shape[1], cent.dtype)
 
     def relation_energies(
         self, params: Params, triplets: torch.Tensor, norm: str = "l1"
@@ -88,10 +88,10 @@ class DistMult(base.KGModel):
         """Closed form ``-Σ_j (h·t)_j r_j`` for every relation, ``(B, R)``."""
         trip = _long(triplets)
         ent = params["ent"]
-        ht = ent[trip[:, 0]] * ent[trip[:, 2]]
-        cols = params["rel"].t()                           # (k, R) view
+        ht = wide(ent[trip[:, 0]] * ent[trip[:, 2]])
+        cols = wide(params["rel"].t())                     # (k, R) view
         return -seq_total(lambda j: ht[:, j, None] * cols[j][None, :],
-                          ht.shape[1])
+                          ht.shape[1], ent.dtype)
 
     def joint_energies(
         self, params: Params, pos: torch.Tensor, cand: torch.Tensor,
@@ -107,4 +107,4 @@ class DistMult(base.KGModel):
             gather_rows(rel, r) * gather_rows(ent, t),
             gather_rows(ent, h) * gather_rows(rel, r))     # (…, B, k)
         cm = gather_rows(ent, _long(cand))                 # (…, C, k)
-        return -in_order_sum(q[..., :, None, :] * cm[..., None, :, :])
+        return -in_order_dot(q[..., :, None, :], cm[..., None, :, :])

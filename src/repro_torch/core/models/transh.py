@@ -25,13 +25,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.models import base
 from repro_torch.core.models.base import (
-    KGConfig, Params, _long, dissimilarity, gather_rows, in_order_sum,
-    seq_distance, seq_total, unit_rows)
+    KGConfig, Params, _long, dissimilarity, gather_rows, in_order_dot,
+    seq_distance, seq_total, spread_last, unit_rows, wide)
 
 
 def _project(x: torch.Tensor, w_unit: torch.Tensor) -> torch.Tensor:
     """``x`` minus its component along the (unit) hyperplane normal."""
-    return x - in_order_sum(x * w_unit)[..., None] * w_unit
+    return x - spread_last(in_order_dot(x, w_unit), x.shape[-1]) * w_unit
 
 
 class TransH(base.KGModel):
@@ -110,7 +110,9 @@ class TransH(base.KGModel):
         w = unit_rows(params["norm"][trip[:, 1]])          # (B, k)
         cols = cent.t()                                    # (k, n) view
         k = cent.shape[1]
-        dot = seq_total(lambda j: cols[j][None, :] * w[:, j, None], k)
+        wc, ww = wide(cols), wide(w)
+        dot = seq_total(lambda j: wc[j][None, :] * ww[:, j, None], k,
+                        cent.dtype)
         proj = lambda j: cols[j][None, :] - dot * w[:, j, None]
         if side == "tail":
             q = _project(ent[trip[:, 0]], w) + r
@@ -134,7 +136,7 @@ class TransH(base.KGModel):
         w = unit_rows(gather_rows(params["norm"], pos[..., 1]))
         ce = gather_rows(ent, _long(cand))[..., None, :, :]  # (…, 1, C, k)
         wb = w[..., :, None, :]                            # (…, B, 1, k)
-        c_proj = ce - in_order_sum(wb * ce)[..., None] * wb
+        c_proj = ce - in_order_dot(wb, ce)[..., None] * wb
         hp = _project(gather_rows(ent, pos[..., 0]), w)
         tp = _project(gather_rows(ent, pos[..., 2]), w)
         q = torch.where(side_head[..., None], tp - r, hp + r)

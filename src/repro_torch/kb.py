@@ -28,11 +28,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import eval as kg_eval
+from repro_torch.core import eval_device
 from repro_torch.core.models import KGModel, Params, get_model
 from repro_torch.data.kg import KG
 from repro_torch.serve.kg_engine import KGQueryEngine, QueryResult
 from repro_torch.train import checkpoint as ckpt_lib
-from repro_torch.util import not_ported
 
 ARTIFACT_KIND = "knowledge_base"
 
@@ -194,22 +194,17 @@ class KnowledgeBase:
                table_sharding: str = "replicated") -> KGQueryEngine:
         """The query engine over this artifact's tables, cached under the
         reference's key ``(n_workers, backend, chunk, mesh, table_sharding)``.
-        The port serves whole tables from one device: ``n_workers=1``,
-        ``backend="vmap"``, no ``mesh`` and ``table_sharding="replicated"``;
-        any other value raises (ROADMAP.md queue 1, item 12)."""
-        for name, value, only in (("n_workers", n_workers, 1),
-                                  ("backend", backend, "vmap"),
-                                  ("mesh", mesh, None),
-                                  ("table_sharding", table_sharding,
-                                   "replicated")):
-            if value != only:
-                raise not_ported(f"KnowledgeBase.engine({name}={value!r})",
-                                 12)
-        key = (n_workers, backend, chunk, None, table_sharding)
+        On the vmap backend: ``table_sharding="sharded"`` scans the entity
+        table in ``n_workers`` shards, with the replicated engine's
+        answers bitwise.  ``backend="shard_map"`` and ``mesh`` raise
+        (ROADMAP.md queue 1, item 12c)."""
+        eval_device.check_layout(table_sharding, n_workers, backend, mesh)
+        key = (n_workers, backend, chunk, mesh, table_sharding)
         if key not in self._engines:
             kw = {} if chunk is None else {"chunk": chunk}
             self._engines[key] = KGQueryEngine(
-                self.model, self.params, norm=self.norm, **kw)
+                self.model, self.params, norm=self.norm, n_workers=n_workers,
+                table_sharding=table_sharding, **kw)
         return self._engines[key]
 
     def _exclude(self, a, b, side: str) -> np.ndarray:

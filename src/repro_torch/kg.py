@@ -106,9 +106,13 @@ def make_configs(
     bound of the sparse delta buffers (rows per worker per Reduce); an
     undersized override is rejected at config time and an overflow at run
     time raises instead of silently dropping updates.
-    ``table_sharding='sharded'`` requires the sparse transport and is not
-    ported yet.  Options of the reference that are not ported raise,
-    naming their ROADMAP.md item."""
+    ``table_sharding='sharded'`` (which requires the sparse transport)
+    routes every merged row to the shard that owns it; on the vmap
+    backend the result is the replicated layout's, bitwise.
+    ``staleness=S > 0`` (SGD on the device pipeline) lets each worker
+    train on its own copy for up to S rounds between adoptions of the
+    global view (``core/mapreduce.py``).  Options of the reference that
+    are not ported raise, naming their ROADMAP.md item."""
     model = get_model(model)
     if partitioner is not None:
         partition = partitioner
@@ -169,6 +173,7 @@ def fit(
     sync_checkpoints: bool = False,
     device=None,
     draws=None,
+    stale_offsets=None,
     **config_kw,
 ) -> TrainResult:
     """Train ``model`` on the port ``KG`` ``kg`` with the MapReduce engine.
@@ -178,9 +183,10 @@ def fit(
     block_epochs, merge_every, repartition_every, donate_params, ...).
     The tables live on ``device``: the GPU by default (raises without
     one), ``"cpu"`` on request; a resumed run restores onto it too.
-    ``draws`` (``mapreduce.train``) replaces the port's own per-epoch
-    random draws.  ``callback`` fires every epoch on the host pipeline and
-    at block boundaries on the device pipeline.
+    ``draws`` and ``stale_offsets`` (``mapreduce.train``) replace the
+    port's own per-epoch random draws and staleness refresh phases.
+    ``callback`` fires every epoch on the host pipeline and at block
+    boundaries on the device pipeline.
     Returns a :class:`TrainResult` whose ``.kb`` is the trained
     :class:`KnowledgeBase`.
 
@@ -217,11 +223,14 @@ def fit(
     :func:`make_configs`) give the dense transport's bits, so a checkpoint
     of either transport resumes under the other.
 
-    Not ported yet, each raising and naming its ROADMAP.md item:
-    ``mesh=``, ``backend='shard_map'``, sharded tables and staleness
-    (item 12)."""
+    Bounded staleness (``staleness=S``) cannot checkpoint or resume;
+    ``table_sharding`` is not part of a checkpoint's config, so a
+    checkpoint moves between the layouts.
+
+    Not ported yet, raising and naming its ROADMAP.md item: ``mesh=`` and
+    ``backend='shard_map'`` (item 12c)."""
     if "mesh" in config_kw:
-        raise not_ported("kg.fit(mesh=...) (the shard_map backend)", 12)
+        raise not_ported("kg.fit(mesh=...) (the shard_map backend)", "12c")
     device = resolve_device(device)
     model = get_model(model)
     kcfg, mcfg = make_configs(kg, model, paradigm, **config_kw)
@@ -284,7 +293,8 @@ def fit(
     res = mapreduce.train(
         kg, kcfg, mcfg, epochs=epochs, seed=seed, params=params,
         callback=callback, model=model, device=device, draws=draws,
-        eval_loop=eval_loop, checkpoint=ckpt_cfg, **resume_kw)
+        eval_loop=eval_loop, checkpoint=ckpt_cfg,
+        stale_offsets=stale_offsets, **resume_kw)
     res.kb = kb_lib.KnowledgeBase(
         model=model, params=res.params, graph=kg, norm=kcfg.norm,
         meta={"paradigm": paradigm, "epochs": res.epochs_run, "seed": seed,

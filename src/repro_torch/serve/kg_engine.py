@@ -1,6 +1,5 @@
 """Device-resident KG link-prediction query engine (port of
-``repro.serve.kg_engine``; whole tables on one device — sharded tables are
-not ported yet).
+``repro.serve.kg_engine``, vmap backend, replicated or sharded tables).
 
 A batch of queries is padded and cut into chunks exactly like the eval
 engine's test split (``core/eval_device._layout``).  Every chunk scores
@@ -13,6 +12,16 @@ is the same walk over ``relation_energies``.
 Ties in energy go to the lowest id, as ``jax.lax.top_k`` breaks them in
 the reference: ``torch.topk`` promises no order among ties, so the engine
 sorts each row stably and keeps the first ``k``.
+
+``table_sharding="sharded"`` cuts the entity axis into ``n_workers``
+shards (``_entity_topk_sharded``): each shard scores its block of rows,
+keeps its own best ``min(k, R)``, and the shard-major union of those
+lists is cut to ``k``, with the same stable sort.  Every answer the whole
+table's top-k holds survives its shard's cut, and the union lists tied
+candidates in ascending id, so ids *and* energies are the replicated
+engine's, bitwise, ties included.  With replicated tables ``n_workers``
+(the reference's split of the query axis) changes no number, and the
+port scans the queries whole.
 
 ``rank()`` routes ad-hoc triplet batches through the *eval* engine
 (``core/eval_device.entity_ranks_device``), including its rank-kernel
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import eval_device
+from repro_torch.core import merge as merge_lib
 from repro_torch.core.models import KGModel, Params, get_model
 
 DEFAULT_CHUNK = eval_device.DEFAULT_CHUNK
@@ -104,6 +114,48 @@ def _topk_lowest(scores: torch.Tensor, k: int):
     return ids[:, :k].int(), vals[:, :k]
 
 
+def _entity_topk_sharded(
+    model: KGModel,
+    params: Params,          # entity-role tables padded to n_shards * R
+    q: torch.Tensor,         # (C, 3)
+    ex: torch.Tensor,        # (C, P) padded exclusion ids (pad id = E)
+    side: str,
+    norm: str,
+    k: int,
+    n_shards: int,
+    n_entities: int,
+) -> tuple:
+    """One chunk's top-k with the candidate axis sharded (the reference's
+    ``_entity_topk_sharded``, vmap form): per shard, its ``(C, R)`` slice
+    (``candidate_slice_energies``), pad rows and the excluded ids it owns
+    set to +inf, and its ``min(k, R)`` best (:func:`_topk_lowest`); then
+    the shard-major union ``(C, W·kk)`` cut to ``k`` by the same stable
+    sort.  Within a tie the union lists ids in ascending order (shards
+    hold ascending id ranges, and each local list is id-ascending within
+    ties), so the answer is the replicated scan's, ids and energies."""
+    E, W = n_entities, n_shards
+    R = merge_lib.shard_rows(E, W)
+    kk = min(k, R)
+    cols = torch.arange(R, device=q.device)
+    ids, energies = [], []
+    for s in range(W):
+        lo = s * R
+        sc = model.candidate_slice_energies(params, q, side, norm, lo=lo,
+                                            n=R)
+        sc = torch.where((lo + cols >= E)[None, :], torch.inf, sc)
+        off = ex - lo
+        valid = (off >= 0) & (off < R) & (ex < E)
+        # ids outside the block write -inf, which max() ignores
+        sc = sc.scatter_reduce(
+            1, off.clamp(0, R - 1),
+            torch.where(valid, torch.inf, -torch.inf).to(sc.dtype), "amax")
+        i, e = _topk_lowest(sc, kk)
+        ids.append(i + lo)
+        energies.append(e)
+    j, e = _topk_lowest(torch.cat(energies, 1), k)
+    return torch.cat(ids, 1).gather(1, j.long()), e
+
+
 class KGQueryEngine:
     """Batched link prediction over one (model, params) pair.
 
@@ -111,7 +163,13 @@ class KGQueryEngine:
     the eval engine does.  ``exclude`` masks are padded ``(B, P)`` id
     arrays (pad id = n_entities), the layout ``KG.known_candidate_masks``
     builds — ``KnowledgeBase`` passes known neighbors so served
-    candidates are *new* links."""
+    candidates are *new* links.
+
+    ``table_sharding="sharded"`` scans the entity axis in ``n_workers``
+    shards (module docstring); ``rank()`` threads the layout into the
+    eval scan, and ``score()`` and relation queries never shard (the
+    relation table is whole on every shard).  ``backend="shard_map"`` and
+    ``mesh`` are ROADMAP.md item 12c and raise."""
 
     def __init__(
         self,
@@ -119,15 +177,30 @@ class KGQueryEngine:
         params: Params,
         *,
         norm: str = "l1",
+        n_workers: int = 1,
+        backend: str = "vmap",
+        mesh=None,
         chunk: int = DEFAULT_CHUNK,
+        table_sharding: str = "replicated",
     ):
+        eval_device.check_layout(table_sharding, n_workers, backend, mesh)
         self.model = get_model(model)
         self.params = params
         self.norm = norm
+        self.n_workers = n_workers
+        self.backend = backend
+        self.mesh = mesh
         self.chunk = chunk
+        self.table_sharding = table_sharding
         self.n_entities = int(params["ent"].shape[0])
         self.n_relations = int(params["rel"].shape[0])
         self.device = params["ent"].device
+        self._padded_params = None
+        if table_sharding == "sharded":
+            # padded once here; rank() and score() keep the tables as given
+            self._padded_params = eval_device._pad_ent_tables(
+                self.model, params,
+                n_workers * merge_lib.shard_rows(self.n_entities, n_workers))
 
     def _chunk_queries(self, triplets: np.ndarray, exclude,
                        chunk: Optional[int] = None):
@@ -190,18 +263,25 @@ class KGQueryEngine:
         k = min(_check_k(k), self.n_entities)
         E = self.n_entities
         q, ex, Q = self._chunk_queries(triplets, exclude, chunk)
+        sharded = self.table_sharding == "sharded"
         ids, energies = [], []
         with torch.no_grad():
             for s in range(q.shape[0]):
-                scores = self.model.candidate_energies(
-                    self.params, q[s], side, self.norm)
-                rows, cols = torch.nonzero(ex[s] < E, as_tuple=True)
-                scores[rows, ex[s][rows, cols]] = torch.inf
-                i, e = _topk_lowest(scores, k)
+                if sharded:
+                    i, e = _entity_topk_sharded(
+                        self.model, self._padded_params, q[s], ex[s], side,
+                        self.norm, k, self.n_workers, E)
+                else:
+                    scores = self.model.candidate_energies(
+                        self.params, q[s], side, self.norm)
+                    rows, cols = torch.nonzero(ex[s] < E, as_tuple=True)
+                    scores[rows, ex[s][rows, cols]] = torch.inf
+                    i, e = _topk_lowest(scores, k)
                 ids.append(i)
                 energies.append(e)
         out = self._result(ids, energies, Q)
-        _note_shape("entity", self.model, side, self.norm, k, q, ex,
+        entry = f"entity-sharded{self.n_workers}" if sharded else "entity"
+        _note_shape(entry, self.model, side, self.norm, k, q, ex,
                     self.params)
         return out
 
@@ -254,6 +334,7 @@ class KGQueryEngine:
         masks = None if cand_masks is None else (cand_masks, cand_masks)
         out = eval_device.entity_ranks_device(
             self.params, np.asarray(triplets, np.int32), self.norm, masks,
-            model=self.model, chunk=self.chunk, fused=fused)
+            model=self.model, chunk=self.chunk, n_workers=self.n_workers,
+            fused=fused, table_sharding=self.table_sharding)
         group = "filtered_ranks" if cand_masks is not None else "raw_ranks"
         return out[group][side]

@@ -62,7 +62,7 @@ def pairwise_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return exact_div(pairwise_sum(x, dim), x.shape[dim])
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item) -> NotImplementedError:
     """The error an option of the reference that the port lacks raises,
     naming the ROADMAP.md item that ports it."""
     return NotImplementedError(

@@ -88,7 +88,13 @@ def test_engine_options(setup):
         port_device.get_model("transe"), None, params) is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_eval.evaluate_all(params, port_g, engine="device",
-                               table_sharding="sharded")
+                               table_sharding="sharded", n_workers=3,
+                               backend="shard_map", mesh=object())
+    # the vmap backend's sharded scan gives the replicated metrics
+    assert port_eval.evaluate_all(
+        params, port_g, engine="device", table_sharding="sharded",
+        n_workers=3) == port_eval.evaluate_all(params, port_g,
+                                               engine="device")
     with pytest.raises(ValueError, match="engine='device'"):
         port_eval.evaluate_all(params, port_g, chunk=64)
     with pytest.raises(ValueError, match="bad engine"):

@@ -262,19 +262,33 @@ def test_checkpoint_steps_and_refusals(tmp_path):
         port_ckpt.restore(d)
 
 
+# (model, norm) cells of the bf16 serving test; TransE's keep their ids
+BF16_CELLS = {"l1": ("transe", "l1"), "l2": ("transe", "l2"),
+              "transh-l1": ("transh", "l1"), "transh-l2": ("transh", "l2"),
+              "distmult": ("distmult", "l1")}
+
+
 @pytest.fixture(scope="module")
 def bf16_kbs(tiny_kg):
-    """(reference KB, port KB) over the same tables cast to bf16, per
-    norm."""
-    tables = ref_tables(tiny_kg.n_entities, tiny_kg.n_relations, DIM)
-    return {norm: (
-        ref_kb_lib.KnowledgeBase(
-            model="transe", graph=tiny_kg, norm=norm,
-            params={k: jnp.asarray(v, jnp.bfloat16)
-                    for k, v in tables.items()}),
-        convert.kb_from_reference(tables, "transe", tiny_kg, norm=norm,
-                                  device="cpu", dtype=torch.bfloat16))
-        for norm in ("l1", "l2")}
+    """(reference KB, port KB) over the same tables cast to bf16, per cell
+    of ``BF16_CELLS``: TransE over ``ref_tables``, TransH and DistMult over
+    the reference's own init under ``PRNGKey(0)``."""
+    out = {}
+    for cell, (model, norm) in BF16_CELLS.items():
+        if model == "transe":
+            tables = ref_tables(tiny_kg.n_entities, tiny_kg.n_relations, DIM)
+        else:
+            tables = {name: np.asarray(t) for name, t in ref_get_model(
+                model).init_params(jax.random.PRNGKey(0), RefKGConfig(
+                    tiny_kg.n_entities, tiny_kg.n_relations, DIM)).items()}
+        out[cell] = (
+            ref_kb_lib.KnowledgeBase(
+                model=model, graph=tiny_kg, norm=norm,
+                params={k: jnp.asarray(v, jnp.bfloat16)
+                        for k, v in tables.items()}),
+            convert.kb_from_reference(tables, model, tiny_kg, norm=norm,
+                                      device="cpu", dtype=torch.bfloat16))
+    return out
 
 
 def _same_bf16_answer(got, want):
@@ -286,9 +300,12 @@ def _same_bf16_answer(got, want):
                                   np.asarray(want.energies, np.float32))
 
 
-@pytest.mark.parametrize("norm", ["l1", "l2"])
-def test_bf16_tables_serve_as_in_the_reference(bf16_kbs, norm):
-    ref, port = bf16_kbs[norm]
+@pytest.mark.parametrize("cell", list(BF16_CELLS))
+def test_bf16_tables_serve_as_in_the_reference(bf16_kbs, cell):
+    """Every served form of every model: the reference's bf16 arithmetic
+    on the CPU (XLA rounds each elementwise result to bf16, except a
+    product that feeds a sum; sums run in float32), bit for bit."""
+    ref, port = bf16_kbs[cell]
     test = ref.graph.test
     h, r, t = test[:, 0], test[:, 1], test[:, 2]
     _same_bf16_answer(port.query_tails(h, r, k=10),
@@ -347,9 +364,10 @@ def test_negative_k_raises_as_in_the_reference(kbs, call):
 
 
 def test_engine_takes_the_reference_keywords(kbs):
-    """``KnowledgeBase.engine`` accepts the reference's keywords at their
-    defaults, caches under the reference's key, and refuses what it does
-    not serve (several workers, a mesh, sharded tables) naming item 12."""
+    """``KnowledgeBase.engine`` accepts the reference's keywords, caches
+    under the reference's key (several workers and sharded tables on the
+    vmap backend included), and refuses what it does not serve (a mesh,
+    the shard_map backend) naming item 12 (its part c)."""
     ref, port = kbs
     defaults = dict(n_workers=1, backend="vmap", mesh=None, chunk=None,
                     table_sharding="replicated")
@@ -359,9 +377,18 @@ def test_engine_takes_the_reference_keywords(kbs):
     assert port.engine(chunk=32) is port.engine(chunk=32, n_workers=1)
     ref.engine(**defaults)
     ref.engine(chunk=32)
+    for kw in ({"n_workers": 2}, {"n_workers": 3,
+                                  "table_sharding": "sharded"}):
+        assert port.engine(**kw) is port.engine(**kw)
+        ref.engine(**kw)
     assert set(port._engines) == set(ref._engines)
-    for kw in ({"n_workers": 2}, {"table_sharding": "sharded"},
-               {"mesh": object()}, {"backend": "shard_map"}):
+    sh = port.engine(n_workers=3, table_sharding="sharded")
+    assert sh.table_sharding == "sharded" and sh.n_workers == 3
+    with pytest.raises(ValueError, match="table_sharding"):
+        port.engine(table_sharding="diagonal")
+    for kw in ({"mesh": object()}, {"backend": "shard_map"},
+               {"n_workers": 2, "table_sharding": "sharded",
+                "backend": "shard_map", "mesh": object()}):
         with pytest.raises(NotImplementedError, match="item 12"):
             port.engine(**kw)
         with pytest.raises(NotImplementedError, match="item 12"):

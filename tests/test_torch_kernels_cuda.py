@@ -485,3 +485,106 @@ def test_sparse_block_makes_no_host_sync(cuda, paradigm, opts):
     for name in p_d:
         assert torch.equal(p_d[name].view(torch.int32),
                            p_s[name].view(torch.int32)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["dense", "sparse"])
+def test_stale_block_makes_no_host_sync(cuda, transport):
+    """A bounded-staleness block on the card (state ``(global_view,
+    worker_locals)``) makes no host sync, launches both kernels once a
+    step, and gives the CPU block's bits."""
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    kcfg, mcfg = kg.make_configs(graph, "transe", "sgd", dim=32,
+                                 batch_size=128, pipeline="device",
+                                 staleness=1, merge_transport=transport)
+    part = kg_data.PARTITIONERS["balanced"](0, graph.train, 4)
+    init = get_model("transe").init_params(
+        torch.Generator().manual_seed(0), kcfg, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        block_fn = mapreduce.make_block_fn(
+            mcfg, kcfg, torch.as_tensor(part, device=dev), seed=3,
+            with_overflow=True)
+        g = {n: t.to(dev) for n, t in init.items()}
+        state = (g, mapreduce._broadcast(g, 4))
+        if dev == "cpu":
+            out[dev] = block_fn(state, range(4))
+            continue
+        before = (transe_score.transe_score.launches,
+                  transe_score.transe_score_bwd.launches)
+        with _NoHostSync():
+            out[dev] = block_fn(state, range(4))
+        steps = 4 * (part.shape[1] // 128)
+        assert (transe_score.transe_score.launches - before[0],
+                transe_score.transe_score_bwd.launches - before[1]) == (
+                    steps, steps)
+    ((g_cpu, l_cpu), loss_cpu, _), ((g_card, l_card), loss_card, ovf) = (
+        out["cpu"], out[cuda])
+    assert int(ovf) == 0
+    assert torch.equal(loss_card.cpu(), loss_cpu)
+    for name in g_cpu:
+        assert torch.equal(g_card[name].cpu(), g_cpu[name])
+        assert torch.equal(l_card[name].cpu(), l_cpu[name])
+
+
+@pytest.mark.cuda
+def test_sharded_sparse_reduce_makes_no_host_sync(cuda):
+    """The shard-routed sparse Reduce (and its stale form) on the card
+    makes no host sync and gives the replicated merge's bits."""
+    from repro_torch.core import merge
+
+    gen = torch.Generator().manual_seed(0)
+    W, N, k, cap = 4, 1001, 16, 300
+    stacked = torch.randn(W, N, k, generator=gen).to(cuda)
+    counts = (torch.rand(W, N, generator=gen) < 0.2).float().to(cuda)
+    losses = torch.rand(W, N, generator=gen).to(cuda) * counts
+    wl = torch.rand(W, generator=gen).to(cuda)
+    base = torch.randn(N, k, generator=gen).to(cuda)
+    pri = torch.rand(W, N, generator=gen).to(cuda)
+    fn = get_model("transe").normalize_rows
+    with _NoHostSync():
+        idx, vals, cnt, lss = merge.pack_delta(stacked, counts, losses, cap,
+                                               N)
+        got = {s: merge.merge_sparse_sharded_stacked(
+                   s, idx, vals, cnt, lss, wl, stacked[0], base,
+                   lambda r: fn("ent", r), 1, pri, n_shards=W)
+               for s in merge.STRATEGIES}
+        stale = {s: merge.merge_sparse_stale_sharded_stacked(
+                     s, idx, vals, cnt, lss, wl, base, pri, n_shards=W)
+                 for s in merge.STRATEGIES}
+    for s in merge.STRATEGIES:
+        assert torch.equal(got[s], merge.merge_sparse_stacked(
+            s, idx, vals, cnt, lss, wl, stacked[0], base,
+            lambda r: fn("ent", r), 1, pri))
+        assert torch.equal(stale[s], merge.merge_sparse_stale(
+            s, idx, vals, cnt, lss, wl, base, pri))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["l1", "l2"])
+def test_transh_step_cpu_equals_card(cuda, norm):
+    """A TransH step (autograd of the in-order scorer, the hyperplane
+    projection's broadcasts through ``base.spread_last``) gives the same
+    bits on the CPU and on the card."""
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    kcfg, _ = kg.make_configs(graph, "transh", "sgd", dim=32, norm=norm)
+    model = get_model("transh")
+    params = model.init_params(torch.Generator().manual_seed(0), kcfg,
+                               device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    pos = torch.stack([torch.randint(0, 400, (4, 128), generator=gen),
+                       torch.randint(0, 8, (4, 128), generator=gen),
+                       torch.randint(0, 400, (4, 128), generator=gen)], -1)
+    neg = pos.clone()
+    neg[..., 2] = torch.randint(0, 400, (4, 128), generator=gen)
+    stacked = mapreduce._broadcast(params, 4)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {n: t.to(dev) for n, t in stacked.items()}
+        out[dev] = model.sgd_step(p, pos.to(dev), neg.to(dev), kcfg)
+    (p_cpu, l_cpu), (p_card, l_card) = out["cpu"], out[cuda]
+    assert torch.equal(l_card.cpu(), l_cpu)
+    for name in p_cpu:
+        assert torch.equal(p_card[name].cpu(), p_cpu[name]), name

@@ -157,15 +157,22 @@ def test_epoch_draws_are_pure_in_seed_and_epoch():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(merge_transport="sparse", staleness=1), 12),
+    (dict(merge_transport="sparse", staleness=1, pipeline="device",
+          backend="shard_map"), 12),
     (dict(merge_transport="sparse", backend="shard_map"), 12),
     (dict(backend="shard_map"), 12),
-    (dict(table_sharding="sharded", merge_transport="sparse"), 12),
-    (dict(staleness=1), 12),
-    (dict(negatives="joint", merge_transport="sparse", staleness=1), 12),
+    (dict(table_sharding="sharded", merge_transport="sparse",
+          backend="shard_map"), 12),
+    (dict(staleness=1, pipeline="device", backend="shard_map"), 12),
+    (dict(negatives="joint", merge_transport="sparse", staleness=1,
+          pipeline="device", mesh=object()), 12),
     (dict(mesh=object()), 12),
 ])
 def test_options_not_ported(graphs, option, item):
+    """What is left of item 12 is its part c, the shard_map backend and
+    ``mesh=``, alone or with staleness and sharded tables (which run on
+    the vmap backend: test_torch_staleness.py and
+    test_torch_sharded_tables.py)."""
     _, graph = graphs
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         port_kg.fit(graph, epochs=1, device="cpu", **dict(KW, **option))

@@ -212,6 +212,39 @@
    evaluation that takes it (the sharded scan and ``fused=False`` take
    none).
 
+11. The online tier (``online_path``), at phase 3's width and
+   configuration: benchmarks/bench_online.py's entity holdout (every
+   train triple touching a seeded 10 % of the entities moves to the
+   delta), a base fit on the rest (SGD ``average``, device pipeline,
+   sparse transport, 2 epochs), then ``kb.update(delta, scope="cold",
+   epochs=4)`` (4 workers) with its ``plan()`` timed apart, the same
+   update through ``delta_dir=`` and ``mapreduce.train`` on the plan,
+   a ``scope="touched"`` update, a small update (300 delta triples) on
+   the CPU and on the card, the chain's second link, its
+   ``load_chain`` on the card and a copy with a link removed; one masked
+   block under ``torch.cuda.set_sync_debug_mode("error")`` and one
+   profiled; ``kg.evaluate(kb, engine="device")`` of the base and both
+   updates on the held-out entities' test triples; and a
+   ``RefreshDaemon`` folding 300 triples into a live ``KGServer`` at
+   phase 7's ``batch16_wait1ms`` config under a 16 s query stream at
+   1,000 QPS.
+   All three kernels' counters are zeroed just before and read just
+   after.  Checks: frozen rows of both updates bitwise the base's; the
+   same seed gives the same fingerprint; ``update()`` is
+   ``mapreduce.train`` on its plan bitwise; the small update gives the
+   same bits on the CPU and the card; the sync-checked block raises
+   nothing and gives the train's first loss, and a block makes no
+   device→host copy; the chain reloads to its tip's fingerprint and the
+   broken copy is refused; the cold update's filtered mean rank on the
+   held-out entities beats the base's; every served answer is bitwise
+   the engine of the artifact its fingerprint names, with answers from
+   both, no steady-state recompile, ``flush(timeout=...)`` true and the
+   daemon stopped; every kernel launched on the path.  Reports plan,
+   update, fine-tune epoch, ``load_chain`` and evaluation seconds,
+   launches a step and the block's idle share, delta bytes on disk
+   against the full save, and p50/p99 across the swap, beside the card's
+   name and power limit.
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -308,6 +341,17 @@ ASYNC_CELL = dict(graph=(1, 300, 10, 6000), dim=64, norm="l2",
                   epochs=32, eval_every=2, ref_band=1.3)
 ASYNC_STALENESS = (("sync", 0), ("stale-1", 1), ("stale-2", 2))
 ASYNC_REPEATS, ASYNC_ITERS = 3, 5
+# phase 11: the online tier at phase 3's width (TransE dim 50, L1, 4
+# workers).  The holdout is benchmarks/bench_online.py's _split_holdout:
+# every train triple touching a seeded DELTA_FRAC of the entities
+ONLINE_DELTA_FRAC, ONLINE_HOLDOUT_SEED = 0.10, 7
+ONLINE_BASE = dict(strategy="average", pipeline="device",
+                   merge_transport="sparse", block_epochs=2)
+ONLINE_UPDATE = dict(epochs=4, seed=1, n_workers=4)
+ONLINE_SMALL = 300          # delta triples of the small updates
+# the query stream across the refresh: long enough that the refresh
+# (an update and the new graph's known index, ~6 s) ends inside it
+ONLINE_STREAM = dict(arrivals=16000, rate=1000.0, after=200)
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
@@ -2736,6 +2780,270 @@ def stale_sharded_path(torch, graph):
     return info, launches
 
 
+def holdout_split(graph, frac, seed):
+    """``(base graph, delta, is_cold)``: benchmarks/bench_online.py's
+    entity holdout.  Every train triple touching a seeded ``frac`` of the
+    entities moves to the delta, so those entities get no training signal
+    in the base (exactly the rows ``scope="cold"`` frees); the base keeps
+    the whole id space, so the update grows no table."""
+    import numpy as np
+
+    from repro_torch.data import kg as kg_data
+
+    rng = np.random.default_rng(seed)
+    cold = rng.choice(graph.n_entities, int(graph.n_entities * frac),
+                      replace=False)
+    is_cold = np.zeros(graph.n_entities, bool)
+    is_cold[cold] = True
+    hit = is_cold[graph.train[:, 0]] | is_cold[graph.train[:, 2]]
+    base = kg_data.KG(graph.n_entities, graph.n_relations,
+                      graph.train[~hit], graph.valid, graph.test)
+    return base, np.asarray(graph.train[hit], np.int32), is_cold
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def online_path(torch, graph):
+    """The online tier (item 11 of the module docstring).  Returns the
+    path's info and its launches of each kernel."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import kg
+    from repro_torch.core import mapreduce
+    from repro_torch.data import kg as kg_data
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.online import OnlineUpdater, RefreshDaemon
+    from repro_torch.serve import KGServer
+
+    info = {"card": smi_line()}
+    W = TRAIN["n_workers"]
+    base_graph, delta, is_cold = holdout_split(graph, ONLINE_DELTA_FRAC,
+                                               ONLINE_HOLDOUT_SEED)
+    held = graph.test[is_cold[graph.test[:, 0]] | is_cold[graph.test[:, 2]]]
+    eval_graph = kg_data.KG(graph.n_entities, graph.n_relations,
+                            graph.train, graph.valid, held)
+    small = delta[:ONLINE_SMALL]
+    info["split"] = {"base_train": len(base_graph.train),
+                     "delta": len(delta), "held_entities": int(is_cold.sum()),
+                     "held_test": len(held)}
+    _, first = np.unique(graph.test[:, :2], axis=0, return_index=True)
+    hot = graph.test[np.sort(first)[:LIVE_UNIQUE], :2]
+    tmp = tempfile.TemporaryDirectory()
+    chain = os.path.join(tmp.name, "chain")
+    servers, daemons = [], []
+    t_phase = time.perf_counter()
+    ts.transe_score.launches = 0               # --- online path ---
+    ts.transe_score_bwd.launches = 0
+    rank_topk.rank_counts.launches = 0
+    try:
+        base_res, fit_s = wall(torch, lambda: kg.fit(
+            base_graph, "transe", "sgd", epochs=2, seed=0, device=DEVICE,
+            **TRAIN, **ONLINE_BASE))
+        base = base_res.kb
+        # (a) the cold update: its plan and its run timed apart, the same
+        # seed again through a delta chain, and mapreduce.train on the plan
+        up = OnlineUpdater(base, scope="cold", **ONLINE_UPDATE)
+        plan, plan_s = wall(torch, lambda: up.plan(delta))
+        cold, update_s = wall(torch, lambda: up.update(delta))
+        chained = base.update(delta, scope="cold", delta_dir=chain,
+                              **ONLINE_UPDATE)
+        direct = mapreduce.train(
+            plan.delta_kg, plan.kcfg, plan.mcfg, epochs=plan.epochs,
+            seed=plan.seed, params=plan.params,
+            update_mask=plan.update_mask, model=base.model, device=DEVICE)
+        # (b) the touched update
+        tplan = OnlineUpdater(base, scope="touched",
+                              **ONLINE_UPDATE).plan(delta)
+        touched, touched_s = wall(torch, lambda: base.update(
+            delta, scope="touched", **ONLINE_UPDATE))
+        # (c) a small update on the CPU and on the card
+        on_cpu = kg.KnowledgeBase(base.model, {n: t.cpu() for n, t in
+                                               base.params.items()},
+                                  graph=base.graph, norm=base.norm)
+        small_cpu = on_cpu.update(small, **ONLINE_UPDATE)
+        small_card = base.update(small, **ONLINE_UPDATE)
+        # (d) the chain's second link, its reload, a broken copy
+        tip = chained.update(small, delta_dir=chain, epochs=2, seed=2,
+                             n_workers=W)
+        reloaded, load_s = wall(torch, lambda: kg.KnowledgeBase.load_chain(
+            chain, device=DEVICE))
+        broken = os.path.join(tmp.name, "broken")
+        shutil.copytree(chain, broken)
+        shutil.rmtree(os.path.join(broken, "step_0000000001"))
+        try:
+            kg.KnowledgeBase.load_chain(broken, device=DEVICE)
+            broken_refused = False
+        except ValueError:
+            broken_refused = True
+        # (e) one masked block under the sync check, one profiled
+        steps = (len(delta) // plan.mcfg.n_workers) // plan.mcfg.batch_size
+        part = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+            plan.seed, plan.delta_kg.train, plan.mcfg.n_workers),
+            device=DEVICE)
+        block_fn = mapreduce.make_block_fn(
+            plan.mcfg, plan.kcfg, part, seed=plan.seed, with_overflow=True,
+            update_mask=plan.update_mask)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, losses, overflow = block_fn(dict(plan.params), range(1))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        prof = profile_busy(torch, lambda: block_fn(dict(plan.params),
+                                                    range(1)))
+        prof.update(steps=steps, launches_per_step=prof["launches"] / steps,
+                    dtoh_copies_per_step=prof["dtoh_copies"] / steps)
+        # (f) the held-out entities' test triples, before and after
+        ranks, eval_s = {}, {}
+        for label, kb in (("base", base), ("cold", cold),
+                          ("touched", touched)):
+            m, eval_s[label] = wall(torch, lambda kb=kb: kg.evaluate(
+                kb, kg=eval_graph, engine="device"))
+            ranks[label] = m["entity_filtered"]["mean_rank"]
+        # (g) a refresh into a live server under a query stream
+        _, max_batch, wait_us = dict(
+            (c[0], c) for c in LIVE_CONFIGS)["batch16_wait1ms"]
+        srv = KGServer(cold, max_batch=max_batch, max_wait_us=wait_us,
+                       default_k=LIVE_K, warm=True)
+        servers.append(srv)
+        daemon = RefreshDaemon(srv, epochs=2, seed=5, n_workers=W)
+        daemons.append(daemon)
+        daemon.start()
+        flushed = {}
+
+        def refresh():
+            daemon.submit(delta[-ONLINE_SMALL:])
+            t0 = time.perf_counter()
+            flushed["ok"] = daemon.flush(timeout=LIVE_TIMEOUT_S)
+            flushed["s"] = time.perf_counter() - t0
+
+        before = srv.stats()
+        pick, answers, rates = live_stream(
+            srv, hot, ONLINE_STREAM["rate"], ONLINE_STREAM["arrivals"],
+            seed=4, midway=refresh)
+        late = hot[:ONLINE_STREAM["after"]]
+        futs = [srv.submit("tails", a, b) for a, b in late]
+        late_answers = [f.result(timeout=LIVE_TIMEOUT_S) for f in futs]
+        after = srv.stats()
+        arts = {cold.fingerprint(): cold, daemon.kb.fingerprint(): daemon.kb}
+        by_fp = {}
+        for (a, b), ans in zip(np.concatenate([pick, late]),
+                               answers + late_answers):
+            by_fp.setdefault(ans.fingerprint, []).append((a, b, ans))
+        served_bitwise = set(by_fp) <= set(arts) and len(arts) == 2
+        for key, group in by_fp.items():
+            if key not in arts:
+                continue
+            res = arts[key].engine().query_tails(
+                [g[0] for g in group], [g[1] for g in group], k=LIVE_K,
+                chunk=64)
+            served_bitwise &= all(
+                answer_bits(ans, res.ids[i], res.energies[i])
+                for i, (_, _, ans) in enumerate(group))
+        stopped = daemon.stop(timeout=LIVE_TIMEOUT_S)
+        launches = {"rank_counts": rank_topk.rank_counts.launches,
+                    "transe_score": ts.transe_score.launches,
+                    "transe_score_bwd": ts.transe_score_bwd.launches}
+    finally:                                   # --- end ---
+        for daemon in daemons:
+            daemon.stop(timeout=LIVE_TIMEOUT_S)
+        for srv in servers:
+            srv.stop()
+    chain_bytes = {step: dir_bytes(os.path.join(chain, f"step_{step:010d}"))
+                   for step in (0, 1, 2)}
+    tmp.cleanup()
+
+    frozen, free_rows = {}, {}
+    for label, kb2, p in (("cold", cold, plan), ("touched", touched, tplan)):
+        frozen[label] = all(
+            bits_equal(kb2.params[n][~torch.as_tensor(m, device=DEVICE)],
+                       base.params[n][~torch.as_tensor(m, device=DEVICE)])
+            for n, m in p.update_mask.items())
+        free_rows[label] = {n: int(m.sum()) for n, m in
+                            p.update_mask.items()}
+    info.update({
+        "fit_s": fit_s, "plan_s": plan_s, "update_s": update_s,
+        "touched_update_s": touched_s, "epochs": ONLINE_UPDATE["epochs"],
+        "epoch_s": update_s / ONLINE_UPDATE["epochs"],
+        "workers": plan.mcfg.n_workers, "batch": plan.mcfg.batch_size,
+        "steps_per_epoch": steps, "free_rows": free_rows,
+        "masked_block": prof,
+        "sync_checked_block": {"losses": losses.tolist(),
+                               "overflow": int(overflow)},
+        "chain_bytes": {"base_full_save": chain_bytes[0],
+                        "delta_cold": chain_bytes[1],
+                        "delta_small": chain_bytes[2]},
+        "load_chain_s": load_s,
+        "filtered_mean_rank_held_out": ranks, "evaluate_s": eval_s,
+        "refresh": {**rates, "flushed": flushed.get("ok"),
+                    "flush_s": flushed.get("s"),
+                    "answers": {("before" if a is cold else "after"):
+                                len(by_fp.get(k, []))
+                                for k, a in arts.items()},
+                    "across_swap": live_percentiles(
+                        [a.latency_s for a in answers]),
+                    "across_swap_misses": live_percentiles(
+                        [a.latency_s for a in answers if not a.cached]),
+                    "refreshes": daemon.refreshes, "daemon_stopped": stopped,
+                    **live_delta(before, after)},
+        "checks": {
+            "frozen_rows_bitwise": frozen,
+            "same_seed_same_fingerprint":
+                chained.fingerprint() == cold.fingerprint(),
+            "update_equals_direct_train": all(
+                bits_equal(cold.params[n], direct.params[n])
+                for n in cold.params),
+            "small_update_cpu_equals_card": all(
+                bits_equal(small_card.params[n].cpu(), small_cpu.params[n])
+                for n in small_cpu.params)
+            and small_card.fingerprint() == small_cpu.fingerprint(),
+            "sync_checked_block_equals_train":
+                losses.tolist()[0] == direct.loss_history[0],
+            "chain_reloads_to_tip":
+                reloaded.fingerprint() == tip.fingerprint(),
+            "broken_chain_refused": broken_refused,
+            "served_bitwise": served_bitwise,
+        },
+        "launches": launches,
+        "phase_s": time.perf_counter() - t_phase})
+    print("online " + json.dumps(info), flush=True)
+
+    checks = info["checks"]
+    failed = [k for k, v in checks.items()
+              if not (all(v.values()) if isinstance(v, dict) else v)]
+    if failed:
+        fail(f"online checks failed: {failed}: {checks}")
+    if info["sync_checked_block"]["overflow"]:
+        fail(f"the sync-checked masked block overflowed: {info}")
+    if prof["dtoh_copies"] != 0:
+        fail(f"a masked block made {prof['dtoh_copies']} device-to-host "
+             "copies")
+    if not (flushed.get("ok") and stopped and daemon.refreshes == 1):
+        fail(f"the refresh did not complete: {info['refresh']}")
+    if after.steady_recompiles != 0:
+        fail(f"{after.steady_recompiles} steady-state recompiles across "
+             "the refresh")
+    if not ranks["cold"] < ranks["base"]:
+        fail(f"the cold update's filtered mean rank {ranks['cold']} on the "
+             f"held-out entities does not beat the base's {ranks['base']}")
+    for label, kb2 in (("cold", cold), ("touched", touched),
+                       ("reloaded", reloaded), ("refreshed", daemon.kb)):
+        if not all(t.is_cuda for t in kb2.params.values()):
+            fail(f"{label}: a table is not on the card")
+        if not all(bool(torch.isfinite(t).all())
+                   for t in kb2.params.values()):
+            fail(f"{label}: non-finite tables")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} launched {n} times on the online path")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -2772,11 +3080,12 @@ def main():
     family_info, family_launches = model_family_path(torch, graph)
     sparse_info, sparse_launches = sparse_transport_path(torch, graph)
     stale_info, stale_launches = stale_sharded_path(torch, graph)
+    online_info, online_launches = online_path(torch, graph)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 init_metrics=init_metrics, eval_resume=resume_info,
                 device_pipeline=device_info, serving_live=live_info,
                 model_family=family_info, sparse_transport=sparse_info,
-                stale_sharded=stale_info)
+                stale_sharded=stale_info, online=online_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -2800,7 +3109,7 @@ def main():
         "launches": launches + phase_launches["rank_counts"]
         + device_launches["rank_counts"] + live_launches["rank_counts"]
         + family_launches["rank_counts"] + sparse_launches["rank_counts"]
-        + stale_launches["rank_counts"],
+        + stale_launches["rank_counts"] + online_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -2810,7 +3119,8 @@ def main():
                                  family_launches["rank_counts"],
                              "sparse_transport":
                                  sparse_launches["rank_counts"],
-                             "stale_sharded": stale_launches["rank_counts"]},
+                             "stale_sharded": stale_launches["rank_counts"],
+                             "online": online_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -2839,7 +3149,8 @@ def main():
             "replaces": replaces,
             "launches": n + phase_launches[kname] + device_launches[kname]
             + live_launches[kname] + family_launches[kname]
-            + sparse_launches[kname] + stale_launches[kname],
+            + sparse_launches[kname] + stale_launches[kname]
+            + online_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
@@ -2847,7 +3158,8 @@ def main():
                                  "model_family": family_launches[kname],
                                  "sparse_transport":
                                      sparse_launches[kname],
-                                 "stale_sharded": stale_launches[kname]},
+                                 "stale_sharded": stale_launches[kname],
+                                 "online": online_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -2872,7 +3184,8 @@ def main():
                       if k not in ("metrics", "init_metrics", "training",
                                    "eval_resume", "device_pipeline",
                                    "serving_live", "model_family",
-                                   "sparse_transport", "stale_sharded")}),
+                                   "sparse_transport", "stale_sharded",
+                                   "online")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

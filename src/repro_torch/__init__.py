@@ -22,7 +22,11 @@ format; and the serving and evaluation path — ``KnowledgeBase`` save /
 load, top-k queries, the live serving tier (``serve.KGServer``: waves,
 power-of-two buckets, warm-up, the LRU answer cache, hot swap and
 tenants), and the paper's three-task evaluation, over whole or sharded
-tables.  The
+tables; and the online tier (``kb.update`` / ``kg.update``: grown tables,
+warm-started rows and a masked fine-tune of the touched rows, delta
+checkpoint chains replayed by ``KnowledgeBase.load_chain``, and
+``online.RefreshDaemon`` swapping refreshed artifacts into a live
+server).  The
 reference's two Pallas kernels are hand-written CUDA kernels for Hopper:
 the entity-ranking sweep (``kernels/rank_topk.py``) and TransE's
 training step, forward and backward (``kernels/transe_score.py``).  What

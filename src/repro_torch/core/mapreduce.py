@@ -113,6 +113,12 @@ worker_locals)``; evaluation, callbacks and the result read the global
 view.  A stale run cannot checkpoint or resume (its state holds every
 worker's local tables); it reproduces by rerunning.
 
+**The masked fine-tune** (``train(update_mask=...)``, SGD on the device
+pipeline and the sparse transport): one bool row mask per table freezes
+every row whose bit is False bitwise — in the compact step, the
+projections and after each Reduce — while the free rows train; the
+online tier's ``update()`` (``repro_torch.online``) is this call.
+
 Not ported yet, each raising and naming its ROADMAP.md item: the
 ``shard_map`` backend and ``mesh=`` (item 12c).
 """
@@ -816,6 +822,7 @@ def make_block_fn(
     draws: Optional[Callable[[int], DeviceDraws]] = None,
     with_overflow: bool = False,
     stale_offsets=None,
+    update_mask: Optional[Dict[str, object]] = None,
 ) -> Callable:
     """``block_fn(params, epoch_ids) -> (params, losses)``: the device
     pipeline's block of epochs (port of the reference's ``make_block_fn``,
@@ -871,11 +878,32 @@ def make_block_fn(
     its copies from them, and the input global view at the first Reduce.
     ``draws(epoch)``, when given, returns that epoch's batches, negatives
     and (at a round's last epoch, ``random`` strategy) priorities as numpy
-    arrays in place of the block's own (tests; a host copy per epoch)."""
+    arrays in place of the block's own (tests; a host copy per epoch).
+
+    ``update_mask`` (one bool row mask per table, numpy or tensors; the
+    online tier's masked fine-tune) freezes every row whose bit is False
+    bitwise: the compact step writes frozen candidate rows back unchanged,
+    the projections leave them alone (``KGModel.run_epoch``), and each
+    Reduce's output is clamped back to the round input on them
+    (``clamp_frozen``), so frozen rows stay the initial params' bytes
+    while free rows train as they would in an unmasked run of the same
+    draws.  It needs the SGD paradigm's sparse transport with
+    ``staleness == 0``; the masks are put on the partition's device once,
+    so the block stays free of host syncs."""
     model = _resolve(cfg, model)
     W, B, K = cfg.n_workers, cfg.batch_size, cfg.schedule.merge_every
     M, S = cfg.schedule.repartition_every, cfg.staleness
     E, dev = tcfg.n_entities, partitioned.device
+    if update_mask is not None:
+        if (cfg.paradigm != "sgd" or cfg.merge_transport != "sparse"
+                or S > 0):
+            raise ValueError(
+                "update_mask (the masked fine-tune) requires the SGD "
+                "paradigm with merge_transport='sparse' and staleness=0 — "
+                f"got paradigm={cfg.paradigm!r}, "
+                f"merge_transport={cfg.merge_transport!r}, staleness={S}")
+        update_mask = {name: torch.as_tensor(m, dtype=torch.bool, device=dev)
+                       for name, m in update_mask.items()}
     k_data, k_neg, k_merge, k_part = keys_lib.device_keys(seed)
     if S > 0:
         offsets = (keys_lib.stale_offsets(keys_lib.stale_key(seed), W, S,
@@ -933,13 +961,24 @@ def make_block_fn(
             pos, neg, priorities = epoch_inputs(e, part)
             stacked, stats = model.run_epoch(
                 stacked, pos, neg, tcfg, sparse_apply=sparse,
-                touch_losses=touch_losses, check_ids=False)
+                update_mask=update_mask, touch_losses=touch_losses,
+                check_ids=False)
             acc = _add_stats(acc, stats)
             losses.append(merge_lib.worker_mean(stats.mean_loss))
         acc = dataclasses.replace(acc, mean_loss=exact_div(acc.mean_loss, K))
         if priorities is None:
             priorities = own_priorities(eids[-1])
         return stacked, acc, priorities
+
+    def clamp_frozen(merged: Params, base: Params) -> Params:
+        """Frozen rows of a Reduce's output put back to the round input's
+        (the merge arithmetic is not promised to be the identity on rows
+        no worker moved); the input's frozen rows are the initial ones."""
+        if update_mask is None:
+            return merged
+        return {name: torch.where(update_mask[name][:, None], merged[name],
+                                  base[name])
+                for name in merged}
 
     def sgd_block(params: Params, epoch_ids: list) -> tuple:
         part = block_part(epoch_ids)
@@ -958,6 +997,7 @@ def make_block_fn(
                     model, cfg, stacked, acc, priorities, base, tcfg,
                     n_steps, K)
                 overflow = torch.maximum(overflow, o)
+                params = clamp_frozen(params, base)
                 base = None
             else:
                 params = _merge_tables_stacked(model, cfg.strategy, stacked,
@@ -1098,6 +1138,48 @@ def _finish_result(params, history, epochs_run, model,
         best_params=recorder.best_params, best_epoch=recorder.best_epoch)
 
 
+def _check_update_mask(update_mask, cfg: MapReduceConfig, tcfg: KGConfig,
+                       model: KGModel, checkpoint, params) -> None:
+    """``train()``'s refusals of an ``update_mask``, in the reference's
+    order and words."""
+    if cfg.paradigm != "sgd" or cfg.merge_transport != "sparse":
+        raise ValueError(
+            "update_mask requires paradigm='sgd' with "
+            "merge_transport='sparse' — the masked fine-tune rides the "
+            "sparse transport's touched-row machinery")
+    if cfg.pipeline != "device":
+        raise ValueError(
+            "update_mask requires pipeline='device' — the host "
+            "pipeline's per-epoch dispatch has no masked step")
+    if cfg.staleness > 0:
+        raise ValueError(
+            f"update_mask with staleness={cfg.staleness}: stale worker "
+            "locals would carry frozen-row drift across rounds; masked "
+            "fine-tunes are synchronous")
+    if checkpoint is not None:
+        raise ValueError(
+            "update_mask with checkpoint: masked fine-tunes persist "
+            "through the online tier's delta checkpoints "
+            "(repro_torch.online), not base kg_train snapshots")
+    if params is None:
+        raise ValueError(
+            "update_mask without params: a masked fine-tune refines an "
+            "existing artifact's tables — pass them")
+    roles = model.param_roles()
+    if set(update_mask) != set(roles):
+        raise ValueError(
+            f"update_mask tables {sorted(update_mask)} do not match "
+            f"model {model.name!r} tables {sorted(roles)}")
+    for name, m in update_mask.items():
+        rows = (tcfg.n_entities if roles[name] == "ent"
+                else tcfg.n_relations)
+        if tuple(np.shape(m)) != (rows,):
+            raise ValueError(
+                f"update_mask[{name!r}] has shape {tuple(np.shape(m))}, "
+                f"expected ({rows},) — one bool per row of the "
+                f"{roles[name]!r}-role table")
+
+
 def epoch_generator(seed: int, epoch: int, stream: int) -> torch.Generator:
     """A CPU generator seeded by (seed, epoch, stream): the port's draws of
     one epoch are a pure function of (seed, epoch)."""
@@ -1139,6 +1221,7 @@ def train(
     resume_fresh_init: bool = True,
     prior_history: Optional[list] = None,
     stale_offsets=None,
+    update_mask: Optional[Dict[str, object]] = None,
 ) -> TrainResult:
     """Training driver: balanced partitioning, deterministic batches,
     negative sampling, Map/Reduce epochs, loss history.  With
@@ -1187,10 +1270,21 @@ def train(
     ints in ``[0, staleness]``) replaces the run's own refresh phases, as
     ``draws`` replaces its draws (tests).
 
+    Masked fine-tune: ``update_mask`` (one bool row mask per table, one
+    bit per row of the table's role) freezes the rows whose bit is False
+    bitwise while the free rows train as in an unmasked run of the same
+    draws (:func:`make_block_fn`) — the online tier's incremental
+    ``update()``.  It needs the SGD paradigm's device pipeline on the
+    sparse transport, ``staleness=0``, the caller's ``params`` and no
+    checkpoint (updates persist as delta checkpoints,
+    ``repro_torch.online``).
+
     ``cfg.n_workers == 1`` reproduces single-thread Algorithm 1 (the
     paper's baseline) for the chosen model."""
     model = _resolve(cfg, model)
     device = resolve_device(device)
+    if update_mask is not None:
+        _check_update_mask(update_mask, cfg, tcfg, model, checkpoint, params)
     if start_epoch < 0 or (start_epoch and start_epoch >= epochs):
         raise ValueError(
             f"start_epoch={start_epoch} must be in [0, epochs={epochs}) — "
@@ -1307,7 +1401,8 @@ def train(
             epochs=epochs, seed=seed, device=device, callback=callback,
             recorder=recorder, eval_loop=eval_loop, writer=writer,
             start_epoch=start_epoch, prior_history=prior_history,
-            strata=strata, draws=draws, stale_offsets=stale_offsets)
+            strata=strata, draws=draws, stale_offsets=stale_offsets,
+            update_mask=update_mask)
 
     # the ids are proved in range: the partition above, the own negatives
     # by construction, injected ones as they come in; a sparse SGD run's
@@ -1373,6 +1468,7 @@ def _train_device(
     strata: Optional[np.ndarray],
     draws: Optional[Callable[[int], DeviceDraws]],
     stale_offsets=None,
+    update_mask: Optional[Dict[str, object]] = None,
 ) -> TrainResult:
     """Device-pipeline driver: put the partition (and the degree strata)
     on the device once, then run epochs in blocks (:func:`make_block_fn`).
@@ -1402,7 +1498,7 @@ def _train_device(
         strata=None if strata is None else torch.as_tensor(strata,
                                                            device=device),
         draws=draws, with_overflow=with_overflow,
-        stale_offsets=stale_offsets)
+        stale_offsets=stale_offsets, update_mask=update_mask)
     stale = cfg.staleness > 0
     state = (params, _broadcast(params, cfg.n_workers)) if stale else params
 

@@ -251,6 +251,15 @@ def take_fill(x: torch.Tensor, ids: torch.Tensor, dim: int) -> torch.Tensor:
                                                device=x.device))
 
 
+def take_mask(mask: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The ``(N,)`` bool ``mask`` gathered at ``ids`` (any shape), False
+    where an id is ``N`` or more (``jnp.take(..., mode="fill",
+    fill_value=False)``), with no host sync."""
+    n = mask.shape[0]
+    got = mask.index_select(0, ids.reshape(-1).long().clamp(max=n - 1))
+    return got.reshape(ids.shape) & (ids < n)
+
+
 def put_drop_(x: torch.Tensor, ids: torch.Tensor,
               rows: torch.Tensor) -> torch.Tensor:
     """In place, ``x[ids[i]] = rows[i]`` for every id below ``n_rows =

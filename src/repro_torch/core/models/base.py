@@ -42,8 +42,7 @@ import torch
 
 from repro_torch.core import merge, negative
 from repro_torch.util import (
-    not_ported, ordered_index_add, pairwise_mean, pairwise_sum, sqrt_rn,
-    worker_offsets)
+    ordered_index_add, pairwise_mean, pairwise_sum, sqrt_rn, worker_offsets)
 
 Params = Dict[str, torch.Tensor]
 
@@ -726,14 +725,20 @@ class KGModel:
 
     def _sparse_update_(
         self, params: Params, pos: torch.Tensor, neg: torch.Tensor,
-        cfg: KGConfig, check_ids: bool = True
+        cfg: KGConfig, check_ids: bool = True,
+        update_mask: Optional[Params] = None
     ) -> tuple:
         """The compact SGD step written in place into ``params`` (tables
         the caller owns): the objective and its gradient on the compact
         tables of :meth:`_compact_batch`, ``compact - lr · grad``, and
-        those rows scattered back (pads dropped).  Returns ``(pair
-        losses, step loss)``; the projection of ``normalize="step"`` is
-        the caller's."""
+        those rows scattered back (pads dropped).  With ``update_mask``
+        (one ``(N,)`` bool tensor per table, on the tables' device) a
+        candidate row whose bit is False writes its unchanged compact
+        value back: the mask gathered at the candidates, pads False (the
+        reference's ``jnp.take(..., mode="fill", fill_value=False)``), and
+        one ``torch.where`` per table after the gradient, so the step
+        stays free of host syncs.  Returns ``(pair losses, step loss)``;
+        the projection of ``normalize="step"`` is the caller's."""
         cand, compact, pos_c, neg_c = self._compact_batch(params, pos, neg,
                                                           cfg)
         # the remap keeps id (in)equality, so the joint objective's sides,
@@ -743,7 +748,12 @@ class KGModel:
         stepped = apply_gradients(compact, grads, cfg.learning_rate)
         roles = self.param_roles()
         for name in params:
-            merge.put_drop_(params[name], cand[roles[name]], stepped[name])
+            ids = cand[roles[name]]
+            if update_mask is not None:
+                free = merge.take_mask(update_mask[name], ids)
+                stepped[name] = torch.where(free[..., None], stepped[name],
+                                            compact[name])
+            merge.put_drop_(params[name], ids, stepped[name])
         return pair, loss
 
     def sgd_step_sparse(
@@ -763,15 +773,33 @@ class KGModel:
         sums are in-order or sorted stably by row); and a row no id
         references has a dense gradient of exactly ``+0.0``, where ``p -
         lr · 0.0`` is ``p``, so leaving it out changes nothing.
-        ``update_mask`` (the online tier's masked fine-tune) is not ported
-        yet."""
-        if update_mask is not None:
-            raise not_ported("sgd_step_sparse(update_mask=...)", 14)
+
+        ``update_mask`` (the online tier's masked fine-tune; one ``(N,)``
+        bool tensor per table) freezes every row whose bit is False: a
+        frozen candidate row writes its unchanged value back (a bitwise
+        no-op), while free rows step against the frozen rows' values, and
+        the ``"step"`` projection leaves frozen rows alone
+        (:meth:`_masked_normalize`)."""
         params = {name: p.clone() for name, p in params.items()}
-        _, loss = self._sparse_update_(params, pos, neg, cfg)
+        _, loss = self._sparse_update_(params, pos, neg, cfg,
+                                       update_mask=update_mask)
         if cfg.normalize == "step":
-            params = self.normalize(params)
+            params = self._masked_normalize(params, update_mask)
         return params, loss
+
+    def _masked_normalize(
+        self, params: Params, update_mask: Optional[Params]
+    ) -> Params:
+        """:meth:`normalize`, with frozen rows kept bitwise when an
+        ``update_mask`` is given (re-projecting a trained row is not
+        always the identity).  Stacked ``(W, N, k)`` tables take the same
+        ``(N,)`` masks."""
+        normed = self.normalize(params)
+        if update_mask is None:
+            return normed
+        return {name: torch.where(update_mask[name][:, None], normed[name],
+                                  params[name])
+                for name in params}
 
     def run_epoch(
         self,
@@ -796,12 +824,18 @@ class KGModel:
         ``sparse_apply`` takes the compact step of :meth:`sgd_step_sparse`
         in place of the dense one (same bits), writing the stepped rows in
         place into copies of the tables the epoch owns; per worker for
-        stacked batches.  Returns ``(params, EpochStats)``."""
-        if update_mask is not None:
-            raise not_ported("run_epoch(update_mask=...)", 14)
+        stacked batches.  ``update_mask`` (one ``(N,)`` bool row mask per
+        table; the online tier's masked fine-tune) freezes the rows whose
+        bit is False bitwise, in the projections and in every step; it
+        rides the compact step, so it needs ``sparse_apply``.  Returns
+        ``(params, EpochStats)``."""
+        if update_mask is not None and not sparse_apply:
+            raise ValueError(
+                "update_mask requires sparse_apply=True — the masked "
+                "fine-tune rides the compact-row step's candidate gather")
         given = params
         if cfg.normalize == "epoch":
-            params = self.normalize(params)
+            params = self._masked_normalize(params, update_mask)
         if sparse_apply:
             params = {name: p.clone() if p is given[name] else p
                       for name, p in params.items()}
@@ -818,13 +852,13 @@ class KGModel:
             neg = neg_batches[:, s] if stacked else neg_batches[s]
             if sparse_apply:
                 pair, loss = self._sparse_update_(params, pos, neg, cfg,
-                                                  check_ids)
+                                                  check_ids, update_mask)
             else:
                 pair, loss, grads = self._pairs_and_grads(
                     params, pos, neg, cfg, check_ids=check_ids)
                 params = apply_gradients(params, grads, cfg.learning_rate)
             if cfg.normalize == "step":
-                params = self.normalize(params)
+                params = self._masked_normalize(params, update_mask)
             stats = _accumulate_touch(stats, pos, neg, pair, E, R)
             losses.append(loss)
         shape = lambda t, n: None if t is None else t.reshape(

@@ -13,7 +13,7 @@ the same arguments give the same arrays in both packages (the reference
 module imports jax, which is why the port keeps its own copy).  The one
 random draw that differs is ``KG.tc_negatives``: the reference draws with
 ``jax.random``, the port with a seeded ``torch.Generator``.  ``KG.extend``
-is not ported yet (ROADMAP.md queue 1, item 14).
+returns a grown copy (the online tier's graph update).
 
 The device pipeline's batching (``device_*``, ``repartition_perm*``) is
 torch on the run's device: the same functions as the reference's, drawn
@@ -169,6 +169,54 @@ class KG:
             self._tc_negatives[seed] = kg_eval._tc_negatives(
                 self.valid, self.test, self.n_entities, seed)
         return self._tc_negatives[seed]
+
+    def invalidate_caches(self) -> None:
+        """Drop every lazily built known-triplet structure.  The splits are
+        immutable by convention, so no supported path needs this; code that
+        mutates a graph in place must call it, or filtered ranks and
+        classification negatives keep the old candidate sets.  The online
+        tier goes through :meth:`extend`, which returns a fresh graph."""
+        self._known = None
+        self._known_index = None
+        self._filter_cands = {}
+        self._tc_negatives = {}
+
+    def extend(
+        self,
+        new_train: np.ndarray,
+        n_entities: Optional[int] = None,
+        n_relations: Optional[int] = None,
+    ) -> "KG":
+        """A **new** graph with ``new_train`` appended to the train split,
+        its counts grown to cover every id the delta names (or set to the
+        explicit ``n_entities`` / ``n_relations``, which must cover them).
+        A fresh instance starts with cold caches and a different train
+        digest, so no filter, negative or served answer of the old graph
+        is reused."""
+        new_train = np.asarray(new_train, np.int32).reshape(-1, 3)
+        n_ent, n_rel = self.n_entities, self.n_relations
+        if len(new_train):
+            n_ent = max(n_ent, int(new_train[:, (0, 2)].max()) + 1)
+            n_rel = max(n_rel, int(new_train[:, 1].max()) + 1)
+        if n_entities is not None:
+            if n_entities < n_ent:
+                raise ValueError(
+                    f"n_entities={n_entities} does not cover the delta's "
+                    f"max entity id ({n_ent - 1})")
+            n_ent = n_entities
+        if n_relations is not None:
+            if n_relations < n_rel:
+                raise ValueError(
+                    f"n_relations={n_relations} does not cover the delta's "
+                    f"max relation id ({n_rel - 1})")
+            n_rel = n_relations
+        return KG(
+            n_entities=n_ent,
+            n_relations=n_rel,
+            train=np.concatenate([self.train, new_train], axis=0),
+            valid=self.valid,
+            test=self.test,
+        )
 
 
 def _pad_groups(

@@ -10,12 +10,13 @@ Model + embedding tables + graph metadata as one object:
     best = kb.query_relations(h, t, k=3)
     e = kb.score(h, r, t)
     metrics = kg.evaluate(kb, engine="device")  # the paper's protocol
+    kb2 = kb.update(new_triples, delta_dir="chain")  # the online tier
+    kb2 = kg.KnowledgeBase.load_chain("chain")  # base + deltas replayed
 
 The on-disk format is the reference's (``train/checkpoint.py``), and
-``fingerprint()`` hashes the same bytes the same way: an artifact saved
-by either package loads in the other with the same fingerprint.
-Incremental updates and delta chains (``update`` / ``load_chain``) are
-not ported yet.
+``fingerprint()`` hashes the same bytes the same way: an artifact or a
+delta chain saved by either package loads in the other with the same
+fingerprint.
 """
 from __future__ import annotations
 
@@ -186,6 +187,74 @@ class KnowledgeBase:
         return cls(model=model, params=params, graph=graph,
                    norm=extra.get("norm", "l1"),
                    meta=extra.get("meta") or {})
+
+    @classmethod
+    def load_chain(cls, path: str, device=None) -> "KnowledgeBase":
+        """Replay a delta chain onto ``device`` (default: the GPU, as
+        :meth:`load`): load the base artifact at the chain's first step,
+        then apply each delta in order — grow the tables, keep the
+        surviving prefix, scatter the stored changed and appended rows,
+        extend the graph with the delta's triples.  Every link is checked
+        both ways: the delta's ``base`` fingerprint must be the artifact
+        built so far, and the rebuilt artifact must hash to its
+        ``result``, so a tampered or reordered chain raises."""
+        steps = ckpt_lib.chain_steps(str(path))
+        if not steps:
+            raise FileNotFoundError(f"no chain (or artifact) in {path}")
+        kb = cls.load(path, step=steps[0], device=device)
+        for step in steps[1:]:
+            tree, extra = ckpt_lib.load_tree(str(path), step)
+            if not extra.get("delta"):
+                raise ValueError(
+                    f"chain step {step} in {path} is not a delta — "
+                    "multiple base artifacts in one directory?")
+            if extra.get("base") != kb.fingerprint():
+                raise ValueError(
+                    f"delta step {step} applies to fingerprint "
+                    f"{extra.get('base')} but the chain so far builds "
+                    f"{kb.fingerprint()} — corrupted or reordered chain")
+            params = {}
+            for name, shape in (extra.get("tables") or {}).items():
+                old = kb.params[name]
+                table = old.new_zeros((int(shape[0]), int(shape[1])))
+                table[:old.shape[0]] = old
+                rows = (tree.get("rows") or {}).get(name)
+                if rows is not None and np.asarray(rows["idx"]).size:
+                    idx = torch.as_tensor(
+                        np.asarray(rows["idx"], np.int64), device=old.device)
+                    table[idx] = torch.as_tensor(
+                        np.asarray(rows["vals"]), device=old.device).to(
+                            old.dtype)
+                params[name] = table
+            graph = kb.graph
+            if graph is not None:
+                gt = (tree.get("graph") or {}).get("train")
+                if gt is None:
+                    gt = np.zeros((0, 3), np.int32)
+                graph = graph.extend(
+                    gt, n_entities=int(extra["n_entities"]),
+                    n_relations=int(extra["n_relations"]))
+            kb = cls(model=kb.model, params=params, graph=graph,
+                     norm=extra.get("norm", kb.norm),
+                     meta=extra.get("meta") or dict(kb.meta))
+            if kb.fingerprint() != extra.get("result"):
+                raise ValueError(
+                    f"replaying delta step {step} in {path} produced "
+                    f"fingerprint {kb.fingerprint()} but the manifest "
+                    f"records {extra.get('result')} — corrupted chain")
+        return kb
+
+    # -- online updates ----------------------------------------------------
+
+    def update(self, new_triples, **updater_kw) -> "KnowledgeBase":
+        """Fold ``new_triples`` into this artifact and return a NEW
+        KnowledgeBase on the same device (this one is immutable by
+        convention): grown tables for unseen ids, warm-initialised new
+        rows, a fine-tune of the touched rows only, the graph extended —
+        see ``repro_torch.online.OnlineUpdater`` for the knobs (epochs,
+        seed, scope, delta_dir, vocab, ...)."""
+        from repro_torch.online import OnlineUpdater
+        return OnlineUpdater(self, **updater_kw).update(new_triples)
 
     # -- serving -----------------------------------------------------------
 

@@ -23,7 +23,8 @@ against epochs from inside the loop, and ``fit(ckpt_dir=,
 checkpoint_every=, resume=True)`` checkpoints and resumes bit-identically.
 ``fit(merge_transport="sparse")`` trains on compact tables of the rows a
 step references and Reduces packed deltas of the touched rows, with the
-dense transport's bits.
+dense transport's bits.  ``update(kb, new_triples)`` folds new triples
+into a trained artifact (the online tier, ``repro_torch.online``).
 """
 from __future__ import annotations
 
@@ -340,3 +341,18 @@ def evaluate(
         params, kg, norm=norm or "l1", filtered=filtered, model=model,
         engine=engine, **engine_kw
     )
+
+
+def update(kb, new_triples, **updater_kw) -> "kb_lib.KnowledgeBase":
+    """Fold ``new_triples`` into a trained artifact and return a NEW
+    :class:`KnowledgeBase`: ``kg.update(kb, triples)`` is
+    ``kb.update(triples)``.  Unseen entities and relations get the ids a
+    fresh ``load_tsv_dir`` would intern, the grown tables warm-start from
+    their neighbours, and a short masked fine-tune moves only the rows the
+    delta touches (``repro_torch.online.OnlineUpdater``)."""
+    if not isinstance(kb, kb_lib.KnowledgeBase):
+        raise TypeError(
+            f"update() takes a KnowledgeBase artifact, got {type(kb)!r} — "
+            "train one with kg.fit(...).kb or load one with "
+            "KnowledgeBase.load")
+    return kb.update(new_triples, **updater_kw)

@@ -1,6 +1,6 @@
 """Checkpoints in the reference's on-disk format (port of
 ``repro.train.checkpoint``: full saves of a params tree, synchronous or
-through :class:`AsyncSaver`; no optimizer state or delta chains yet).
+through :class:`AsyncSaver`, and delta chains; no optimizer state).
 
 Layout:  ``<dir>/step_<N>/arrays.npz`` + ``manifest.json``, written to a
 ``.tmp`` sibling then ``os.rename``d, so a crash mid-write never leaves a
@@ -19,6 +19,18 @@ values' bytes as ``|V2``; the ``.npy`` header spells the reference's
 serve such an array after loading it: the reference's untemplated
 restore returns it as ``|V2`` and its templated restore raises; the
 port's templated restore raises too (:func:`restore`).
+
+Delta chains: :func:`save_delta` appends a *delta* step holding only the
+rows an online update changed or appended (plus the delta's triples)
+against the chain tip.  A chain directory is one full base artifact at
+its first step followed by delta steps, each manifest naming the
+fingerprint it applies to (``base``) and the one it produces
+(``result``).  A delta saved into a directory whose tip is another
+artifact raises before any byte lands, synchronously in
+``AsyncSaver.save_delta_async`` too.  No cleanup ever runs on a chain
+(every link is needed to replay it), and :func:`restore` refuses delta
+steps: ``KnowledgeBase.load_chain`` replays them.  Chains cross between
+the two packages both ways.
 """
 from __future__ import annotations
 
@@ -143,6 +155,108 @@ class AsyncSaver:
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
+    def save_delta_async(self, ckpt_dir: str, tree, extra: Dict[str, Any],
+                         step: Optional[int] = None):
+        """:func:`save_delta` with the disk I/O on the thread; the manifest
+        keys and the chain tip are checked here, so a mismatched base
+        raises in the caller's frame, not at a later :meth:`wait`."""
+        self.wait()
+        _check_delta(ckpt_dir, extra)
+        host_tree = _to_host(tree)
+
+        def run():
+            try:
+                save_delta(ckpt_dir, host_tree, extra, step=step)
+            except Exception as e:                    # raised by wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+
+DELTA_KIND = "kb_delta"
+
+
+def chain_steps(ckpt_dir: str) -> list:
+    """Committed step numbers in a chain directory, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(
+        int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+        if d.startswith("step_") and not d.endswith(".tmp")
+        and os.path.exists(os.path.join(ckpt_dir, d, "manifest.json")))
+
+
+def chain_tip_fingerprint(ckpt_dir: str) -> Optional[str]:
+    """Fingerprint of the artifact the chain builds to: the latest step's
+    ``fingerprint`` (a base artifact) or ``result`` (a delta).  None for an
+    empty or missing directory; raises for an artifact saved without a
+    fingerprint."""
+    steps = chain_steps(ckpt_dir)
+    if not steps:
+        return None
+    extra = _read_manifest(ckpt_dir, steps[-1]).get("extra") or {}
+    fp = extra.get("result") if extra.get("delta") else extra.get(
+        "fingerprint")
+    if fp is None:
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} step {steps[-1]} carries no "
+            "fingerprint — saved before delta chains existed?  Re-save the "
+            "base artifact to start a chain.")
+    return fp
+
+
+def _check_delta(ckpt_dir: str, extra: Dict[str, Any]) -> None:
+    """A delta's manifest names ``delta``, ``base`` and ``result``, and
+    ``base`` is the chain tip's fingerprint."""
+    for key in ("delta", "base", "result"):
+        if not extra.get(key):
+            raise ValueError(
+                f"delta manifest must set {key!r} (got extra={extra!r})")
+    tip = chain_tip_fingerprint(ckpt_dir)
+    if tip is None:
+        raise FileNotFoundError(
+            f"no base artifact in {ckpt_dir} — save the base with "
+            "KnowledgeBase.save before appending deltas")
+    if tip != extra["base"]:
+        raise ValueError(
+            f"delta applies to fingerprint {extra['base']} but the chain "
+            f"tip at {ckpt_dir} is {tip} — unrelated base artifact?")
+
+
+def save_delta(
+    ckpt_dir: str,
+    tree,
+    extra: Dict[str, Any],
+    step: Optional[int] = None,
+) -> str:
+    """Append a delta step (the tree under ``params::``) to a chain
+    directory and return the committed directory.  ``extra`` must carry
+    ``delta=True``, ``base`` (the fingerprint the delta applies to, which
+    must be the chain tip's) and ``result``; a mismatch raises before any
+    byte lands.  ``step`` defaults to the tip's plus one; no cleanup
+    runs."""
+    _check_delta(ckpt_dir, extra)
+    if step is None:
+        step = chain_steps(ckpt_dir)[-1] + 1
+    final = _step_dir(ckpt_dir, step)
+    if os.path.exists(final):
+        raise FileExistsError(f"chain step already committed: {final}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    arrays = {f"params::{k}": v
+              for k, v in _flatten_with_paths(tree).items()}
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    manifest = {"step": step, "extra": extra, "has_opt": False}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.rename(tmp, final)
+    return final
+
 
 def _read_manifest(ckpt_dir: str, step: int) -> Dict[str, Any]:
     with open(os.path.join(_step_dir(ckpt_dir, step), "manifest.json")) as f:
@@ -151,7 +265,8 @@ def _read_manifest(ckpt_dir: str, step: int) -> Dict[str, Any]:
 
 def load_tree(ckpt_dir: str, step: int) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Raw (params tree, extra) of one step — nested dicts of host arrays,
-    no validation."""
+    no validation; what ``KnowledgeBase.load_chain`` replays deltas
+    with."""
     manifest = _read_manifest(ckpt_dir, step)
     with np.load(os.path.join(_step_dir(ckpt_dir, step), "arrays.npz")) as z:
         flat = {k[len("params::"):]: z[k] for k in z.files
@@ -168,14 +283,8 @@ def _cleanup(ckpt_dir: str, keep: int):
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
-    if not os.path.isdir(ckpt_dir):
-        return None
-    steps = [
-        int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
-        if d.startswith("step_") and not d.endswith(".tmp")
-        and os.path.exists(os.path.join(ckpt_dir, d, "manifest.json"))
-    ]
-    return max(steps) if steps else None
+    steps = chain_steps(ckpt_dir)
+    return steps[-1] if steps else None
 
 
 def validate_extra(
@@ -245,8 +354,8 @@ def restore(
     """Restore ``(step, params, extra)`` (stored optimizer state is not
     read).  ``step=None`` takes the latest committed step; ``expect``
     compares manifest ``extra`` fields (:func:`validate_extra`).  A delta
-    step of a reference delta chain is refused: the port cannot replay
-    chains yet.
+    step is refused: no resume ever starts from one, and
+    ``KnowledgeBase.load_chain`` replays a chain.
 
     Without ``params_template`` the params tree is rebuilt self-describing
     from the stored paths (nested dicts of host arrays).  With one (a tree
@@ -264,8 +373,8 @@ def restore(
     extra = manifest.get("extra") or {}
     if extra.get("delta"):
         raise ValueError(
-            f"{d} is a delta step, not a full checkpoint — repro_torch "
-            "cannot replay delta chains yet (ROADMAP.md queue 1, item 14)")
+            f"{d} is a delta step, not a full checkpoint — replay the "
+            "chain with KnowledgeBase.load_chain instead of restore()")
     if expect:
         validate_extra(extra, expect, d)
     if params_template is None:

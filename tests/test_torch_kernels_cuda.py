@@ -588,3 +588,119 @@ def test_transh_step_cpu_equals_card(cuda, norm):
     assert torch.equal(l_card.cpu(), l_cpu)
     for name in p_cpu:
         assert torch.equal(p_card[name].cpu(), p_cpu[name]), name
+
+
+def _half_mask(n, seed):
+    return torch.rand(n, generator=torch.Generator().manual_seed(seed)) < 0.5
+
+
+@pytest.mark.cuda
+def test_masked_block_makes_no_host_sync(cuda):
+    """A masked fine-tune block (``make_block_fn(update_mask=...)``, the
+    sparse transport) on the card makes no host sync, launches both
+    kernels once a step, keeps frozen rows bitwise and gives the CPU
+    block's bits."""
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    kcfg, mcfg = kg.make_configs(graph, "transe", "sgd", dim=32,
+                                 batch_size=128, pipeline="device",
+                                 merge_transport="sparse")
+    part = kg_data.PARTITIONERS["balanced"](0, graph.train, 4)
+    init = get_model("transe").init_params(
+        torch.Generator().manual_seed(0), kcfg, device="cpu")
+    mask = {"ent": _half_mask(400, 1), "rel": _half_mask(8, 2)}
+    out = {}
+    for dev in ("cpu", cuda):
+        block_fn = mapreduce.make_block_fn(
+            mcfg, kcfg, torch.as_tensor(part, device=dev), seed=3,
+            with_overflow=True, update_mask=mask)
+        params = {n: t.to(dev) for n, t in init.items()}
+        if dev == "cpu":
+            out[dev] = block_fn(params, range(2))
+            continue
+        before = (transe_score.transe_score.launches,
+                  transe_score.transe_score_bwd.launches)
+        with _NoHostSync():
+            out[dev] = block_fn(params, range(2))
+        steps = 2 * (part.shape[1] // 128)
+        assert (transe_score.transe_score.launches - before[0],
+                transe_score.transe_score_bwd.launches - before[1]) == (
+                    steps, steps)
+    (p_cpu, loss_cpu, _), (p_card, loss_card, ovf) = out["cpu"], out[cuda]
+    assert int(ovf) == 0
+    assert torch.equal(loss_card.cpu(), loss_cpu)
+    for name in p_cpu:
+        assert torch.equal(p_card[name].cpu(), p_cpu[name]), name
+        frozen = ~mask[name]
+        assert torch.equal(p_cpu[name][frozen], init[name][frozen])
+        assert not torch.equal(p_cpu[name][~frozen], init[name][~frozen])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", ["epoch", "step"])
+def test_masked_compact_step_cpu_equals_card(cuda, normalize):
+    """A masked compact TransE step of 4 stacked workers (the kernels,
+    then the mask's gather and ``where``) gives the same bits on the CPU
+    and on the card, frozen rows unchanged."""
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    kcfg, _ = kg.make_configs(graph, "transe", "sgd", dim=32,
+                              normalize=normalize)
+    model = get_model("transe")
+    params = mapreduce._broadcast(model.init_params(
+        torch.Generator().manual_seed(0), kcfg, device="cpu"), 4)
+    gen = torch.Generator().manual_seed(1)
+    pos = torch.stack([torch.randint(0, 400, (4, 128), generator=gen),
+                       torch.randint(0, 8, (4, 128), generator=gen),
+                       torch.randint(0, 400, (4, 128), generator=gen)], -1)
+    neg = pos.clone()
+    neg[..., 2] = torch.randint(0, 400, (4, 128), generator=gen)
+    mask = {"ent": _half_mask(400, 3), "rel": _half_mask(8, 4)}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {n: t.to(dev) for n, t in params.items()}
+        m = {n: t.to(dev) for n, t in mask.items()}
+        out[dev] = model.sgd_step_sparse(p, pos.to(dev), neg.to(dev), kcfg,
+                                         update_mask=m)
+    (p_cpu, l_cpu), (p_card, l_card) = out["cpu"], out[cuda]
+    assert torch.equal(l_card.cpu(), l_cpu)
+    for name in p_cpu:
+        assert torch.equal(p_card[name].cpu(), p_cpu[name]), name
+        assert torch.equal(p_cpu[name][:, ~mask[name]],
+                           params[name][:, ~mask[name]])
+
+
+@pytest.mark.cuda
+def test_update_on_card_keeps_frozen_rows(cuda, tmp_path):
+    """``kb.update`` of an artifact on the card runs there: frozen rows
+    bitwise the base's, the same bits as the update of the same artifact
+    on the CPU, and a chain of it reloads on the card to its
+    fingerprint."""
+    from repro_torch.kb import KnowledgeBase
+    from repro_torch.online import OnlineUpdater
+
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    base = kg.fit(graph, epochs=2, dim=32, batch_size=128, n_workers=4,
+                  pipeline="device", device=cuda).kb
+    rng = torch.Generator().manual_seed(5)
+    delta = torch.stack([torch.randint(0, 420, (300,), generator=rng),
+                         torch.randint(0, 8, (300,), generator=rng),
+                         torch.randint(0, 400, (300,), generator=rng)],
+                        1).numpy()
+    chain = str(tmp_path / "chain")
+    kb_card = base.update(delta, epochs=2, seed=3, delta_dir=chain)
+    on_cpu = KnowledgeBase(base.model, {n: t.cpu() for n, t in
+                                        base.params.items()},
+                           graph=base.graph, norm=base.norm)
+    kb_cpu = on_cpu.update(delta, epochs=2, seed=3)
+    plan = OnlineUpdater(base, epochs=2, seed=3).plan(delta)
+    for name, table in kb_card.params.items():
+        assert table.device.type == "cuda"
+        assert torch.equal(table.cpu(), kb_cpu.params[name]), name
+        n = base.params[name].shape[0]
+        frozen = torch.as_tensor(~plan.update_mask[name][:n], device=cuda)
+        assert torch.equal(table[:n][frozen], base.params[name][frozen])
+    assert kb_card.fingerprint() == kb_cpu.fingerprint()
+    re = KnowledgeBase.load_chain(chain, device=cuda)
+    assert re.fingerprint() == kb_card.fingerprint()

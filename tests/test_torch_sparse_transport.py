@@ -354,16 +354,38 @@ def _check_compact_step(model, model_name, normalize, rng, E, R):
 
 
 def test_compact_step_update_mask_not_ported():
+    """The compact step's ``update_mask``, now ported: an all-true mask
+    gives the unmasked compact step's bits, an all-false one the input's
+    bits, under both projections and on stacked workers."""
     model = get_model("transe")
-    kcfg, _ = port_kg.make_configs(
-        kg_lib.synthetic_kg(0, n_entities=60, n_relations=4, n_triplets=200),
-        dim=8)
-    params = model.init_params(torch.Generator(), kcfg, device="cpu")
-    pos = _random_batch(np.random.default_rng(0), 60, 4, 8)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.sgd_step_sparse(params, pos, pos, kcfg,
-                              update_mask={n: torch.ones(len(t), dtype=bool)
-                                           for n, t in params.items()})
+    rng = np.random.default_rng(0)
+    for normalize in ("epoch", "step"):
+        kcfg, _ = port_kg.make_configs(
+            kg_lib.synthetic_kg(0, n_entities=60, n_relations=4,
+                                n_triplets=200),
+            dim=8, learning_rate=0.05, normalize=normalize)
+        params = model.init_params(torch.Generator(), kcfg, device="cpu")
+        stacked = {n: t.unsqueeze(0).repeat(2, 1, 1)
+                   for n, t in params.items()}
+        for p, lead in ((params, (8,)), (stacked, (2, 8))):
+            pos = _random_batch(rng, 60, 4, *lead)
+            neg = _random_batch(rng, 60, 4, *lead)
+            given = {n: t.clone() for n, t in p.items()}
+            ones = {n: torch.ones(t.shape[-2], dtype=torch.bool)
+                    for n, t in p.items()}
+            zeros = {n: ~m for n, m in ones.items()}
+            plain, plain_l = model.sgd_step_sparse(p, pos, neg, kcfg)
+            free, free_l = model.sgd_step_sparse(p, pos, neg, kcfg,
+                                                 update_mask=ones)
+            frozen, frozen_l = model.sgd_step_sparse(p, pos, neg, kcfg,
+                                                     update_mask=zeros)
+            assert torch.equal(_bits(free_l), _bits(plain_l))
+            assert torch.equal(_bits(frozen_l), _bits(plain_l))
+            for k in p:
+                assert torch.equal(_bits(free[k]), _bits(plain[k])), k
+                assert torch.equal(_bits(frozen[k]), _bits(given[k])), k
+                assert torch.equal(_bits(p[k]), _bits(given[k]))
+                assert not torch.equal(_bits(plain[k]), _bits(given[k]))
 
 
 @pytest.mark.parametrize("model_name", MODELS)

@@ -71,10 +71,11 @@
    width, through ``kg.fit``: (a) SGD ``average`` with ``merge_every=2``
    and ``repartition_every=2``, 4 epochs, ``block_epochs=4`` and then
    ``block_epochs=2``; (b) BGD, 3 epochs in one block; (c) one merge
-   round of (a) (its first 2 epochs) on the CPU and on the card, from
-   fit's seed-0 init and the port's own draws, and the counter-based draws
-   (``core/keys.py``) alone on 2**20 counters on both; (d) one block of
-   (a) through ``mapreduce.make_block_fn`` under
+   round of (a)'s configuration (2 epochs) on the cut split (the first
+   quarter of the training split, ``DEPTH_CUT``) on the CPU and on the
+   card, from fit's seed-0 init and the port's own draws, and the
+   counter-based draws (``core/keys.py``) alone on 2**20 counters on
+   both; (d) one block of (a) through ``mapreduce.make_block_fn`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (its losses read after),
    the peak memory of a block with ``donate_params`` on and off
    (``torch.cuda.max_memory_allocated``), and a block under
@@ -87,8 +88,8 @@
    losses; (e)'s trace entries lie at merge rounds [1, 2] and its last
    equals a later ``kg.evaluate``; the manifests carry
    ``pipeline="device"``; each loss fell; (f) ``transe_score`` forward and
-   backward launched 520 times an epoch on the card and ``rank_counts``
-   232 times an evaluation.  Reports epoch seconds, the block's idle
+   backward launched once a step on the card and ``rank_counts`` 232
+   times an evaluation.  Reports epoch seconds, the block's idle
    share, launches and device→host copies a step beside the host
    pipeline's profile of the training path, and the peak memory.
 
@@ -123,11 +124,13 @@
    bounded.
 
 8. The model family and joint negatives (``model_family_path``), at the
-   training path's width, through ``kg.fit``: (a) TransH, SGD
-   ``average`` 2 epochs and BGD 1, host pipeline; (b) DistMult, the same;
-   (c) TransE with ``negatives="joint"``: bench_async's joint-48 (SGD, L2,
-   ``neg_candidates=48``, ``merge_every=2``) on the device pipeline, 4
-   epochs in blocks of 4 and of 2, and the full pool (C = 256) under BGD,
+   training path's width on phase 6's cut split, through ``kg.fit``: (a)
+   TransH, SGD ``average`` 1 epoch and BGD 1, host pipeline; (b)
+   DistMult, the same; (c) TransE with ``negatives="joint"``:
+   bench_async's joint-48 (SGD, L2, ``neg_candidates=48``,
+   ``merge_every=2``) on the device pipeline, 4 epochs in blocks of 4
+   and of 2 on the whole split (its loss is checked, and on the cut split
+   it does not fall in 4 epochs), and the full pool (C = 256) under BGD,
    L1, 1 epoch, host pipeline; (d) each of the three SGD artifacts saved,
    loaded, queried (filtered tails and heads, relations, scores on 1,024
    pairs), ranked (``rank()``) and evaluated (``kg.evaluate(kb,
@@ -150,13 +153,15 @@
    run beside its dense twin.  (a) At phase 3's width and configuration
    (where the capacity clamps to the whole table, so only the compact
    step differs from dense): SGD ``average`` on the host pipeline, 2
-   epochs; BGD, 1 epoch; the device pipeline's SGD ``merge_every=2``,
+   epochs on the whole split (its loss is checked); then on phase 6's
+   cut split BGD, 1 epoch; the device pipeline's SGD ``merge_every=2``,
    ``repartition_every=2``, 4 epochs, dense in one block and sparse in
    blocks of 4 and 2; one sparse block under
    ``torch.cuda.set_sync_debug_mode("error")``, the peak memory of a
    sparse block with ``donate_params`` on and off, and a sparse block
    under ``torch.profiler``; the SGD and BGD sparse artifacts evaluated.
-   (b) TransH and DistMult, 1 SGD epoch on the host pipeline, and joint-48
+   (b) On the cut split, TransH and DistMult, 1 SGD epoch on the host
+   pipeline, and joint-48
    TransE for one merge round on the device pipeline.  (c) The
    million-entity cell of ``benchmarks/bench_scale.py`` (``SIZES[1e6]``
    and ``task=roundtrip``): ``random_kg(1e6, 50,000, 100 relations, 16
@@ -178,7 +183,7 @@
 
 10. Bounded staleness and sharded tables (``stale_sharded_path``). (a)
    At phase 3's width, SGD ``average`` on the device pipeline with a
-   Reduce every epoch, 6 epochs: the synchronous run, ``staleness=0``,
+   Reduce every epoch, 3 epochs: the synchronous run, ``staleness=0``,
    ``staleness=1`` in one block and in blocks of 2, ``staleness=2``, and
    ``staleness=1`` on the sparse transport; one stale block per transport
    under ``torch.cuda.set_sync_debug_mode("error")``; a stale block's and
@@ -190,12 +195,14 @@
    lies within 1.3 times the sync cell's (the bench's band), and its
    2-epoch block's ms; then 2 rounds of ``staleness=1`` on the CPU and on
    the card, and the refresh phases drawn on both.  (c) Sharded tables
-   at phase 3's width, each run beside its replicated twin: SGD on the
+   at phase 3's width on phase 6's cut split, each run beside its
+   replicated twin: SGD on the
    sparse transport, host pipeline, 2 epochs, ``average`` and
    ``random``; phase 6's device configuration on the sparse transport;
-   BGD sparse, 1 epoch; ``staleness=1`` sharded against (a)'s sparse
-   run.  Then on the sharded SGD artifact ``kg.evaluate(kb,
-   engine="device", table_sharding="sharded", n_workers=4)`` against the
+   BGD sparse, 1 epoch; and on the whole split ``staleness=1`` sharded
+   against (a)'s sparse run.  Then on the sharded SGD artifact
+   ``kg.evaluate(kb, engine="device", table_sharding="sharded",
+   n_workers=4)`` against the
    replicated evaluation with ``fused=False`` and the fused one, sharded
    filtered ``query_tails`` / ``query_heads`` of 1,024 pairs at k = 10
    against the replicated engine, and the launches of an evaluation per
@@ -245,6 +252,44 @@
    against the full save, and p50/p99 across the swap, beside the card's
    name and power limit.
 
+12. Entry points (``entry_points_path``): ``repro_torch.launch.train.main``
+   in this process at phase 3's entity and triplet counts (the
+   launcher's own synthetic graph: 15 relations, dim 48, batch 256, 4
+   workers), SGD on the device pipeline for 2 epochs with a checkpoint,
+   ``--kg-eval-engine device``, a 300-triple ``--kg-update`` (5 new
+   entities) and ``--kg-serve --kg-requests 500``, alone on the host and
+   the card.  All three kernels' counters are zeroed just before
+   ``main`` and read just after it.  Then, started at once (2 host
+   threads each), the same training on a 60,000-triplet graph through
+   ``python -m repro_torch.launch.train`` and the three examples at cut
+   epochs, beside the direct fit and ``main`` on the subprocess's
+   arguments.  Checks: the checkpoint equals a direct ``kg.fit`` with the
+   same arguments bitwise; the serve line shows ``steady_recompiles=0``;
+   the update applied; the subprocess exits 0 with the final-loss line
+   of ``main`` on its arguments; each example exits 0 with its closing
+   line.  Reports ``main``'s seconds and serve p50/p99.
+
+13. The shard_map backend (``shard_map_path``), at phase 3's
+   configuration on phase 6's cut split (no loss is checked here): (a) a one-rank NCCL mesh in this process holding all
+   4 workers: host SGD ``average`` and ``random`` under both
+   ``reduce_impl``s and BGD (1 epoch each), the device pipeline's SGD
+   (``merge_every=2``, ``repartition_every=2``, one round) dense under
+   both Reduces and sparse, BGD, ``kg.evaluate`` and 1,024 filtered
+   top-k queries, each against its vmap twin, the twins run first;
+   (b) 2 gloo ranks sharing
+   the card (``python3 chip_smoke.py --shard-rank SPEC RANK``, the
+   kernels built before they start, the graph handed over as a file):
+   the device SGD round under ``allgather``, a BGD epoch and the
+   evaluation.  All three kernels' counters are zeroed just before (a)'s
+   shard_map runs, after the twins, and read just after them; the ranks
+   count only their own runs and write the counts to a file.  Checks:
+   (a) every pair the vmap bits; (b) SGD the vmap bits, BGD within rtol
+   1e-4 / atol 1e-5, the evaluation exact, the ranks equal; every rank's
+   join bounded.
+   Reports the epoch seconds beside vmap's, the bytes of a dense
+   ``average`` Reduce under each ``reduce_impl`` and the gloo seconds
+   (gloo over one card, not a multi-GPU speed).
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -257,6 +302,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -274,6 +320,14 @@ TRANSE_CASES = ((4, 256, FB15K["n_entities"], FB15K["n_relations"]),
                 (1, 1 << 20, 1_000_000, FB15K["n_relations"]),
                 (4, 256, 4 * 256, 2 * 256))
 TRAIN = dict(n_workers=4, batch_size=256)   # kg.make_configs' defaults
+# Phases 6, 8-10 and 13 run the training path's configuration many times
+# over, each run beside its twin.  Their runs whose loss is not checked
+# keep its widths (every entity and relation, dim 50, 4 workers, batch
+# 256) and its valid and test splits, and train on the first 1/DEPTH_CUT
+# of its training split (the cut split), each epoch 1/DEPTH_CUT of its
+# steps.  A loss checked to fall trains on the whole split: a cut epoch
+# ends in a Reduce before the loss settles, and the next can start higher.
+DEPTH_CUT = 4
 SGD_EPOCHS, BGD_EPOCHS = 4, 3
 # phase 6: the device pipeline's SGD configuration, and the counters its
 # draws are held on, CPU against card
@@ -307,7 +361,7 @@ PARITY_CELLS = (("tails", "plain"), ("tails", "filtered"),
 # phase 8: the model family and joint negatives, at phase 3's width; the
 # joint objective's two cells are benchmarks/bench_async.py's joint-48
 # (SGD, L2, merge_every=2, device pipeline) and the full pool under BGD
-FAMILY_SGD_EPOCHS, FAMILY_BGD_EPOCHS, JOINT_EPOCHS = 2, 1, 4
+FAMILY_SGD_EPOCHS, FAMILY_BGD_EPOCHS, JOINT_EPOCHS = 1, 1, 4
 FAMILY_RERUN_STEPS = 20
 JOINT_SGD = dict(negatives="joint", neg_candidates=48, norm="l2",
                  pipeline="device", merge_every=2)
@@ -334,7 +388,7 @@ SCALE_CELL = dict(n_entities=1_000_000, n_triplets=50_000, batch=4_096,
 # sizes, dim, norm, batch, workers, lr, epochs, eval_every, the 1.3 quality
 # band around the sync cell's final rank), its blocks timed as the bench
 # does (the median of rounds of calls, round-robin over the cells)
-STALE_EPOCHS = 6
+STALE_EPOCHS = 3
 STALE_SGD = dict(strategy="average", pipeline="device", merge_every=1)
 ASYNC_CELL = dict(graph=(1, 300, 10, 6000), dim=64, norm="l2",
                   batch_size=270, n_workers=4, learning_rate=32.0,
@@ -352,6 +406,24 @@ ONLINE_SMALL = 300          # delta triples of the small updates
 # the query stream across the refresh: long enough that the refresh
 # (an update and the new graph's known index, ~6 s) ends inside it
 ONLINE_STREAM = dict(arrivals=16000, rate=1000.0, after=200)
+# phase 12: the launcher at phase 3's entity and triplet counts (its own
+# synthetic graph: 15 relations, dim 48, batch 256, 4 workers, as the
+# launcher fixes them), a small update delta and the examples' cut epochs
+ENTRY_GRAPH = dict(entities=14951, triplets=592213, epochs=2)
+ENTRY_REQUESTS = 500
+ENTRY_DELTA = dict(triples=300, new_entities=5, seed=11)
+ENTRY_EXAMPLE_EPOCHS = 4
+# the launcher's subprocess trains a graph of the probe's triplet count,
+# held against main() in this process on the same arguments
+ENTRY_SUBPROCESS_TRIPLETS = PROBE_TRIPLETS
+# each subprocess's host threads: four start at once on the card's host
+ENTRY_SUBPROCESS_THREADS = 2
+ENTRY_SUBPROCESS_S = 180    # the launcher subprocess's and examples' bound
+# phase 13: the shard_map backend; gloo ranks sharing the one card
+SHARD_GLOO_RANKS = 2
+SHARD_M1_BACKEND = "nccl"    # the one-rank mesh of (a)
+SHARD_COLLECTIVE_S = 120    # a collective's timeout in every rank
+SHARD_RANK_S = 180          # every gloo rank's bound
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
@@ -406,6 +478,18 @@ def cuda_ms(torch, fn, reps, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_out(torch, fn):
+    """``(fn(), device milliseconds of that one run)`` (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def kernel_ms(torch, fn, reps, names, sessions=3):
@@ -587,8 +671,10 @@ def rank_case(torch, q, tab, gold, norm, rates, timed):
     rechecked = torch.zeros(1, dtype=torch.int64, device=DEVICE)
     got = rank_topk.rank_counts(q, tab, gold, norm=norm,
                                 recheck_counter=rechecked)
-    want = ref.rank_counts_ref(q, tab, gold, norm)
-    torch.cuda.synchronize()
+    small = B * E < 1e8
+    # at the large shape the plain version's one timed run is this one
+    want, want_ms = cuda_ms_out(
+        torch, lambda: ref.rank_counts_ref(q, tab, gold, norm))
     bound_ms, bound_by = rank_counts_bound(B, E, k, tab.element_size(), norm,
                                            rates)
     case = {
@@ -602,7 +688,6 @@ def rank_case(torch, q, tab, gold, norm, rates, timed):
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     if timed:
-        small = B * E < 1e8
         call = lambda: rank_topk.rank_counts(q, tab, gold, norm=norm)
         reps = 50 if small else 5
         # the kernels' own device time per call (the profiler), and the
@@ -613,7 +698,7 @@ def rank_case(torch, q, tab, gold, norm, rates, timed):
         case["ms"] = sum(case["kernels_ms"].values())
         case["call_ms"] = cuda_ms(torch, call, reps=reps)
         case["plain_ms"] = cuda_ms(torch, lambda: ref.rank_counts_ref(
-            q, tab, gold, norm), reps=3 if small else 1, warmup=0)
+            q, tab, gold, norm), reps=3, warmup=0) if small else want_ms
         qf, tf = q.float(), tab.float()
         p = 1.0 if norm == "l1" else 2.0
         # cdist's grid holds < 2**31 outputs: one call per part
@@ -854,6 +939,15 @@ def build_graph():
     return graph, {"n_triplets_asked": n_triplets, "probe_s": probe_s,
                    "build_s": seconds, "train": len(graph.train),
                    "valid": len(graph.valid), "test": len(graph.test)}
+
+
+def depth_cut(graph):
+    """``graph`` with the first 1/DEPTH_CUT of its training split."""
+    from repro_torch.data import kg as kg_data
+
+    return kg_data.KG(graph.n_entities, graph.n_relations,
+                      graph.train[:len(graph.train) // DEPTH_CUT],
+                      graph.valid, graph.test)
 
 
 def check_topk(res, n, k, label, known=None):
@@ -1254,8 +1348,8 @@ def eval_resume_path(torch, graph, sgd, bgd):
         if cfg != want_cfg["bgd" if key.startswith("C") else "sgd"]:
             fail(f"manifest {key} holds config {cfg}")
     info["runs_s"] = time.perf_counter() - t_phase
-    per_eval = 2 * eval_device._layout(len(graph.test),
-                                       eval_device.DEFAULT_CHUNK)[0]
+    per_eval = 2 * eval_device.shard_layout(len(graph.test),
+                                            eval_device.DEFAULT_CHUNK, 1)[0]
     predicted = {"rank_counts": 2 * per_eval,
                  "transe_score": steps * (2 * SGD_EPOCHS + BGD_EPOCHS),
                  "transe_score_bwd": steps * (2 * SGD_EPOCHS + BGD_EPOCHS)}
@@ -1310,9 +1404,10 @@ def eval_resume_path(torch, graph, sgd, bgd):
     return info, launches
 
 
-def device_pipeline_path(torch, graph):
-    """The device pipeline (item 6 of the module docstring).  Returns the
-    path's info and its launches of each kernel."""
+def device_pipeline_path(torch, graph, cut):
+    """The device pipeline (item 6 of the module docstring), its CPU round
+    on ``cut``.  Returns the path's info and its launches of each
+    kernel."""
     from repro_torch import kg
     from repro_torch.core import eval_device, keys, mapreduce
     from repro_torch.core.models import get_model
@@ -1322,6 +1417,7 @@ def device_pipeline_path(torch, graph):
 
     info = {}
     steps = len(graph.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
+    cut_steps = len(cut.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
     sgd_kw = dict(seed=0, device=DEVICE, **TRAIN, **DEVICE_SGD)
     bgd_kw = dict(seed=0, device=DEVICE, pipeline="device", **TRAIN)
     marks = {}
@@ -1353,9 +1449,9 @@ def device_pipeline_path(torch, graph):
         b = kg.fit(graph, "transe", "bgd", epochs=3, block_epochs=3,
                    callback=timer("b"), **bgd_kw)
         # (c) one merge round on the card (the CPU's below)
-        c_card = kg.fit(graph, "transe", "sgd", epochs=2, block_epochs=2,
+        c_card = kg.fit(cut, "transe", "sgd", epochs=2, block_epochs=2,
                         **sgd_kw)
-        card_epochs += 4 + 4 + 3 + 2
+        card_epochs += 4 + 4 + 3
         # (d) one block with any host sync an error
         block_fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
                                            donate=True)
@@ -1420,7 +1516,7 @@ def device_pipeline_path(torch, graph):
 
     # (c) the CPU's round, and the draws alone
     t0 = time.perf_counter()
-    c_cpu = kg.fit(graph, "transe", "sgd", epochs=2, block_epochs=2,
+    c_cpu = kg.fit(cut, "transe", "sgd", epochs=2, block_epochs=2,
                    **dict(sgd_kw, device="cpu"))
     info["cpu_round_s"] = time.perf_counter() - t0
     wkeys = keys.fold_in(keys.device_keys(0)[1], torch.arange(4))
@@ -1464,10 +1560,10 @@ def device_pipeline_path(torch, graph):
                  "resumed_vs_unbroken": same_run(e_resumed, a4),
                  "sync_checked_block_vs_fit": info[
                      "sync_checked_block_losses"] == a4.loss_history[:2]})
-    predicted = {"rank_counts": n_evals * 2 * eval_device._layout(
-                     len(graph.test), eval_device.DEFAULT_CHUNK)[0],
-                 "transe_score": steps * card_epochs,
-                 "transe_score_bwd": steps * card_epochs}
+    predicted = {"rank_counts": n_evals * 2 * eval_device.shard_layout(
+                     len(graph.test), eval_device.DEFAULT_CHUNK, 1)[0],
+                 "transe_score": steps * card_epochs + cut_steps * 2,
+                 "transe_score_bwd": steps * card_epochs + cut_steps * 2}
     info["launches_predicted"] = predicted
     print("device pipeline " + json.dumps(info), flush=True)
     if not all(info["bitwise"].values()):
@@ -1996,10 +2092,10 @@ def family_server_parity(torch, kb):
     return checked
 
 
-def model_family_path(torch, graph):
+def model_family_path(torch, graph, joint_graph):
     """The model family and joint negatives (item 8 of the module
-    docstring).  Returns the path's info and its launches of each
-    kernel."""
+    docstring), joint-48's SGD runs on ``joint_graph``.  Returns the
+    path's info and its launches of each kernel."""
     from repro_torch import kg
     from repro_torch.core import eval_device, mapreduce
     from repro_torch.core.models import KGConfig, get_model
@@ -2032,7 +2128,7 @@ def model_family_path(torch, graph):
     # blocks of 4 and of 2, the full pool under BGD on the host pipeline
     for blocks in (4, 2):
         runs[f"joint_sgd_block{blocks}"] = kg.fit(
-            graph, "transe", "sgd", epochs=JOINT_EPOCHS,
+            joint_graph, "transe", "sgd", epochs=JOINT_EPOCHS,
             block_epochs=blocks, callback=timer(f"joint_sgd_block{blocks}"),
             **base_kw, **JOINT_SGD)
     runs["joint_bgd"] = kg.fit(graph, "transe", "bgd",
@@ -2044,8 +2140,8 @@ def model_family_path(torch, graph):
     for label, res in (("transh", runs["transh_sgd"]),
                        ("distmult", runs["distmult_sgd"]),
                        ("transe_joint", runs["joint_sgd_block4"])):
-        served[label], metrics[label] = family_serving(torch, graph, res.kb,
-                                                       label)
+        served[label], metrics[label] = family_serving(
+            torch, res.kb.graph, res.kb, label)
     # (e) a DistMult tenant in the live server
     parity_answers = family_server_parity(torch, runs["distmult_sgd"].kb)
     launches = {"rank_counts": rank_topk.rank_counts.launches,
@@ -2055,8 +2151,8 @@ def model_family_path(torch, graph):
     info["runs_s"] = time.perf_counter() - t_phase
     # the TransE artifact is ranked twice through the kernel: rank() and
     # kg.evaluate, each both sides of every test chunk
-    predicted = {"rank_counts": 2 * 2 * eval_device._layout(
-                     len(graph.test), eval_device.DEFAULT_CHUNK)[0],
+    predicted = {"rank_counts": 2 * 2 * eval_device.shard_layout(
+                     len(graph.test), eval_device.DEFAULT_CHUNK, 1)[0],
                  "transe_score": 0, "transe_score_bwd": 0}
     info.update(launches=launches, launches_predicted=predicted,
                 served=served, metrics=metrics,
@@ -2076,6 +2172,9 @@ def model_family_path(torch, graph):
                                             TRAIN["n_workers"])
     pos = kg_data.epoch_batches(0, 0, part, TRAIN["batch_size"])
     info["steps_per_epoch"] = steps
+    info["joint_sgd_steps_per_epoch"] = (len(joint_graph.train)
+                                         // TRAIN["n_workers"]
+                                         // TRAIN["batch_size"])
     info["rerun_bitwise"], info["step_profile"] = {}, {}
     info["cpu_vs_card"] = {}
     for label, model, opts in FAMILY_CELLS:
@@ -2206,9 +2305,10 @@ def scale_bytes(torch, graph, kcfg, mcfg, part):
     return out
 
 
-def sparse_transport_path(torch, graph):
-    """The sparse delta transport (item 9 of the module docstring).
-    Returns the path's info and its launches of each kernel."""
+def sparse_transport_path(torch, full, graph):
+    """The sparse delta transport (item 9 of the module docstring), its
+    host SGD pair on ``full``, the rest on ``graph``.  Returns the path's
+    info and its launches of each kernel."""
     from repro_torch import kg
     from repro_torch.core import eval_device, mapreduce
     from repro_torch.core.models import get_model
@@ -2217,6 +2317,8 @@ def sparse_transport_path(torch, graph):
 
     info = {}
     steps = len(graph.train) // TRAIN["n_workers"] // TRAIN["batch_size"]
+    full_steps = (len(full.train) // TRAIN["n_workers"]
+                  // TRAIN["batch_size"])
     base_kw = dict(seed=0, device=DEVICE, **TRAIN)
     dense_dev = dict(base_kw, **DEVICE_SGD)
     sparse_dev = dict(base_kw, **SPARSE_DEVICE)
@@ -2226,9 +2328,9 @@ def sparse_transport_path(torch, graph):
         marks[label] = [time.perf_counter()]
         return lambda epoch, loss: marks[label].append(time.perf_counter())
 
-    def pair(label, *args, **kw):
+    def pair(label, *args, on=graph, **kw):
         """A run on each transport: ``(dense, sparse)``."""
-        return tuple(kg.fit(graph, *args, merge_transport=t,
+        return tuple(kg.fit(on, *args, merge_transport=t,
                             callback=timer(f"{label}_{t}"), **kw)
                      for t in ("dense", "sparse"))
 
@@ -2253,9 +2355,9 @@ def sparse_transport_path(torch, graph):
     ts.transe_score.launches = 0           # --- sparse transport path ---
     ts.transe_score_bwd.launches = 0
     rank_topk.rank_counts.launches = 0
-    # (a) phase 3's configuration
+    # (a) phase 3's configuration (its loss checked: on the whole split)
     runs["sgd"] = pair("sgd", "transe", "sgd", strategy="average", epochs=2,
-                       **base_kw)
+                       on=full, **base_kw)
     runs["bgd"] = pair("bgd", "transe", "bgd", epochs=1, **base_kw)
     dense4 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
                     callback=timer("device_dense"), **dense_dev)
@@ -2263,7 +2365,7 @@ def sparse_transport_path(torch, graph):
                      callback=timer("device_sparse_block4"), **sparse_dev)
     sparse2 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=2,
                      callback=timer("device_sparse_block2"), **sparse_dev)
-    card_epochs = 2 * 2 + 2 * 1 + 3 * 4
+    full_epochs, card_epochs = 2 * 2, 2 * 1 + 3 * 4
     block_fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
                                        donate=True, with_overflow=True)
     torch.cuda.synchronize()
@@ -2318,12 +2420,14 @@ def sparse_transport_path(torch, graph):
                 "transe_score_bwd": ts.transe_score_bwd.launches}
     # --- end ---
     info["runs_s"] = time.perf_counter() - t_phase
-    eval_chunks = lambda g: 2 * eval_device._layout(
-        len(g.test), eval_device.DEFAULT_CHUNK)[0]
+    eval_chunks = lambda g: 2 * eval_device.shard_layout(
+        len(g.test), eval_device.DEFAULT_CHUNK, 1)[0]
     predicted = {
         "rank_counts": 2 * eval_chunks(graph) + eval_chunks(scale),
-        "transe_score": steps * card_epochs + scale_steps * scale_epochs,
-        "transe_score_bwd": steps * card_epochs + scale_steps * scale_epochs}
+        "transe_score": full_steps * full_epochs + steps * card_epochs
+        + scale_steps * scale_epochs,
+        "transe_score_bwd": full_steps * full_epochs + steps * card_epochs
+        + scale_steps * scale_epochs}
 
     def per_epoch(label, epochs_per_block):
         m = marks[label]
@@ -2342,8 +2446,8 @@ def sparse_transport_path(torch, graph):
     spart = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
         0, scale.train, TRAIN["n_workers"]), device=DEVICE)
     info.update(
-        steps_per_epoch=steps, launches=launches,
-        launches_predicted=predicted,
+        steps_per_epoch=steps, sgd_steps_per_epoch=full_steps,
+        launches=launches, launches_predicted=predicted,
         epoch_s={k: per_epoch(k, block_epochs.get(k, 1)) for k in marks},
         block_peak_memory=peaks_b, block_profile=prof,
         loss_history={k: [r.loss_history for r in v]
@@ -2517,10 +2621,10 @@ def async_cells(torch, info):
     return graph, steps * card_epochs, n_evals
 
 
-def stale_sharded_path(torch, graph):
+def stale_sharded_path(torch, graph, cut):
     """Bounded staleness and sharded tables (item 10 of the module
-    docstring).  Returns the path's info and its launches of each
-    kernel."""
+    docstring), the sharded pairs of (c) on ``cut``.  Returns the path's
+    info and its launches of each kernel."""
     import numpy as np
 
     from repro_torch import kg
@@ -2532,13 +2636,15 @@ def stale_sharded_path(torch, graph):
     info = {}
     W = TRAIN["n_workers"]
     steps = len(graph.train) // W // TRAIN["batch_size"]
+    cut_steps = len(cut.train) // W // TRAIN["batch_size"]
     base_kw = dict(seed=0, device=DEVICE, **TRAIN)
     stale_kw = dict(base_kw, **STALE_SGD)
     marks = {}
 
     def timer(label):                   # loss is a float: synchronized
-        marks[label] = [time.perf_counter()]
-        return lambda epoch, loss: marks[label].append(time.perf_counter())
+        marks[label] = [(-1, time.perf_counter())]
+        return lambda epoch, loss: marks[label].append(
+            (epoch, time.perf_counter()))
 
     def stale_fit(label, S, blocks=STALE_EPOCHS, **kw):
         return kg.fit(graph, "transe", "sgd", epochs=STALE_EPOCHS,
@@ -2560,8 +2666,8 @@ def stale_sharded_path(torch, graph):
                     merge_transport="sparse",
                     block_epochs=SCALE_CELL["epochs"])
     scale_steps = len(scale.train) // W // SCALE_CELL["batch"]
-    eval_chunks = lambda g: 2 * eval_device._layout(
-        len(g.test), eval_device.DEFAULT_CHUNK)[0]
+    eval_chunks = lambda g: 2 * eval_device.shard_layout(
+        len(g.test), eval_device.DEFAULT_CHUNK, 1)[0]
     runs, secs = {}, {}
     t_phase = time.perf_counter()
     ts.transe_score.launches = 0         # --- stale and sharded path ---
@@ -2620,7 +2726,7 @@ def stale_sharded_path(torch, graph):
 
     def pair(label, *args, **kw):
         pairs[label] = tuple(
-            kg.fit(graph, *args, table_sharding=t,
+            kg.fit(cut, *args, table_sharding=t,
                    callback=timer(f"{label}_{t}"), **kw)
             for t in ("replicated", "sharded"))
 
@@ -2634,7 +2740,8 @@ def stale_sharded_path(torch, graph):
     runs["s1_sparse_sharded"] = stale_fit(
         "s1_sparse_sharded", 1, merge_transport="sparse",
         table_sharding="sharded")
-    card_epochs += 2 * (2 + 2 + 4 + 1) + STALE_EPOCHS
+    cut_epochs = 2 * (2 + 2 + 4 + 1)
+    card_epochs += STALE_EPOCHS
     kb = pairs["sgd_host_average"][1].kb
     evals = {}
     for label, kw in (("sharded", dict(table_sharding="sharded",
@@ -2676,8 +2783,8 @@ def stale_sharded_path(torch, graph):
     # --- end ---
     info["runs_s"] = time.perf_counter() - t_phase
     scale_epochs = 2 * SCALE_CELL["epochs"]
-    train_launches = (steps * card_epochs + async_launches
-                      + scale_steps * scale_epochs)
+    train_launches = (steps * card_epochs + cut_steps * cut_epochs
+                      + async_launches + scale_steps * scale_epochs)
     predicted = {"rank_counts": async_evals * eval_chunks(async_graph)
                  + eval_chunks(graph) + eval_chunks(scale),
                  "transe_score": train_launches,
@@ -2698,20 +2805,15 @@ def stale_sharded_path(torch, graph):
         p.pop("top")
         eval_prof[label] = p
 
-    def per_epoch(label, epochs_per_block):
+    def per_epoch(label):               # each callback ends a block
         m = marks[label]
-        return [(t1 - t0) / epochs_per_block for t0, t1 in zip(m, m[1:])]
-
-    per_block = {"sync": STALE_EPOCHS, "s0": STALE_EPOCHS,
-                 "s1": STALE_EPOCHS, "s1_block2": 2, "s2": STALE_EPOCHS,
-                 "s1_sparse": STALE_EPOCHS,
-                 "s1_sparse_sharded": STALE_EPOCHS,
-                 "sgd_device_replicated": 2, "sgd_device_sharded": 2}
+        return [(t1 - t0) / (e1 - e0) for (e0, t0), (e1, t1) in zip(m, m[1:])]
     tables_bytes = sum(t.numel() * t.element_size() for t in init.values())
     info.update(
         steps_per_epoch=steps, launches=launches,
         launches_predicted=predicted,
-        epoch_s={k: per_epoch(k, per_block.get(k, 1)) for k in marks},
+        cut_steps_per_epoch=cut_steps,
+        epoch_s={k: per_epoch(k) for k in marks},
         sync_checked_blocks=sync_checked,
         block_peak_memory={"tables_bytes": tables_bytes, **peaks_b},
         block_profile=profs, evaluate_s=secs, evaluate_profile=eval_prof,
@@ -3044,6 +3146,477 @@ def online_path(torch, graph):
     return info, launches
 
 
+def _tee_stdout(fn):
+    """``(result, printed text)`` of ``fn``, its prints shown as well."""
+    import contextlib
+    import io
+
+    class Tee(io.StringIO):
+        def write(self, s):
+            sys.__stdout__.write(s)
+            return super().write(s)
+
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def _subprocess_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        env[var] = str(ENTRY_SUBPROCESS_THREADS)
+    return env
+
+
+def _start(cmds, logdir):
+    """Start every ``(label, argv)`` at once, from the checkout's root,
+    output to a file each under ``logdir``: ``(start time, [(label, log,
+    process)])``."""
+    procs = []
+    try:
+        for label, argv in cmds:
+            log = open(os.path.join(logdir, label), "w+")
+            procs.append((label, log, subprocess.Popen(
+                argv, cwd=ROOT, env=_subprocess_env(), stdout=log,
+                stderr=subprocess.STDOUT)))
+    except BaseException:
+        _join((0.0, procs), 0)
+        raise
+    return time.perf_counter(), procs
+
+
+def _join(started, timeout):
+    """Join every started process within ``timeout`` seconds in all, kill
+    what is left: ``{label: (returncode, output, seconds since start)}``."""
+    t0, procs = started
+    out = {}
+    deadline = time.monotonic() + timeout
+    try:
+        for label, log, p in procs:
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.seek(0)
+            out[label] = (rc, log.read(), time.perf_counter() - t0)
+    finally:
+        for _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return out
+
+
+def entry_points_path(torch):
+    """The launcher and the examples (item 12 of the module docstring).
+    Returns the path's info and its launches of each kernel."""
+    import numpy as np
+
+    from repro_torch import kg
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    info = {"card": smi_line()}
+    tmp = tempfile.TemporaryDirectory()
+    rng = np.random.default_rng(ENTRY_DELTA["seed"])
+    n, new = ENTRY_DELTA["triples"], ENTRY_DELTA["new_entities"]
+    delta = np.stack([
+        np.concatenate([rng.integers(0, ENTRY_GRAPH["entities"], n - new),
+                        np.arange(ENTRY_GRAPH["entities"],
+                                  ENTRY_GRAPH["entities"] + new)]),
+        rng.integers(0, 15, n),
+        rng.integers(0, ENTRY_GRAPH["entities"], n)], 1)
+    delta_path = os.path.join(tmp.name, "delta.tsv")
+    with open(delta_path, "w") as f:
+        f.writelines(f"{h}\t{r}\t{t}\n" for h, r, t in delta)
+    def train_argv(triplets):
+        return ["--kg", "transe", "--kg-entities",
+                str(ENTRY_GRAPH["entities"]), "--kg-triplets", str(triplets),
+                "--kg-epochs", str(ENTRY_GRAPH["epochs"]), "--kg-pipeline",
+                "device", "--device", DEVICE]
+
+    ckpt = os.path.join(tmp.name, "ckpt")
+    argv = train_argv(ENTRY_GRAPH["triplets"]) + [
+        "--kg-ckpt-dir", ckpt, "--kg-eval-engine", "device", "--kg-serve",
+        "--kg-requests", str(ENTRY_REQUESTS), "--kg-update", delta_path]
+    sub_argv = train_argv(ENTRY_SUBPROCESS_TRIPLETS)
+    t_phase = time.perf_counter()
+    ts.transe_score.launches = 0               # --- entry points path ---
+    ts.transe_score_bwd.launches = 0
+    rank_topk.rank_counts.launches = 0
+    (res, printed), main_s = wall(torch, lambda: _tee_stdout(
+        lambda: launch.main(argv)))
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+    # once main has been timed alone: the launcher in a subprocess on a
+    # smaller graph and the three examples at cut epochs, started at once,
+    # beside the direct fit that main's checkpoint is held against and
+    # main() on the subprocess's arguments (untimed)
+    py = sys.executable
+    started = _start([
+        ("launcher", [py, "-m", "repro_torch.launch.train"] + sub_argv),
+        ("quickstart", [py, "examples/torch_quickstart.py", "--save-dir",
+                        os.path.join(tmp.name, "kb"), "--device", DEVICE]),
+        ("train_mapreduce_kg", [py, "examples/torch_train_mapreduce_kg.py",
+                                "--epochs", str(ENTRY_EXAMPLE_EPOCHS),
+                                "--eval-engine", "device", "--device",
+                                DEVICE]),
+        ("online_update", [py, "examples/torch_online_update.py",
+                           "--epochs", str(ENTRY_EXAMPLE_EPOCHS),
+                           "--update-epochs", "2", "--chain-dir",
+                           os.path.join(tmp.name, "chain"), "--device",
+                           DEVICE])], tmp.name)
+    try:
+        direct = kg.fit(
+            res.kb.graph, model="transe", paradigm="sgd", n_workers=4,
+            strategy="average", merge_transport="dense",
+            table_sharding="replicated", partitioner=None, staleness=0,
+            negatives="pertriplet", neg_candidates=0, backend="vmap",
+            batch_size=256, dim=48, learning_rate=5e-2,
+            epochs=ENTRY_GRAPH["epochs"], seed=0, device=DEVICE,
+            pipeline="device", block_epochs=ENTRY_GRAPH["epochs"],
+            merge_every=1, repartition_every=None)
+        _, sub_printed = _tee_stdout(lambda: launch.main(sub_argv))
+    finally:
+        procs = _join(started, ENTRY_SUBPROCESS_S)
+    tree, extra = ckpt_lib.load_tree(ckpt, ckpt_lib.latest_step(ckpt))
+    tmp.cleanup()
+    final, sub_final = (next(line for line in text.splitlines()
+                             if "final loss" in line)
+                        for text in (printed, sub_printed))
+    served = next(line for line in printed.splitlines()
+                  if line.startswith(f"served {ENTRY_REQUESTS} queries"))
+    pct = {k: float(served.split(f"{k}=")[1].split("ms")[0])
+           for k in ("p50", "p99")}
+    examples = {label: {"rc": rc, "s": s, "tail": text[-600:]}
+                for label, (rc, text, s) in procs.items()}
+    info.update({
+        "argv": argv, "subprocess_argv": sub_argv, "main_s": main_s,
+        "final_line": final, "subprocess_final_line": sub_final,
+        "served_line": served, "serve_ms": pct,
+        "graph": {"train": len(res.kb.graph.train),
+                  "entities": res.kb.graph.n_entities},
+        "subprocesses": examples,
+        "checks": {
+            "checkpoint_equals_direct_fit": all(
+                np.asarray(tree[n]).tobytes()
+                == direct.params[n].cpu().numpy().tobytes()
+                for n in direct.params)
+            and extra["loss_history"] == direct.loss_history,
+            "steady_recompiles_0": "steady_recompiles=0" in served,
+            "update_applied": "applied --kg-update" in printed,
+            "subprocess_same_final_line":
+                procs["launcher"][0] == 0
+                and sub_final in procs["launcher"][1],
+            "quickstart": procs["quickstart"][0] == 0
+            and "entity inference (filtered)" in procs["quickstart"][1],
+            "train_mapreduce_kg": procs["train_mapreduce_kg"][0] == 0
+            and "hits@10 retention" in procs["train_mapreduce_kg"][1],
+            "online_update": procs["online_update"][0] == 0
+            and "(bit-identical)" in procs["online_update"][1]
+            and "steady_recompiles=0" in procs["online_update"][1],
+            "on_the_card": all(t.is_cuda for t in res.params.values()),
+        },
+        "launches": launches,
+        "phase_s": time.perf_counter() - t_phase})
+    print(f"entry points on {info['card']}: launcher main {main_s:.2f} s "
+          f"(graph build, {ENTRY_GRAPH['epochs']} device-pipeline epochs, "
+          f"evaluation, update, {ENTRY_REQUESTS} served queries; alone on "
+          "the host and the card), serve "
+          f"p50 {pct['p50']} ms p99 {pct['p99']} ms", flush=True)
+    print("entry_points " + json.dumps(info), flush=True)
+    failed = [k for k, v in info["checks"].items() if not v]
+    if failed:
+        fail(f"entry point checks failed: {failed}: "
+             f"{json.dumps(examples)[-3000:]}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"{name} launched {count} times on the entry points path")
+    return info, launches
+
+
+def _graph_file(graph, path):
+    import numpy as np
+
+    np.savez(path, train=graph.train, valid=graph.valid, test=graph.test,
+             sizes=np.array([graph.n_entities, graph.n_relations]))
+
+
+def _load_graph(path):
+    import numpy as np
+
+    from repro_torch.data import kg as kg_data
+
+    z = np.load(path)
+    return kg_data.KG(int(z["sizes"][0]), int(z["sizes"][1]), z["train"],
+                      z["valid"], z["test"])
+
+
+def _host_params(res):
+    return {n: t.cpu().numpy() for n, t in res.params.items()}
+
+
+def _shard_runs(torch, graph, mesh, timed):
+    """Phase 13's runs on ``mesh`` (``mesh=None``: the vmap twins):
+    ``{label: result}``, with each run's seconds in ``timed``."""
+    from repro_torch import kg
+
+    shard = {} if mesh is None else dict(backend="shard_map", mesh=mesh)
+    runs = {}
+
+    def run(label, paradigm, epochs, **kw):
+        res, s = wall(torch, lambda: kg.fit(
+            graph, "transe", paradigm, epochs=epochs, seed=0, device=DEVICE,
+            **TRAIN, **shard, **kw))
+        timed[label] = s
+        runs[label] = res
+
+    run("device_sgd_dense", "sgd", 2, reduce_impl="allgather",
+        block_epochs=2, **DEVICE_SGD)
+    run("device_bgd", "bgd", 1, pipeline="device", block_epochs=1)
+    return runs
+
+
+def shard_rank(spec_path, rank):
+    """One gloo rank of phase 13 (b), run as ``python3 chip_smoke.py
+    --shard-rank SPEC RANK`` by ``shard_map_path``: the device-pipeline
+    SGD round, a BGD epoch and the evaluation over an M-rank mesh that
+    shares the one card; writes its results, seconds and launch counts
+    to the spec's output prefix."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import kg
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.parallel import util as par
+
+    global DEVICE
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    DEVICE = spec["device"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    else:                      # a rehearsal on the CPU: nothing to sync
+        torch.cuda.synchronize = lambda: None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], spec["M"]),
+        world_size=spec["M"], rank=rank,
+        timeout=timedelta(seconds=SHARD_COLLECTIVE_S))
+    try:
+        mesh = par.workers_mesh(spec["M"], DEVICE)
+        graph = _load_graph(spec["graph"])
+        ts.transe_score.launches = 0
+        ts.transe_score_bwd.launches = 0
+        rank_topk.rank_counts.launches = 0
+        timed = {}
+        runs = _shard_runs(torch, graph, mesh, timed)
+        metrics, timed["evaluate"] = wall(torch, lambda: kg.evaluate(
+            runs["device_sgd_dense"].kb, engine="device",
+            backend="shard_map", mesh=mesh, n_workers=TRAIN["n_workers"]))
+        out = {"params": {k: _host_params(r) for k, r in runs.items()},
+               "loss": {k: r.loss_history for k, r in runs.items()},
+               "metrics": metrics, "seconds": timed,
+               "launches": {"rank_counts": rank_topk.rank_counts.launches,
+                            "transe_score": ts.transe_score.launches,
+                            "transe_score_bwd":
+                                ts.transe_score_bwd.launches}}
+    finally:
+        dist.destroy_process_group()
+    name = f"{spec['out']}.rank{rank}"
+    with open(name + ".tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(name + ".tmp", name)
+
+
+def shard_map_path(torch, graph):
+    """The shard_map backend (item 13 of the module docstring).  Returns
+    the path's info and its launches of each kernel."""
+    import pickle
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import kg
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.parallel import util as par
+
+    info = {"card": smi_line()}
+    W = TRAIN["n_workers"]
+    tmp = tempfile.TemporaryDirectory()
+    same = lambda a, b: all(bits_equal(a.params[n], b.params[n])
+                            for n in a.params) \
+        and a.loss_history == b.loss_history
+    rng = np.random.default_rng(3)
+    pairs = graph.test[rng.choice(len(graph.test), N_QUERY_PAIRS,
+                                  replace=False)]
+    t_phase = time.perf_counter()
+    host_sgd = (("host_sgd_average", {}),
+                ("host_sgd_random", dict(strategy="random")))
+    device_sgd = (("device_sgd_psum", {}),
+                  ("device_sgd_sparse", dict(merge_transport="sparse")))
+    # (a) NCCL, one rank in this process, all W workers in it
+    dist.init_process_group(
+        SHARD_M1_BACKEND,
+        store=dist.FileStore(os.path.join(tmp.name, "m1"), 1),
+        world_size=1, rank=0, timeout=timedelta(seconds=SHARD_COLLECTIVE_S))
+    try:
+        mesh = par.workers_mesh(1, DEVICE)
+        par.all_gather(torch.zeros(1, device=DEVICE), mesh)   # communicator
+        # the vmap twins first, outside the path's counts
+        twin_s, want = {}, {}
+        vmap_runs = _shard_runs(torch, graph, None, twin_s)
+        for label, kw in host_sgd:
+            twin, twin_s[label] = wall(torch, lambda kw=kw: kg.fit(
+                graph, "transe", "sgd", epochs=1, seed=0, device=DEVICE,
+                **TRAIN, **kw))
+            want[f"{label}_allgather"] = want[f"{label}_psum"] = twin
+        want["host_bgd"], twin_s["host_bgd"] = wall(torch, lambda: kg.fit(
+            graph, "transe", "bgd", epochs=1, seed=0, device=DEVICE,
+            **TRAIN))
+        want["device_sgd_psum"] = vmap_runs["device_sgd_dense"]
+        want["device_sgd_sparse"], twin_s["device_sgd_sparse"] = wall(
+            torch, lambda: kg.fit(
+                graph, "transe", "sgd", epochs=2, seed=0, device=DEVICE,
+                block_epochs=2, **TRAIN, **DEVICE_SGD,
+                merge_transport="sparse"))
+        kb = vmap_runs["device_sgd_dense"].kb
+        want_m, twin_s["evaluate"] = wall(torch, lambda: kg.evaluate(
+            kb, engine="device"))
+        want_q = kb.query_tails(pairs[:, 0], pairs[:, 1], k=LIVE_K,
+                                filtered=True)
+        ts.transe_score.launches = 0           # --- shard_map path ---
+        ts.transe_score_bwd.launches = 0
+        rank_topk.rank_counts.launches = 0
+        timed, got = {}, {}
+        shard_runs = _shard_runs(torch, graph, mesh, timed)
+        for label, kw in host_sgd:
+            for impl in ("allgather", "psum"):
+                got[f"{label}_{impl}"], timed[f"{label}_{impl}"] = wall(
+                    torch, lambda kw=kw, impl=impl: kg.fit(
+                        graph, "transe", "sgd", epochs=1, seed=0,
+                        device=DEVICE, backend="shard_map", mesh=mesh,
+                        reduce_impl=impl, **TRAIN, **kw))
+        got["host_bgd"], timed["host_bgd"] = wall(torch, lambda: kg.fit(
+            graph, "transe", "bgd", epochs=1, seed=0, device=DEVICE,
+            backend="shard_map", mesh=mesh, **TRAIN))
+        for label, kw in device_sgd:
+            got[label], timed[label] = wall(torch, lambda kw=kw: kg.fit(
+                graph, "transe", "sgd", epochs=2, seed=0, device=DEVICE,
+                block_epochs=2, backend="shard_map", mesh=mesh, **TRAIN,
+                **DEVICE_SGD, **kw))
+        got_m, timed["evaluate"] = wall(torch, lambda: kg.evaluate(
+            kb, engine="device", backend="shard_map", mesh=mesh,
+            n_workers=W))
+        got_q, timed["query_tails"] = wall(torch, lambda: kb.query_tails(
+            pairs[:, 0], pairs[:, 1], k=LIVE_K, filtered=True,
+            backend="shard_map", mesh=mesh, n_workers=W))
+        nccl_launches = {"rank_counts": rank_topk.rank_counts.launches,
+                         "transe_score": ts.transe_score.launches,
+                         "transe_score_bwd": ts.transe_score_bwd.launches}
+        # --- end ---
+    finally:
+        dist.destroy_process_group()
+    pairs_ok = {label: same(got[label], want[label]) for label in got}
+    for label in vmap_runs:
+        pairs_ok[label] = same(shard_runs[label], vmap_runs[label])
+    pairs_ok["evaluate"] = got_m == want_m
+    pairs_ok["query_tails"] = bool(
+        (got_q.ids == want_q.ids).all()
+        and got_q.energies.tobytes() == want_q.energies.tobytes())
+    # (b) M = 2 gloo ranks sharing the card, against (a)'s vmap twins
+    M = SHARD_GLOO_RANKS
+    _graph_file(graph, os.path.join(tmp.name, "graph.npz"))
+    spec = {"M": M, "store": os.path.join(tmp.name, "gloo"),
+            "graph": os.path.join(tmp.name, "graph.npz"),
+            "out": os.path.join(tmp.name, "rank"), "device": DEVICE}
+    with open(os.path.join(tmp.name, "spec"), "wb") as f:
+        pickle.dump(spec, f)
+    procs = _join(_start(
+        [(f"rank{r}", [sys.executable, os.path.abspath(__file__),
+                       "--shard-rank", os.path.join(tmp.name, "spec"),
+                       str(r)]) for r in range(M)], tmp.name), SHARD_RANK_S)
+    bad = {k: v[1][-3000:] for k, v in procs.items() if v[0] != 0}
+    if bad:
+        tmp.cleanup()
+        fail(f"gloo ranks failed: {bad}")
+    ranks = []
+    for r in range(M):
+        with open(f"{spec['out']}.rank{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    tmp.cleanup()
+    gloo_ok = {}
+    for r, out in enumerate(ranks):
+        sgd = vmap_runs["device_sgd_dense"]
+        gloo_ok[f"rank{r}_sgd_allgather_bitwise"] = all(
+            out["params"]["device_sgd_dense"][n].tobytes()
+            == sgd.params[n].cpu().numpy().tobytes() for n in sgd.params) \
+            and out["loss"]["device_sgd_dense"] == sgd.loss_history
+        bgd = vmap_runs["device_bgd"]
+        gloo_ok[f"rank{r}_bgd_within_tolerance"] = all(
+            np.allclose(out["params"]["device_bgd"][n],
+                        bgd.params[n].cpu().numpy(), rtol=1e-4, atol=1e-5)
+            for n in bgd.params)
+        gloo_ok[f"rank{r}_evaluate_exact"] = out["metrics"] == want_m
+        gloo_ok[f"rank{r}_equals_rank0"] = all(
+            out["params"][k][n].tobytes() == ranks[0]["params"][k][n].tobytes()
+            for k in out["params"] for n in out["params"][k])
+    gloo_launches = {k: sum(out["launches"][k] for out in ranks)
+                     for k in ranks[0]["launches"]}
+    launches = {k: nccl_launches[k] + gloo_launches[k] for k in nccl_launches}
+    E, R, k = graph.n_entities, graph.n_relations, DIM
+    reduce_bytes = {
+        # the all-gathered output buffers of one dense `average` Reduce:
+        # every worker's table, touch counts and loss, per table
+        "allgather": sum(4 * W * n * (k + 1) + 4 * W for n in (E, R)),
+        # the psum Reduce's three all-reduced buffers per table: the touch
+        # total (N,), the weighted sum and the plain sum (N, k)
+        "psum": sum(4 * n * (2 * k + 1) for n in (E, R))}
+    epoch_s = {
+        "vmap_dense": twin_s["device_sgd_dense"] / 2,
+        "shard_dense_allgather": timed["device_sgd_dense"] / 2,
+        "shard_dense_psum": timed["device_sgd_psum"] / 2,
+        "vmap_sparse": twin_s["device_sgd_sparse"] / 2,
+        "shard_sparse": timed["device_sgd_sparse"] / 2}
+    gloo_s = {f"rank{r}": out["seconds"] for r, out in enumerate(ranks)}
+    info.update({
+        "nccl_m1": {"seconds": timed, "vmap_seconds": twin_s,
+                    "epoch_s": epoch_s, "bitwise_vmap": pairs_ok,
+                    "launches": nccl_launches},
+        "gloo_m2_one_card": {"seconds": gloo_s, "checks": gloo_ok,
+                             "launches": gloo_launches,
+                             "process_s": {k: v[2] for k, v in
+                                           procs.items()}},
+        "reduce_bytes": reduce_bytes,
+        "steps_per_epoch": len(graph.train) // W // TRAIN["batch_size"],
+        "launches": launches,
+        "phase_s": time.perf_counter() - t_phase})
+    print(f"shard_map on {info['card']}: NCCL M=1 device-pipeline epoch s "
+          f"{json.dumps(epoch_s)}; bytes a dense average Reduce "
+          f"{json.dumps(reduce_bytes)}; gloo over one card, M={M}: "
+          f"{json.dumps(gloo_s)}", flush=True)
+    print("shard_map " + json.dumps(info), flush=True)
+    failed = [k for k, v in {**pairs_ok, **gloo_ok}.items() if not v]
+    if failed:
+        fail(f"shard_map checks failed: {failed}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"{name} launched {count} times on the shard_map path")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -3055,37 +3628,73 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every run whose training split does not divide over the workers
+    # says so; these splits are known not to
+    warnings.filterwarnings("ignore", message="batch_size=.* does not "
+                            "divide", category=UserWarning)
     smi = smi_line()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     rates = peaks(name)
-    t0 = time.perf_counter()
-    report = build.build_all()
-    build_s = time.perf_counter() - t0
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(label, fn, *args):
+        """``fn(*args)``, its seconds kept and its start and end on
+        stderr, where they show whatever stops the script."""
+        t0 = time.perf_counter()
+        print(f"chip_smoke: {label} starts at {t0 - t_start:.1f} s",
+              file=sys.stderr, flush=True)
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t0
+        print(f"chip_smoke: {label} took {phase_s[label]:.1f} s",
+              file=sys.stderr, flush=True)
+        return out
+
+    report = phase("build", build.build_all)
+    build_s = phase_s["build"]
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for lib, rep in report.items():
         print(f"nvcc {lib} ({rep['seconds']:.2f} s):\n{rep['nvcc']}",
               flush=True)
 
-    cases = kernel_phase(torch, rates)
-    ts_cases = transe_kernel_phase(torch, rates)
-    graph, graph_info = build_graph()
+    cases = phase("rank_counts", kernel_phase, torch, rates)
+    ts_cases = phase("transe_score", transe_kernel_phase, torch, rates)
+    graph, graph_info = phase("graph", build_graph)
     print("graph " + json.dumps(graph_info), flush=True)
-    sgd, bgd, train_info, ts_launches, init_metrics = training_path(
-        torch, graph)
-    info, launches = serving_path(torch, graph, sgd.kb)
-    resume_info, phase_launches = eval_resume_path(torch, graph, sgd, bgd)
-    device_info, device_launches = device_pipeline_path(torch, graph)
-    live_info, live_launches = serving_live_path(torch, sgd, bgd)
-    family_info, family_launches = model_family_path(torch, graph)
-    sparse_info, sparse_launches = sparse_transport_path(torch, graph)
-    stale_info, stale_launches = stale_sharded_path(torch, graph)
-    online_info, online_launches = online_path(torch, graph)
+    cut = depth_cut(graph)
+    sgd, bgd, train_info, ts_launches, init_metrics = phase(
+        "training", training_path, torch, graph)
+    info, launches = phase("serving", serving_path, torch, graph, sgd.kb)
+    resume_info, phase_launches = phase("eval_resume", eval_resume_path,
+                                        torch, graph, sgd, bgd)
+    device_info, device_launches = phase(
+        "device_pipeline", device_pipeline_path, torch, graph, cut)
+    live_info, live_launches = phase("serving_live", serving_live_path,
+                                     torch, sgd, bgd)
+    family_info, family_launches = phase("model_family", model_family_path,
+                                         torch, cut, graph)
+    sparse_info, sparse_launches = phase(
+        "sparse_transport", sparse_transport_path, torch, graph, cut)
+    stale_info, stale_launches = phase("stale_sharded", stale_sharded_path,
+                                       torch, graph, cut)
+    online_info, online_launches = phase("online", online_path, torch,
+                                         graph)
+    entry_info, entry_launches = phase("entry_points", entry_points_path,
+                                       torch)
+    shard_info, shard_launches = phase("shard_map", shard_map_path, torch,
+                                       cut)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
+                phase_s=phase_s, depth_cut={
+                    "divisor": DEPTH_CUT, "train": len(cut.train),
+                    "phases": ["device_pipeline", "model_family",
+                               "sparse_transport", "stale_sharded",
+                               "shard_map"]},
                 init_metrics=init_metrics, eval_resume=resume_info,
                 device_pipeline=device_info, serving_live=live_info,
                 model_family=family_info, sparse_transport=sparse_info,
-                stale_sharded=stale_info, online=online_info)
+                stale_sharded=stale_info, online=online_info,
+                entry_points=entry_info, shard_map=shard_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -3109,7 +3718,8 @@ def main():
         "launches": launches + phase_launches["rank_counts"]
         + device_launches["rank_counts"] + live_launches["rank_counts"]
         + family_launches["rank_counts"] + sparse_launches["rank_counts"]
-        + stale_launches["rank_counts"] + online_launches["rank_counts"],
+        + stale_launches["rank_counts"] + online_launches["rank_counts"]
+        + entry_launches["rank_counts"] + shard_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -3120,7 +3730,9 @@ def main():
                              "sparse_transport":
                                  sparse_launches["rank_counts"],
                              "stale_sharded": stale_launches["rank_counts"],
-                             "online": online_launches["rank_counts"]},
+                             "online": online_launches["rank_counts"],
+                             "entry_points": entry_launches["rank_counts"],
+                             "shard_map": shard_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -3150,7 +3762,8 @@ def main():
             "launches": n + phase_launches[kname] + device_launches[kname]
             + live_launches[kname] + family_launches[kname]
             + sparse_launches[kname] + stale_launches[kname]
-            + online_launches[kname],
+            + online_launches[kname] + entry_launches[kname]
+            + shard_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
@@ -3159,7 +3772,9 @@ def main():
                                  "sparse_transport":
                                      sparse_launches[kname],
                                  "stale_sharded": stale_launches[kname],
-                                 "online": online_launches[kname]},
+                                 "online": online_launches[kname],
+                                 "entry_points": entry_launches[kname],
+                                 "shard_map": shard_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -3185,7 +3800,7 @@ def main():
                                    "eval_resume", "device_pipeline",
                                    "serving_live", "model_family",
                                    "sparse_transport", "stale_sharded",
-                                   "online")}),
+                                   "online", "entry_points", "shard_map")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3194,4 +3809,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
     sys.exit(main())

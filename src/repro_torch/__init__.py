@@ -26,7 +26,11 @@ tables; and the online tier (``kb.update`` / ``kg.update``: grown tables,
 warm-started rows and a masked fine-tune of the touched rows, delta
 checkpoint chains replayed by ``KnowledgeBase.load_chain``, and
 ``online.RefreshDaemon`` swapping refreshed artifacts into a live
-server).  The
+server); the ``--kg`` launcher (``python -m repro_torch.launch.train``);
+and the ``shard_map`` backend over ``torch.distributed``
+(``kg.fit(backend="shard_map", mesh=...)``: the workers split over the
+ranks of a ``DeviceMesh``, the Reduce a collective,
+``parallel/util.py``).  The
 reference's two Pallas kernels are hand-written CUDA kernels for Hopper:
 the entity-ranking sweep (``kernels/rank_topk.py``) and TransE's
 training step, forward and backward (``kernels/transe_score.py``).  What
@@ -43,10 +47,13 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point places its tensors on: ``device`` when
-    given, else ``cuda``.  Raises when no GPU is present and no device was
-    named — pass ``device="cpu"`` to run on the CPU on purpose."""
+    given, else ``cuda``.  Raises when no GPU is present and none was
+    named, or ``cuda`` was — pass ``device="cpu"`` to run on the CPU on
+    purpose."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type != "cuda" or torch.cuda.is_available():
+            return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch entry points default to the GPU, and no CUDA device "

@@ -26,11 +26,20 @@ a candidate lies within an ulp of the gold.
 ``n_workers`` shards (:func:`_entity_ranks_sharded`): each shard scores
 only its block of entity rows (``candidate_slice_energies``), and the
 partial results combine exactly, so ranks are the replicated scan's,
-bitwise.  On one device the shards run one after another.  The
-reference's W-worker split of the query axis (``n_workers`` with
-replicated tables) changes no number and has no counterpart on one GPU:
-the port accepts ``n_workers`` and scans the queries whole.  The
-``shard_map`` backend is not ported (ROADMAP.md queue 1, item 12c).
+bitwise.  On one device the shards run one after another.
+
+Both backends walk the queries through one path
+(``parallel/util.worker_map`` over ``shard_chunks``): the queries are
+padded to ``W · S`` chunks of the same ``C`` rows and worker ``w`` ranks
+chunks ``[w·S, (w+1)·S)`` through the same chunk function (the fused
+``rank_counts`` chunk unchanged inside).  On ``backend="shard_map"`` with
+``mesh=`` (every rank of the mesh calls the engine) the W workers spread
+over the ranks and the ranks' grids are all-gathered in rank order; on
+``vmap`` the query axis is one worker (``query_workers``), since the
+reference's W-way split of it only pads on one device.  A query's rank
+depends on nothing else in its chunk, so every rank returns the vmap
+engine's ranks exactly.  Sharded tables over a mesh are ROADMAP.md item
+12d.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch
 from repro_torch.core import eval as host_eval
 from repro_torch.core import merge as merge_lib
 from repro_torch.core.models import KGModel, Params, get_model
+from repro_torch.parallel import util as par
 from repro_torch.util import not_ported
 
 DEFAULT_CHUNK = 256
@@ -51,12 +61,13 @@ DEFAULT_CHUNK = 256
 # Layout: pad the query axis and split it into chunks
 # ---------------------------------------------------------------------------
 
-def _layout(n: int, chunk: int) -> Tuple[int, int, int]:
-    """(S, C, padded_n) for ``n`` queries: ``S`` chunks of ``C`` rows,
-    ``S * C >= n`` (the reference's layout with one worker)."""
+def shard_layout(n: int, chunk: int, n_workers: int) -> Tuple[int, int, int]:
+    """(S, C, padded_n) for ``n`` queries over ``n_workers`` query workers:
+    chunks of ``C`` rows, ``S`` chunks a worker, ``W · S · C >= n`` (the
+    reference's layout; ``n_workers=1`` is one worker's walk)."""
     C = max(1, chunk)
-    S = max(1, -(-n // C))
-    return S, C, S * C
+    S = max(1, -(-n // (C * n_workers)))
+    return S, C, n_workers * S * C
 
 
 def _pad_rows(arr: np.ndarray, padded_n: int) -> np.ndarray:
@@ -68,18 +79,32 @@ def _pad_rows(arr: np.ndarray, padded_n: int) -> np.ndarray:
     return np.concatenate([arr, reps], axis=0)
 
 
-def _chunks(arr: np.ndarray, S: int, C: int, device) -> torch.Tensor:
-    """(padded_n, ...) host ids -> (S, C, ...) int64 tensor on ``device``."""
-    return torch.as_tensor(
-        np.asarray(arr, np.int64).reshape((S, C) + arr.shape[1:]),
-        device=device)
+def shard_chunks(arr: np.ndarray, n_workers: int, chunk: int,
+                 n: int) -> np.ndarray:
+    """Host ids padded and cut for :func:`shard_layout`: ``(W, S, C,
+    ...)`` int64 (each worker moves only its own rows to its device)."""
+    S, C, padded = shard_layout(n, chunk, n_workers)
+    return np.asarray(_pad_rows(np.asarray(arr), padded), np.int64).reshape(
+        (n_workers, S, C) + np.shape(arr)[1:])
+
+
+def query_workers(n_workers: int, backend: str) -> int:
+    """How many workers the query axis is split over: the ``shard_map``
+    backend's ``W``, which spreads the chunks over the mesh's ranks; one
+    on the ``vmap`` backend, where a split would run the same chunks one
+    after another on one device and only add padding."""
+    return n_workers if backend == "shard_map" else 1
 
 
 def check_layout(table_sharding: str, n_workers: int, backend: str,
-                 mesh) -> None:
+                 mesh, device=None) -> None:
     """Validate an engine's layout keywords (the reference's names): a bad
-    ``table_sharding`` or ``backend`` raises ``ValueError``; the
-    ``shard_map`` backend and ``mesh`` raise, naming item 12c."""
+    ``table_sharding``, ``backend`` or ``n_workers`` raises ``ValueError``;
+    ``shard_map`` without a mesh raises ``ValueError``, with sharded
+    tables ``NotImplementedError`` naming item 12d; a ``mesh`` that is no
+    ``DeviceMesh`` raises ``TypeError``, one of another device type than
+    ``device`` or over which ``n_workers`` does not divide ``ValueError``
+    (``parallel.util.check_mesh``)."""
     if table_sharding not in ("replicated", "sharded"):
         raise ValueError(
             f"table_sharding must be 'replicated' or 'sharded', got "
@@ -90,10 +115,11 @@ def check_layout(table_sharding: str, n_workers: int, backend: str,
         raise ValueError(f"n_workers must be >= 1, got {n_workers}")
     if table_sharding == "sharded":
         _check_sharded_mesh(backend, mesh, n_workers)
-    if backend == "shard_map":
-        raise not_ported("backend='shard_map'", "12c")
+    if backend == "shard_map" and mesh is None:
+        raise ValueError("backend='shard_map' needs a mesh")
     if mesh is not None:
-        raise not_ported("mesh=... (the shard_map backend)", "12c")
+        par.check_mesh(mesh, device,
+                       n_workers if backend == "shard_map" else None)
 
 
 def _pad_ent_tables(model: KGModel, params: Params, padded_E: int) -> Params:
@@ -113,14 +139,14 @@ def _pad_ent_tables(model: KGModel, params: Params, padded_E: int) -> Params:
 def _check_sharded_mesh(backend: str, mesh, n_shards: int) -> None:
     """The sharded scan over ``shard_map`` puts row block ``i`` on mesh
     position ``i``; the vmap backend simulates the shards on one device
-    and needs no mesh.  The shard_map form is item 12c."""
+    and needs no mesh.  The shard_map form is item 12d."""
     if backend != "shard_map":
         return
     if mesh is None:
         raise ValueError("backend='shard_map' needs a mesh")
     raise not_ported(
         f"table_sharding='sharded' over shard_map ({n_shards} shards)",
-        "12c")
+        "12d")
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +292,8 @@ def entity_ranks_device(
     ``fused=None`` picks the plain scan), as in the reference, whose
     kernel streams the whole table."""
     model = get_model(model)
-    check_layout(table_sharding, n_workers, backend, mesh)
+    check_layout(table_sharding, n_workers, backend, mesh,
+                 params["ent"].device)
     sharded = table_sharding == "sharded"
     if sharded:
         if fused:
@@ -279,7 +306,6 @@ def entity_ranks_device(
     test = np.asarray(test, np.int32)
     Q = len(test)
     E = params["ent"].shape[0]
-    S, C, Qp = _layout(Q, chunk)
     if cand_masks is None:
         # pad-only masks: zero filtering work, filtered == raw (dropped
         # from the returned dict below)
@@ -288,10 +314,6 @@ def entity_ranks_device(
     else:
         tails, heads = cand_masks
     dev = params["ent"].device
-    q = _chunks(_pad_rows(test, Qp), S, C, dev)
-    tc = _chunks(_pad_rows(np.asarray(tails, np.int32), Qp), S, C, dev)
-    hc = _chunks(_pad_rows(np.asarray(heads, np.int32), Qp), S, C, dev)
-
     if sharded:
         scan = _pad_ent_tables(
             model, params, n_workers * merge_lib.shard_rows(E, n_workers))
@@ -300,22 +322,31 @@ def entity_ranks_device(
     else:
         entity_chunk = lambda chunk, cands, side: _entity_chunk(
             model, params, chunk, cands, side, norm, fused)
-    outs = {name: [] for name in (
-        "tail_raw", "tail_filtered", "head_raw", "head_filtered",
-        "relation")}
-    with torch.no_grad():
-        for s in range(S):
-            for side, cands in (("tail", tc[s]), ("head", hc[s])):
-                raw, filt = entity_chunk(q[s], cands, side)
-                outs[f"{side}_raw"].append(raw)
-                outs[f"{side}_filtered"].append(filt)
-            if relations:
-                outs["relation"].append(
-                    _relation_chunk(model, params, q[s], norm))
 
-    def host(name):
-        return torch.cat(outs[name]).cpu().numpy()[:Q]
+    def per_worker(_, q_w, tc_w, hc_w):
+        q_w, tc_w, hc_w = (torch.as_tensor(x, device=dev)
+                           for x in (q_w, tc_w, hc_w))
+        outs = {name: [] for name in (
+            "tail_raw", "tail_filtered", "head_raw", "head_filtered")}
+        if relations:
+            outs["relation"] = []
+        with torch.no_grad():
+            for s in range(q_w.shape[0]):
+                for side, cands in (("tail", tc_w[s]), ("head", hc_w[s])):
+                    raw, filt = entity_chunk(q_w[s], cands, side)
+                    outs[f"{side}_raw"].append(raw)
+                    outs[f"{side}_filtered"].append(filt)
+                if relations:
+                    outs["relation"].append(
+                        _relation_chunk(model, params, q_w[s], norm))
+        return {name: torch.stack(v) for name, v in outs.items()}
 
+    grid = lambda a: shard_chunks(
+        a, query_workers(n_workers, backend), chunk, Q)
+    grids = par.worker_map(per_worker, backend=backend, mesh=mesh)(
+        None, grid(test), grid(np.asarray(tails, np.int32)),
+        grid(np.asarray(heads, np.int32)))
+    host = lambda name: grids[name].reshape(-1).cpu().numpy()[:Q]
     out: Dict[str, object] = {"raw_ranks": {
         "tail": host("tail_raw"), "head": host("head_raw")}}
     if cand_masks is not None:
@@ -386,19 +417,32 @@ def relation_prediction_device(
     *,
     model: "str | KGModel" = "transe",
     chunk: int = 512,
+    n_workers: int = 1,
+    backend: str = "vmap",
+    mesh=None,
     return_ranks: bool = False,
 ):
     """Rank the gold relation among all relations, chunked on the
-    device."""
+    device; ``backend="shard_map"`` splits the queries over the mesh as
+    :func:`entity_ranks_device` does (the reference's
+    ``_relation_ranks_device``)."""
     model = get_model(model)
+    check_layout("replicated", n_workers, backend, mesh,
+                 params["ent"].device)
     test = np.asarray(test, np.int32)
     Q = len(test)
-    S, C, Qp = _layout(Q, chunk)
-    q = _chunks(_pad_rows(test, Qp), S, C, params["ent"].device)
-    with torch.no_grad():
-        ranks = torch.cat([
-            _relation_chunk(model, params, q[s], norm) for s in range(S)
-        ]).cpu().numpy()[:Q]
+    dev = params["ent"].device
+
+    def per_worker(_, q_w):
+        q_w = torch.as_tensor(q_w, device=dev)
+        with torch.no_grad():
+            return torch.stack([_relation_chunk(model, params, q_w[s], norm)
+                                for s in range(q_w.shape[0])])
+
+    ranks = par.worker_map(per_worker, backend=backend, mesh=mesh)(
+        None, shard_chunks(test, query_workers(n_workers, backend), chunk,
+                           Q))
+    ranks = ranks.reshape(-1).cpu().numpy()[:Q]
     metrics = host_eval._metrics_from_ranks(ranks)
     return (metrics, ranks) if return_ranks else metrics
 

@@ -1,6 +1,6 @@
 """The MapReduce KG-embedding engine (paper §3), port of
 ``repro.core.mapreduce``: the ``host`` and ``device`` pipelines on the
-``vmap`` backend with the dense Reduce.  Most callers use
+``vmap`` and ``shard_map`` backends.  Most callers use
 ``repro_torch.kg.fit``.
 
 Two paradigms, as the paper structures them:
@@ -119,8 +119,24 @@ every row whose bit is False bitwise — in the compact step, the
 projections and after each Reduce — while the free rows train; the
 online tier's ``update()`` (``repro_torch.online``) is this call.
 
-Not ported yet, each raising and naming its ROADMAP.md item: the
-``shard_map`` backend and ``mesh=`` (item 12c).
+Two **backends**, selected by ``MapReduceConfig.backend``:
+
+  * ``vmap``      — the W workers simulated on one device (above).
+  * ``shard_map`` — SPMD over the ranks of a ``DeviceMesh`` (``train(mesh=
+                    ...)``, ``parallel/util.py``): every rank calls the
+                    same function and runs its block of ``W/M`` workers
+                    stacked; the Reduce is a collective.  Under
+                    ``reduce_impl="allgather"`` and on the sparse
+                    transport the result is the vmap backend's bits; the
+                    ``psum`` Reduce and dense BGD (the reference's
+                    ``pmean`` of the gradients every step) add across
+                    ranks in the backend's order, the vmap bits at M = 1
+                    and within rtol 1e-4 / atol 1e-5 at M > 1.  Losses are
+                    all-gathered and summed in worker order, the vmap
+                    bits under every Reduce.
+
+Not ported yet, raising and naming ROADMAP.md item 12d: bounded staleness
+and sharded tables on the ``shard_map`` backend.
 """
 from __future__ import annotations
 
@@ -139,6 +155,7 @@ from repro_torch.core import trace as trace_lib
 from repro_torch.core.models.base import (
     EpochStats, KGConfig, KGModel, Params, apply_gradients)
 from repro_torch.data import kg as kg_lib
+from repro_torch.parallel import util as par
 from repro_torch.train import checkpoint as checkpoint_lib
 from repro_torch.util import exact_div, not_ported, pairwise_mean, warn_fresh
 
@@ -290,8 +307,12 @@ class MapReduceConfig:
     n_workers: int = 4
     paradigm: str = "sgd"           # 'sgd' | 'bgd'
     strategy: str = "average"       # merge_lib.STRATEGIES (sgd paradigm only)
+    # the shard_map backend's dense SGD Reduce: 'psum' (all-reduces) or
+    # 'allgather' (the full stacks, the vmap bits); the sparse transport
+    # all-gathers its packed buffers under either
+    reduce_impl: str = "psum"
     merge_transport: str = "dense"  # 'dense' | 'sparse' (module docstring)
-    backend: str = "vmap"           # 'vmap' ('shard_map': item 12c)
+    backend: str = "vmap"           # 'vmap' | 'shard_map' (module docstring)
     batch_size: int = 256
     # host partitioner (data/kg.PARTITIONERS): 'balanced' | 'stratified' |
     # 'degree' | 'overlap'
@@ -358,6 +379,8 @@ class MapReduceConfig:
                     f"analytic bound), got {self.touched_capacity}")
         if self.backend not in ("vmap", "shard_map"):
             raise ValueError(f"bad backend {self.backend!r}")
+        if self.reduce_impl not in ("psum", "allgather"):
+            raise ValueError(f"bad reduce_impl {self.reduce_impl!r}")
         if self.pipeline not in ("host", "device"):
             raise ValueError(f"bad pipeline {self.pipeline!r}")
         if self.partition not in kg_lib.PARTITIONERS:
@@ -383,8 +406,11 @@ class MapReduceConfig:
                 "device pipeline (BGD's gradient Reduce has no local copies "
                 "to go stale; the host loop Reduces synchronously every "
                 "epoch) — set paradigm='sgd', pipeline='device'")
-        if self.backend == "shard_map":
-            raise not_ported("backend='shard_map'", "12c")
+        if self.backend == "shard_map" and self.staleness > 0:
+            raise not_ported("staleness > 0 with backend='shard_map'", "12d")
+        if self.backend == "shard_map" and self.table_sharding == "sharded":
+            raise not_ported(
+                "table_sharding='sharded' with backend='shard_map'", "12d")
         if self.pipeline == "host" and (
             self.schedule.block_epochs != 1
             or self.schedule.merge_every != 1
@@ -404,6 +430,15 @@ class MapReduceConfig:
 
 def _resolve(cfg: MapReduceConfig, model: Optional[KGModel]) -> KGModel:
     return kg_models.get_model(model if model is not None else cfg.model)
+
+
+def _check_mesh(cfg: MapReduceConfig, mesh, device=None) -> None:
+    """The ``shard_map`` backend's mesh: present, a ``DeviceMesh`` with a
+    ``"workers"`` dimension over which ``cfg.n_workers`` divides, of the
+    tensors' device type (``parallel.util.check_mesh``)."""
+    if mesh is None:
+        raise ValueError("shard_map backend needs a mesh")
+    par.check_mesh(mesh, device, cfg.n_workers)
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +669,120 @@ def sgd_epoch_vmap(
     return merged, loss
 
 
+def _merge_tables_collective(
+    model: KGModel, cfg: MapReduceConfig, local: Params, stats: EpochStats,
+    priorities: Optional[Dict[str, torch.Tensor]], mesh, lo: int,
+) -> Params:
+    """The ``shard_map`` counterpart of :func:`_merge_tables_stacked`:
+    this rank's ``(W/M, N, k)`` copies Reduced by collectives, table by
+    table in sorted name order, each by ``cfg.reduce_impl``
+    (``merge_lib.merge_allgather``, the vmap bits, or
+    ``merge_lib.merge_collective``).  ``priorities`` are every worker's
+    ``(W, N)``; the psum Reduce takes this rank's rows from ``lo``."""
+    roles = model.param_roles()
+    hi = lo + stats.mean_loss.shape[0]
+    out = {}
+    for name in sorted(local):
+        count, loss = _stats_for_role(stats, roles[name])
+        pri = None if priorities is None else priorities[name]
+        if cfg.reduce_impl == "psum":
+            out[name] = merge_lib.merge_collective(
+                cfg.strategy, local[name], count, loss, stats.mean_loss,
+                mesh, None if pri is None else pri[lo:hi],
+                n_workers=cfg.n_workers, lo=lo)
+        else:
+            out[name] = merge_lib.merge_allgather(
+                cfg.strategy, local[name], count, loss, stats.mean_loss,
+                mesh, pri)
+    return out
+
+
+def _merge_tables_sparse_collective(
+    model: KGModel,
+    cfg: MapReduceConfig,
+    local: Params,               # this rank's (W/M, N, k) copies
+    stats: EpochStats,
+    priorities: Optional[Dict[str, torch.Tensor]],
+    base: Params,                # the shared round-input params
+    tcfg: KGConfig,
+    n_steps: int,
+    k_epochs: int,
+    mesh,
+) -> tuple:
+    """The sparse-transport Reduce over a mesh: each rank packs its
+    workers' touched rows, the packed buffers are all-gathered
+    (``parallel.util.all_gather_deltas``, the transport's only
+    cross-worker traffic) and every rank replays the stacked sparse merge
+    (``merge_lib.merge_sparse_stacked``) on the full ``(W, C, ...)``
+    buffers: the vmap backend's bits, whatever ``cfg.reduce_impl`` says
+    (there is nothing to psum).  Returns ``(params, overflow)`` with the
+    overflow maxed over the ranks."""
+    m = _virgin_repeats(tcfg, n_steps, k_epochs)
+    wl = par.all_gather(stats.mean_loss, mesh)                   # (W,)
+    overflow, packed = _pack_tables(model, cfg, local, stats, n_steps,
+                                    k_epochs)
+    out = {}
+    for name, deltas in packed.items():
+        idx, vals, cnt, lss = par.all_gather_deltas(deltas, mesh)
+        out[name] = merge_lib.merge_sparse_stacked(
+            cfg.strategy, idx, vals, cnt, lss, wl, local[name][0],
+            base[name],
+            lambda rows, name=name: model.normalize_rows(name, rows), m,
+            None if priorities is None else priorities[name])
+    return out, par.all_reduce(overflow, mesh, "max")
+
+
+def _gathered_mean(local_losses: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over all W workers of per-worker losses ``(W/M, ...)``:
+    all-gathered in rank order, then summed in worker order
+    (``merge_lib.worker_mean``), so the loss is the vmap backend's bits
+    under every Reduce (the reference's ``pmean`` agrees only to
+    tolerance)."""
+    return merge_lib.worker_mean(par.all_gather(local_losses, mesh))
+
+
+def sgd_epoch_shard(
+    params: Params,
+    pos: torch.Tensor,               # (W, S, B, 3) every worker's batches
+    neg: torch.Tensor,               # (W, S, B, 3)
+    cfg: MapReduceConfig,
+    tcfg: KGConfig,
+    priorities: Optional[Dict[str, torch.Tensor]],
+    mesh,
+    model: Optional[KGModel] = None,
+    check_ids: bool = True,
+    *,
+    with_overflow: bool = False,
+) -> tuple:
+    """Map/Reduce over the mesh (port of the reference's
+    ``sgd_epoch_shard``): this rank runs its ``W/M`` workers' local epochs
+    side by side on stacked copies (the rows ``[lo, hi)`` of ``pos`` and
+    ``neg``), then Reduces by collectives (:func:`_merge_tables_collective`
+    or, on the sparse transport, :func:`_merge_tables_sparse_collective`);
+    the loss is :func:`_gathered_mean`'s.  Every rank calls it and
+    returns the same ``(params, loss)`` (``, overflow`` with
+    ``with_overflow``)."""
+    model = _resolve(cfg, model)
+    lo, hi = par.local_workers(mesh, cfg.n_workers)
+    sparse = cfg.merge_transport == "sparse"
+    local, stats = model.run_epoch(
+        _broadcast(params, hi - lo), pos[lo:hi], neg[lo:hi], tcfg,
+        sparse_apply=sparse, touch_losses=cfg.strategy == "miniloss_perkey",
+        check_ids=check_ids)
+    if sparse:
+        merged, overflow = _merge_tables_sparse_collective(
+            model, cfg, local, stats, priorities, params, tcfg,
+            pos.shape[1], 1, mesh)
+    else:
+        merged = _merge_tables_collective(model, cfg, local, stats,
+                                          priorities, mesh, lo)
+        overflow = torch.zeros((), dtype=torch.int64, device=pos.device)
+    loss = _gathered_mean(stats.mean_loss, mesh)
+    if with_overflow:
+        return merged, loss, overflow
+    return merged, loss
+
+
 # ---------------------------------------------------------------------------
 # BGD paradigm
 # ---------------------------------------------------------------------------
@@ -725,27 +874,121 @@ def bgd_epoch_vmap(
     return params, pairwise_mean(step_loss, 0)
 
 
+def _bgd_sparse_update_collective(
+    model: KGModel, cfg: MapReduceConfig, tcfg: KGConfig, params: Params,
+    grads: Params, pos_b: torch.Tensor, neg_b: torch.Tensor, mesh,
+) -> Params:
+    """Sparse BGD Reduce over the mesh: each rank gathers its workers'
+    gradient rows at its own step's candidate ids, the ids and rows are
+    all-gathered, and every rank replays the stacked mean and update on
+    the union — :func:`_bgd_sparse_update_stacked`'s bits: a worker's
+    gradient at a row no batch of its references is exactly ``+0.0``,
+    which is what the lookup fills where a rank did not list the row."""
+    roles = model.param_roles()
+    Wl = pos_b.shape[0]
+    out = {}
+    for name, table in params.items():
+        n_rows = table.shape[0]
+        mine = _bgd_candidate_ids(pos_b, neg_b, roles[name], n_rows)
+        gvals = merge_lib.take_fill(grads[name], mine, 1)   # (W/M, U, k)
+        idx = par.all_gather(mine[None], mesh).repeat_interleave(Wl, 0)
+        vals = par.all_gather(gvals, mesh)                  # (W, U, k)
+        cand = merge_lib.sparse_candidates(idx, n_rows)
+        zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+        gc = merge_lib.worker_mean(
+            merge_lib.lookup_rows(idx, vals, cand, zero, n_rows))
+        pc = merge_lib.take_fill(table, cand, 0)
+        out[name] = merge_lib.apply_delta(
+            table, cand, pc - tcfg.learning_rate * gc)
+    return out
+
+
+def _bgd_epoch_collective(
+    model: KGModel, cfg: MapReduceConfig, tcfg: KGConfig, params: Params,
+    pos: torch.Tensor,               # (W/M, S, B, 3) this rank's workers
+    neg: torch.Tensor, mesh, check_ids: bool = True,
+) -> tuple:
+    """One BGD epoch on this rank's workers: per step their gradients,
+    the Reduce, one global update.  The dense Reduce is the reference's
+    ``pmean`` of the gradients every step: each rank sums its own workers
+    in worker order and an all-reduce adds the ranks' sums (the vmap bits
+    at M = 1, within rtol 1e-4 / atol 1e-5 at M > 1); the sparse one is
+    :func:`_bgd_sparse_update_collective` (the vmap bits).  The epoch's
+    loss all-gathers the per-worker step losses once
+    (:func:`_gathered_mean`)."""
+    if tcfg.normalize == "epoch":
+        params = model.normalize(params)
+    losses = []
+    for s in range(pos.shape[1]):
+        _, loss, grads = model._pairs_and_grads(
+            params, pos[:, s], neg[:, s], tcfg, shared=True,
+            check_ids=check_ids)
+        if cfg.merge_transport == "sparse":
+            params = _bgd_sparse_update_collective(
+                model, cfg, tcfg, params, grads, pos[:, s], neg[:, s], mesh)
+        else:
+            grads = {name: exact_div(par.all_reduce(
+                         merge_lib.worker_sum(g), mesh), cfg.n_workers)
+                     for name, g in grads.items()}
+            params = apply_gradients(params, grads, tcfg.learning_rate)
+        if tcfg.normalize == "step":
+            params = model.normalize(params)
+        losses.append(loss)
+    step_loss = _gathered_mean(torch.stack(losses).transpose(0, 1), mesh)
+    return params, pairwise_mean(step_loss, 0)
+
+
+def bgd_epoch_shard(
+    params: Params,
+    pos: torch.Tensor,               # (W, S, B, 3) every worker's batches
+    neg: torch.Tensor,
+    cfg: MapReduceConfig,
+    tcfg: KGConfig,
+    mesh,
+    model: Optional[KGModel] = None,
+    check_ids: bool = True,
+) -> tuple:
+    """:func:`_bgd_epoch_collective` on this rank's rows ``[lo, hi)`` of
+    ``pos`` and ``neg``; every rank returns the same ``(params, loss)``."""
+    model = _resolve(cfg, model)
+    lo, hi = par.local_workers(mesh, cfg.n_workers)
+    return _bgd_epoch_collective(model, cfg, tcfg, params, pos[lo:hi],
+                                 neg[lo:hi], mesh, check_ids)
+
+
 # ---------------------------------------------------------------------------
 # Epoch dispatcher + host-side training loop
 # ---------------------------------------------------------------------------
 
 def make_epoch_fn(
     cfg: MapReduceConfig, tcfg: KGConfig, model: Optional[KGModel] = None,
-    check_ids: bool = True, *, with_overflow: bool = False,
+    check_ids: bool = True, *, with_overflow: bool = False, mesh=None,
 ) -> Callable:
     """``epoch_fn(params, pos, neg, priorities) -> (params, loss)`` for the
-    configured paradigm (BGD ignores ``priorities``), or ``(params, loss,
-    overflow)`` with ``with_overflow`` (BGD's is a constant 0: its sparse
-    buffers are sized exactly from the batch); ``check_ids`` as in
-    :func:`sgd_epoch_vmap`."""
+    configured paradigm and backend (BGD ignores ``priorities``), or
+    ``(params, loss, overflow)`` with ``with_overflow`` (BGD's is a
+    constant 0: its sparse buffers are sized exactly from the batch);
+    ``check_ids`` as in :func:`sgd_epoch_vmap`.  The ``shard_map``
+    backend needs ``mesh`` and takes every worker's ``pos`` / ``neg``."""
     model = _resolve(cfg, model)
+    shard = cfg.backend == "shard_map"
+    if shard:
+        _check_mesh(cfg, mesh)
     if cfg.paradigm == "sgd":
+        if shard:
+            return lambda p, pos, neg, pri: sgd_epoch_shard(
+                p, pos, neg, cfg, tcfg, pri, mesh, model, check_ids,
+                with_overflow=with_overflow)
         return lambda p, pos, neg, pri: sgd_epoch_vmap(
             p, pos, neg, cfg, tcfg, pri, model, check_ids,
             with_overflow=with_overflow)
 
     def bgd(p, pos, neg, pri):
-        out = bgd_epoch_vmap(p, pos, neg, cfg, tcfg, model, check_ids)
+        if shard:
+            out = bgd_epoch_shard(p, pos, neg, cfg, tcfg, mesh, model,
+                                  check_ids)
+        else:
+            out = bgd_epoch_vmap(p, pos, neg, cfg, tcfg, model, check_ids)
         if with_overflow:
             out += (torch.zeros((), dtype=torch.int64, device=pos.device),)
         return out
@@ -823,10 +1066,11 @@ def make_block_fn(
     with_overflow: bool = False,
     stale_offsets=None,
     update_mask: Optional[Dict[str, object]] = None,
+    mesh=None,
 ) -> Callable:
     """``block_fn(params, epoch_ids) -> (params, losses)``: the device
     pipeline's block of epochs (port of the reference's ``make_block_fn``,
-    ``vmap`` backend, either transport), or ``(params, losses, overflow)``
+    either backend, either transport), or ``(params, losses, overflow)``
     with ``with_overflow``: the block's worst sparse-transport capacity
     excess, an int64 device scalar (a constant 0 under BGD and the dense
     transport), which the caller reads at the block's end.
@@ -889,11 +1133,27 @@ def make_block_fn(
     while free rows train as they would in an unmasked run of the same
     draws.  It needs the SGD paradigm's sparse transport with
     ``staleness == 0``; the masks are put on the partition's device once,
-    so the block stays free of host syncs."""
+    so the block stays free of host syncs.
+
+    ``cfg.backend == "shard_map"`` (``mesh`` given; every rank calls the
+    block): ``partitioned`` is this rank's ``(W/M, N_w, 3)`` workers
+    ``[lo, hi)``, whose batches and negatives are drawn from their global
+    worker ids, so each is the vmap worker's bits; a re-partition round
+    all-gathers the shards once and takes this rank's rows of the same
+    global permutation; each Reduce is a collective
+    (:func:`_merge_tables_collective`,
+    :func:`_merge_tables_sparse_collective`, BGD's
+    :func:`_bgd_epoch_collective`), and the block's losses are all-gathered
+    once at its end.  Nothing else syncs with the host."""
     model = _resolve(cfg, model)
     W, B, K = cfg.n_workers, cfg.batch_size, cfg.schedule.merge_every
     M, S = cfg.schedule.repartition_every, cfg.staleness
     E, dev = tcfg.n_entities, partitioned.device
+    shard = cfg.backend == "shard_map"
+    lo, hi = 0, W
+    if shard:
+        _check_mesh(cfg, mesh, dev)
+        lo, hi = par.local_workers(mesh, W)
     if update_mask is not None:
         if (cfg.paradigm != "sgd" or cfg.merge_transport != "sparse"
                 or S > 0):
@@ -916,7 +1176,8 @@ def make_block_fn(
     n_steps = partitioned.shape[1] // B
     rows = {"ent": tcfg.n_entities, "rel": tcfg.n_relations}
     roles = model.param_roles()
-    workers = torch.arange(W, device=dev)
+    workers = torch.arange(lo, hi, device=dev)      # this rank's, global ids
+    all_workers = torch.arange(W, device=dev)
 
     def block_part(epoch_ids: list) -> torch.Tensor:
         if M is None:
@@ -927,15 +1188,23 @@ def make_block_fn(
                 f"epochs {epoch_ids[0]}..{epoch_ids[-1]} cross a "
                 f"re-partition boundary (repartition_every={M}): slice the "
                 "block there")
+        if not shard:
+            return kg_lib.device_repartition(
+                keys_lib.fold_in(k_part, r), partitioned, r, strata)
+        if r == 0:                  # round 0 is the original partition
+            return partitioned
+        full = par.all_gather(partitioned, mesh)
         return kg_lib.device_repartition(
-            keys_lib.fold_in(k_part, r), partitioned, r, strata)
+            keys_lib.fold_in(k_part, r), full, r, strata)[lo:hi]
 
     def epoch_inputs(e: int, part: torch.Tensor) -> tuple:
-        """``(pos, neg, priorities or None)`` of epoch ``e``."""
+        """``(pos, neg, priorities or None)`` of epoch ``e``: this rank's
+        workers' batches and negatives, every worker's priorities."""
         if draws is not None:
-            return _injected(draws(e), tcfg, dev)
+            pos, neg, pri = _injected(draws(e), tcfg, dev)
+            return pos[lo:hi], neg[lo:hi], pri
         pos = kg_lib.device_epoch_batches(keys_lib.fold_in(k_data, e),
-                                          part, B)
+                                          part, B, workers)
         wkeys = keys_lib.fold_in(keys_lib.fold_in(k_neg, e), workers)
         uniform, offset = negative.device_draws(wkeys, pos.shape[:-1], E,
                                                 dev)
@@ -948,7 +1217,7 @@ def make_block_fn(
             return None
         k = keys_lib.fold_in(k_merge, e_last)
         return {name: keys_lib.uniform(
-                    keys_lib.fold_in(keys_lib.fold_in(k, i), workers),
+                    keys_lib.fold_in(keys_lib.fold_in(k, i), all_workers),
                     rows[roles[name]], dev)
                 for i, name in enumerate(sorted(roles))}
 
@@ -956,7 +1225,7 @@ def make_block_fn(
                     losses: list) -> tuple:
         """K local epochs of all W workers from their copies ``stacked``:
         ``(stacked, summed stats with mean_loss / K, priorities)``."""
-        acc = _zero_stats(tcfg, W, touch_losses, dev)
+        acc = _zero_stats(tcfg, hi - lo, touch_losses, dev)
         for e in eids:
             pos, neg, priorities = epoch_inputs(e, part)
             stacked, stats = model.run_epoch(
@@ -964,7 +1233,9 @@ def make_block_fn(
                 update_mask=update_mask, touch_losses=touch_losses,
                 check_ids=False)
             acc = _add_stats(acc, stats)
-            losses.append(merge_lib.worker_mean(stats.mean_loss))
+            # over a mesh, the workers' losses are gathered at block end
+            losses.append(stats.mean_loss if shard
+                          else merge_lib.worker_mean(stats.mean_loss))
         acc = dataclasses.replace(acc, mean_loss=exact_div(acc.mean_loss, K))
         if priorities is None:
             priorities = own_priorities(eids[-1])
@@ -985,23 +1256,34 @@ def make_block_fn(
         losses = []
         overflow = torch.zeros((), dtype=torch.int64, device=dev)
         for r0 in range(0, len(epoch_ids), K):
-            stacked = _broadcast(params, W)
+            stacked = _broadcast(params, hi - lo)
             # the round input: the sparse Reduce rebuilds untouched rows
             # from it; the dense one lets it go once copied
             base = params if sparse else None
             params = None
             stacked, acc, priorities = local_round(
                 stacked, epoch_ids[r0:r0 + K], part, losses)
-            if sparse:
+            if sparse and shard:
+                params, o = _merge_tables_sparse_collective(
+                    model, cfg, stacked, acc, priorities, base, tcfg,
+                    n_steps, K, mesh)
+            elif sparse:
                 params, o = _merge_tables_sparse_stacked(
                     model, cfg, stacked, acc, priorities, base, tcfg,
                     n_steps, K)
-                overflow = torch.maximum(overflow, o)
-                params = clamp_frozen(params, base)
-                base = None
+            elif shard:
+                params = _merge_tables_collective(model, cfg, stacked, acc,
+                                                  priorities, mesh, lo)
             else:
                 params = _merge_tables_stacked(model, cfg.strategy, stacked,
                                                acc, priorities)
+            if sparse:
+                overflow = torch.maximum(overflow, o)
+                params = clamp_frozen(params, base)
+                base = None
+        if shard:
+            return (params, _gathered_mean(torch.stack(losses, 1), mesh),
+                    overflow)
         return params, torch.stack(losses), overflow
 
     def sgd_block_stale(state: tuple, epoch_ids: list) -> tuple:
@@ -1037,8 +1319,13 @@ def make_block_fn(
         losses = []
         for e in epoch_ids:
             pos, neg, _ = epoch_inputs(e, part)
-            params, loss = bgd_epoch_vmap(params, pos, neg, cfg, tcfg, model,
-                                          check_ids=False)
+            if shard:
+                params, loss = _bgd_epoch_collective(
+                    model, cfg, tcfg, params, pos, neg, mesh,
+                    check_ids=False)
+            else:
+                params, loss = bgd_epoch_vmap(params, pos, neg, cfg, tcfg,
+                                              model, check_ids=False)
             losses.append(loss)
         # BGD's sparse buffers are sized exactly from the batch: no overflow
         return params, torch.stack(losses), torch.zeros(
@@ -1222,6 +1509,7 @@ def train(
     prior_history: Optional[list] = None,
     stale_offsets=None,
     update_mask: Optional[Dict[str, object]] = None,
+    mesh=None,
 ) -> TrainResult:
     """Training driver: balanced partitioning, deterministic batches,
     negative sampling, Map/Reduce epochs, loss history.  With
@@ -1279,10 +1567,22 @@ def train(
     checkpoint (updates persist as delta checkpoints,
     ``repro_torch.online``).
 
+    ``cfg.backend == "shard_map"``: every rank of ``mesh`` (a
+    ``DeviceMesh`` with a ``"workers"`` dimension, of ``device``'s
+    type; ``parallel/util.py``) calls ``train`` with the same arguments
+    and runs its block of the W workers; the Reduces are collectives, and
+    every rank returns the same result (the vmap backend's bits, but for
+    the psum Reduce and dense BGD at M > 1, within rtol 1e-4 / atol
+    1e-5).  Only the mesh's rank 0 writes checkpoints, and the ranks meet
+    at a barrier once it has finished, before ``train`` returns.
+
     ``cfg.n_workers == 1`` reproduces single-thread Algorithm 1 (the
     paper's baseline) for the chosen model."""
     model = _resolve(cfg, model)
     device = resolve_device(device)
+    shard = cfg.backend == "shard_map"
+    if shard:
+        _check_mesh(cfg, mesh, device)
     if update_mask is not None:
         _check_update_mask(update_mask, cfg, tcfg, model, checkpoint, params)
     if start_epoch < 0 or (start_epoch and start_epoch >= epochs):
@@ -1377,7 +1677,9 @@ def train(
 
     recorder = _make_recorder(kg, tcfg, cfg, model, eval_loop)
     writer = None
-    if checkpoint is not None:
+    # over a mesh only rank 0 writes: M ranks renaming the same step
+    # directory into place would race
+    if checkpoint is not None and not (shard and par.mesh_rank(mesh)):
         writer = _CheckpointWriter(checkpoint, {
             "kind": "kg_train",
             "model": model.name,
@@ -1402,14 +1704,14 @@ def train(
             recorder=recorder, eval_loop=eval_loop, writer=writer,
             start_epoch=start_epoch, prior_history=prior_history,
             strata=strata, draws=draws, stale_offsets=stale_offsets,
-            update_mask=update_mask)
+            update_mask=update_mask, mesh=mesh)
 
     # the ids are proved in range: the partition above, the own negatives
     # by construction, injected ones as they come in; a sparse SGD run's
     # overflow is read at every Reduce (the loop reads the loss anyway)
     with_overflow = cfg.paradigm == "sgd" and cfg.merge_transport == "sparse"
     epoch_fn = make_epoch_fn(cfg, tcfg, model, check_ids=False,
-                             with_overflow=with_overflow)
+                             with_overflow=with_overflow, mesh=mesh)
     history = list(prior_history or [])
     epochs_run = epochs
     for epoch in range(start_epoch, epochs):
@@ -1443,9 +1745,18 @@ def train(
         if stop:
             epochs_run = done
             break
+    _finish_writes(writer, cfg, mesh)
+    return _finish_result(params, history, epochs_run, model, recorder)
+
+
+def _finish_writes(writer: Optional[_CheckpointWriter], cfg: MapReduceConfig,
+                   mesh) -> None:
+    """Wait for the run's checkpoint writes; over a mesh the ranks then
+    meet, so no rank reads a step rank 0 is still writing."""
     if writer is not None:
         writer.finish()
-    return _finish_result(params, history, epochs_run, model, recorder)
+    if cfg.backend == "shard_map":
+        par.barrier(mesh)
 
 
 def _train_device(
@@ -1469,6 +1780,7 @@ def _train_device(
     draws: Optional[Callable[[int], DeviceDraws]],
     stale_offsets=None,
     update_mask: Optional[Dict[str, object]] = None,
+    mesh=None,
 ) -> TrainResult:
     """Device-pipeline driver: put the partition (and the degree strata)
     on the device once, then run epochs in blocks (:func:`make_block_fn`).
@@ -1483,7 +1795,8 @@ def _train_device(
     ``(global_view, worker_locals)``, the locals starting as W copies of
     the initial tables (round 0 refreshes every worker anyway) and
     surviving every block boundary; evaluation, the callback and the
-    result read the global view."""
+    result read the global view.  Over a mesh (``shard_map``) each rank
+    puts only its workers' ``(W/M, N_w, 3)`` partitions on its device."""
     sched = cfg.schedule
     if epochs % sched.merge_every != 0:
         raise ValueError(
@@ -1491,6 +1804,9 @@ def _train_device(
             f"merge_every={sched.merge_every} — the trailing local epochs "
             "would never be Reduced into the shared params; pick a multiple")
     with_overflow = cfg.paradigm == "sgd" and cfg.merge_transport == "sparse"
+    if cfg.backend == "shard_map":
+        lo, hi = par.local_workers(mesh, cfg.n_workers)
+        partitioned = partitioned[lo:hi]
     block_fn = make_block_fn(
         cfg, tcfg, torch.as_tensor(partitioned, device=device), model=model,
         head_prob=head_prob, seed=seed,
@@ -1498,7 +1814,7 @@ def _train_device(
         strata=None if strata is None else torch.as_tensor(strata,
                                                            device=device),
         draws=draws, with_overflow=with_overflow,
-        stale_offsets=stale_offsets, update_mask=update_mask)
+        stale_offsets=stale_offsets, update_mask=update_mask, mesh=mesh)
     stale = cfg.staleness > 0
     state = (params, _broadcast(params, cfg.n_workers)) if stale else params
 
@@ -1545,7 +1861,6 @@ def _train_device(
         if stop:
             epochs_run = start
             break
-    if writer is not None:
-        writer.finish()
+    _finish_writes(writer, cfg, mesh)
     return _finish_result(params, snapshot_history(), epochs_run, model,
                           recorder)

@@ -78,8 +78,12 @@ keeps the global view exactly (it is not re-normalized).  The dense
 sharded sparse (:func:`merge_sparse_stale_sharded_stacked`) forms give
 the same bits.
 
-The collective merges of the multi-device backend are not ported yet
-(ROADMAP.md queue 1, item 12c).
+The ``shard_map`` backend (``parallel/util.py``: each rank holds ``W/M``
+of the W workers) Reduces by collectives: :func:`merge_allgather` gathers
+the full stacks and gives the stacked merge's bits;
+:func:`merge_collective` (``reduce_impl="psum"``) sums each rank's own
+workers, then all-reduces, and agrees within tolerance (bitwise at M =
+1).  The stale and sharded merges over a mesh are ROADMAP.md item 12d.
 """
 from __future__ import annotations
 
@@ -87,6 +91,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.parallel import util as par
 from repro_torch.util import exact_div
 
 STRATEGIES = (
@@ -206,6 +211,103 @@ def merge_stacked(
     if strategy == "miniloss_global":
         return merge_miniloss_global_stacked(stacked, worker_loss)
     raise ValueError(f"unknown strategy {strategy!r}; want one of {STRATEGIES}")
+
+
+# ---------------------------------------------------------------------------
+# Collective path: this rank's (W/M, N, k) block over the mesh's ranks
+# ---------------------------------------------------------------------------
+
+def _select_by_priority_collective(
+    local: torch.Tensor, priority: torch.Tensor, mesh, lo: int, W: int
+) -> torch.Tensor:
+    """Winner-take-all across ranks with O(N) + O(N·k) all-reduces instead
+    of an O(W·N·k) all-gather: (1) each rank's best priority per key and
+    its first worker reaching it; (2) the max over ranks (an operand
+    returned exactly, so the equality test is well defined); (3) among
+    workers at the best priority the lowest global id wins (the stacked
+    ``argmax``'s tie-break); (4) one all-reduce sum of the winner's rows,
+    every other rank adding ``+0.0``."""
+    win = torch.argmax(priority, dim=0)                          # (N,)
+    mine = priority.gather(0, win[None])[0]
+    best = par.all_reduce(mine, mesh, "max")
+    claim = torch.where(mine == best, win + lo, W)
+    winner = par.all_reduce(claim, mesh, "min")
+    rows = _select_by_priority_stacked(local, priority)
+    keep = (claim == winner)[:, None]
+    return par.all_reduce(torch.where(keep, rows, torch.zeros_like(rows)),
+                          mesh, "sum")
+
+
+def merge_collective(
+    strategy: str,
+    local: torch.Tensor,                  # (W/M, N, k) this rank's workers
+    counts: torch.Tensor,                 # (W/M, N)
+    losses: Optional[torch.Tensor],       # (W/M, N)
+    worker_loss: torch.Tensor,            # (W/M,)
+    mesh,
+    priorities: Optional[torch.Tensor] = None,   # (W/M, N) this rank's
+    *,
+    n_workers: int,
+    lo: int,
+) -> torch.Tensor:
+    """The ``psum`` Reduce (``reduce_impl="psum"``): each rank first sums
+    its own workers in worker order (:func:`worker_sum`), then one
+    all-reduce adds the ranks' partial sums in the backend's order; the
+    selection strategies pick their winner by all-reduced max / min
+    (:func:`_select_by_priority_collective`).  ``lo`` is the global id of
+    this rank's first worker.
+
+    At M = 1 every sum is the stacked merge's and the all-reduce returns
+    its operand, so the result is :func:`merge_stacked`'s bits; at M > 1
+    the averages add in another order and agree within the reference's
+    tolerance (rtol 1e-4, atol 1e-5), and a selected ``-0.0`` comes back
+    ``+0.0``."""
+    if strategy == "average_all":
+        return exact_div(par.all_reduce(worker_sum(local), mesh), n_workers)
+    if strategy == "average":
+        w = counts[..., None]
+        total = par.all_reduce(worker_sum(w), mesh)
+        weighted = par.all_reduce(worker_sum(local * w), mesh)
+        plain = exact_div(par.all_reduce(worker_sum(local), mesh), n_workers)
+        return torch.where(total > 0,
+                           weighted / torch.clamp_min(total, 1.0), plain)
+    if strategy == "random":
+        if priorities is None:
+            raise ValueError("'random' strategy needs priorities")
+        touched = counts > 0
+        any_touch = par.all_reduce(touched.any(0).to(torch.int32), mesh,
+                                   "max") > 0
+        pri = torch.where(touched, priorities, -_BIG)
+        pri = torch.where(any_touch[None, :], pri, priorities)
+    elif strategy == "miniloss_perkey":
+        if losses is None:
+            raise ValueError("'miniloss_perkey' strategy needs losses")
+        pri = -torch.where(counts > 0,
+                           losses / torch.clamp_min(counts, 1.0), _BIG)
+    elif strategy == "miniloss_global":
+        pri = (-worker_loss)[:, None].expand(counts.shape)
+    else:
+        raise ValueError(
+            f"unknown strategy {strategy!r}; want one of {STRATEGIES}")
+    return _select_by_priority_collective(local, pri, mesh, lo, n_workers)
+
+
+def merge_allgather(
+    strategy: str,
+    local: torch.Tensor,                  # (W/M, N, k)
+    counts: torch.Tensor,                 # (W/M, N)
+    losses: Optional[torch.Tensor],       # (W/M, N)
+    worker_loss: torch.Tensor,            # (W/M,)
+    mesh,
+    priorities: Optional[torch.Tensor] = None,   # (W, N) every worker's
+) -> torch.Tensor:
+    """The paper-literal Reduce (``reduce_impl="allgather"``): all-gather
+    the ranks' ``(W/M, N, k)`` copies and stats into the full ``(W, ...)``
+    stacks, in rank order, then :func:`merge_stacked` — the vmap Reduce's
+    bits, at O(W·N·k) collective bytes."""
+    gather = lambda x: None if x is None else par.all_gather(x, mesh)
+    return merge_stacked(strategy, gather(local), gather(counts),
+                         gather(losses), gather(worker_loss), priorities)
 
 
 # ---------------------------------------------------------------------------

@@ -489,14 +489,18 @@ def device_epoch_batches(
     key: keys_lib.Key,
     partitioned: torch.Tensor,   # (W, N_w, 3) on device
     batch_size: int,
+    workers: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """All workers' batch grids, ``(W, S, B, 3)``: worker ``w``'s is
     :func:`device_worker_batches` of ``fold_in(key, w)``, all W drawn and
-    gathered at once."""
+    gathered at once.  ``workers`` (default ``arange(W)``) gives the rows'
+    global worker ids, for a rank holding a block of the workers."""
     W, n, _ = partitioned.shape
     steps = n // batch_size
     dev = partitioned.device
-    wkeys = keys_lib.fold_in(key, torch.arange(W, device=dev))
+    if workers is None:
+        workers = torch.arange(W, device=dev)
+    wkeys = keys_lib.fold_in(key, workers)
     perm = keys_lib.permutation(wkeys, n, dev)[:, : steps * batch_size]
     rows = torch.gather(partitioned, 1, perm[..., None].expand(-1, -1, 3))
     return rows.reshape(W, steps, batch_size, 3)

@@ -265,15 +265,20 @@ class KnowledgeBase:
         reference's key ``(n_workers, backend, chunk, mesh, table_sharding)``.
         On the vmap backend: ``table_sharding="sharded"`` scans the entity
         table in ``n_workers`` shards, with the replicated engine's
-        answers bitwise.  ``backend="shard_map"`` and ``mesh`` raise
-        (ROADMAP.md queue 1, item 12c)."""
-        eval_device.check_layout(table_sharding, n_workers, backend, mesh)
+        answers bitwise.  ``backend="shard_map"`` with ``mesh`` (a
+        ``DeviceMesh``, ``parallel.util.workers_mesh``) splits the
+        queries over the mesh's ranks, each of which calls every query
+        collectively, with the vmap engine's answers; sharded tables
+        there raise (ROADMAP.md item 12d)."""
+        eval_device.check_layout(table_sharding, n_workers, backend, mesh,
+                                 self.params["ent"].device)
         key = (n_workers, backend, chunk, mesh, table_sharding)
         if key not in self._engines:
             kw = {} if chunk is None else {"chunk": chunk}
             self._engines[key] = KGQueryEngine(
                 self.model, self.params, norm=self.norm, n_workers=n_workers,
-                table_sharding=table_sharding, **kw)
+                backend=backend, mesh=mesh, table_sharding=table_sharding,
+                **kw)
         return self._engines[key]
 
     def _exclude(self, a, b, side: str) -> np.ndarray:

@@ -25,6 +25,10 @@ checkpoint_every=, resume=True)`` checkpoints and resumes bit-identically.
 step references and Reduces packed deltas of the touched rows, with the
 dense transport's bits.  ``update(kb, new_triples)`` folds new triples
 into a trained artifact (the online tier, ``repro_torch.online``).
+``fit(backend="shard_map", mesh=...)`` and ``evaluate(...,
+backend="shard_map", mesh=...)`` run over the ranks of a
+``torch.distributed`` mesh, every rank calling them
+(``repro_torch.parallel.util``).
 """
 from __future__ import annotations
 
@@ -38,8 +42,8 @@ from repro_torch.core import eval as kg_eval
 from repro_torch.core import mapreduce
 from repro_torch.core import trace as trace_lib
 from repro_torch.core.models import KGConfig, KGModel, available, get_model
+from repro_torch.parallel import util as par
 from repro_torch.train import checkpoint as checkpoint_lib
-from repro_torch.util import not_ported
 
 TrainResult = mapreduce.TrainResult
 EpochSchedule = mapreduce.EpochSchedule
@@ -65,6 +69,7 @@ def make_configs(
     sampling: str = "unif",
     n_workers: int = 4,
     strategy: str = "average",
+    reduce_impl: str = "psum",
     merge_transport: str = "dense",
     backend: str = "vmap",
     batch_size: int = 256,
@@ -112,8 +117,11 @@ def make_configs(
     backend the result is the replicated layout's, bitwise.
     ``staleness=S > 0`` (SGD on the device pipeline) lets each worker
     train on its own copy for up to S rounds between adoptions of the
-    global view (``core/mapreduce.py``).  Options of the reference that
-    are not ported raise, naming their ROADMAP.md item."""
+    global view (``core/mapreduce.py``).  ``backend='shard_map'`` runs the
+    workers over the ranks of a mesh (see :func:`fit`), its dense SGD
+    Reduce by ``reduce_impl``: 'psum' (all-reduces) or 'allgather' (the
+    vmap bits).  Options of the reference that are not ported raise,
+    naming their ROADMAP.md item."""
     model = get_model(model)
     if partitioner is not None:
         partition = partitioner
@@ -133,6 +141,7 @@ def make_configs(
         n_workers=n_workers,
         paradigm=paradigm,
         strategy=strategy,
+        reduce_impl=reduce_impl,
         merge_transport=merge_transport,
         backend=backend,
         batch_size=batch_size,
@@ -175,6 +184,7 @@ def fit(
     device=None,
     draws=None,
     stale_offsets=None,
+    mesh=None,
     **config_kw,
 ) -> TrainResult:
     """Train ``model`` on the port ``KG`` ``kg`` with the MapReduce engine.
@@ -228,13 +238,22 @@ def fit(
     ``table_sharding`` is not part of a checkpoint's config, so a
     checkpoint moves between the layouts.
 
-    Not ported yet, raising and naming its ROADMAP.md item: ``mesh=`` and
-    ``backend='shard_map'`` (item 12c)."""
-    if "mesh" in config_kw:
-        raise not_ported("kg.fit(mesh=...) (the shard_map backend)", "12c")
+    ``backend='shard_map'`` with ``mesh=`` (a ``DeviceMesh`` with a
+    ``"workers"`` dimension of M ranks, ``parallel.util.workers_mesh``):
+    every rank calls ``fit`` with the same arguments, as under
+    ``torchrun``, runs W/M of the W workers and returns the same result
+    (``mapreduce.train``).  In-training evaluations on the device engine
+    split the queries over the same mesh; only rank 0 writes checkpoints,
+    and the ranks meet before a resume reads one.  Bounded staleness and
+    sharded tables there are not ported yet (ROADMAP.md item 12d)."""
+    if mesh is not None:
+        par.check_mesh(mesh, device)
     device = resolve_device(device)
     model = get_model(model)
     kcfg, mcfg = make_configs(kg, model, paradigm, **config_kw)
+    shard = mcfg.backend == "shard_map"
+    if shard:
+        mapreduce._check_mesh(mcfg, mesh, device)
 
     ckpt_cfg = None
     resume_kw: dict = {}
@@ -260,6 +279,8 @@ def fit(
                 "pass either resume=True (params come from the latest "
                 "checkpoint) or params=, not both")
         template = model.init_params(torch.Generator(), kcfg, device="meta")
+        if shard:               # rank 0 may have written the latest step
+            par.barrier(mesh)
         _, params, extra = checkpoint_lib.restore(
             ckpt_dir, params_template=template,
             expect={"kind": "kg_train", "model": model.name,
@@ -272,10 +293,14 @@ def fit(
         )
     eval_loop = None
     if eval_every is not None:
+        engine_kw = dict(eval_kw or {})
+        if shard and eval_engine == "device":
+            engine_kw.update(backend="shard_map", mesh=mesh,
+                             n_workers=mcfg.n_workers)
         eval_loop = trace_lib.EvalLoopConfig(
             eval_every=eval_every, metric=eval_metric, patience=patience,
             engine=eval_engine, filtered=eval_filtered,
-            engine_kw=dict(eval_kw or {}), keep_best=keep_best)
+            engine_kw=engine_kw, keep_best=keep_best)
     else:
         non_defaults = {
             "eval_metric": eval_metric != "entity_filtered.mean_rank",
@@ -295,7 +320,7 @@ def fit(
         kg, kcfg, mcfg, epochs=epochs, seed=seed, params=params,
         callback=callback, model=model, device=device, draws=draws,
         eval_loop=eval_loop, checkpoint=ckpt_cfg,
-        stale_offsets=stale_offsets, **resume_kw)
+        stale_offsets=stale_offsets, mesh=mesh, **resume_kw)
     res.kb = kb_lib.KnowledgeBase(
         model=model, params=res.params, graph=kg, norm=kcfg.norm,
         meta={"paradigm": paradigm, "epochs": res.epochs_run, "seed": seed,
@@ -321,7 +346,10 @@ def evaluate(
     the raw ``(params, model, kg)`` triple.  ``engine="host"`` is the
     reference protocol loop, ``engine="device"`` the device engine
     (identical numbers); its options (``chunk``, ``fused``,
-    ``max_fanout``) ride in ``engine_kw`` — see
+    ``max_fanout``, ``n_workers``, ``table_sharding``, and
+    ``backend="shard_map"`` with ``mesh=``: every rank of the mesh calls
+    ``evaluate`` and the query axis splits over them) ride in
+    ``engine_kw`` — see
     ``repro_torch.core.eval_device.evaluate_all_device``."""
     if isinstance(params, kb_lib.KnowledgeBase):
         kb = params

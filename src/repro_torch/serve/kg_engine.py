@@ -2,7 +2,7 @@
 ``repro.serve.kg_engine``, vmap backend, replicated or sharded tables).
 
 A batch of queries is padded and cut into chunks exactly like the eval
-engine's test split (``core/eval_device._layout``).  Every chunk scores
+engine's test split (``core/eval_device.shard_chunks``).  Every chunk scores
 all E entities through the model's ``candidate_energies``, masks excluded
 candidates to +inf (pad id = E never lands; serve-time exclusion = the
 KG's ``known_candidate_masks``), and keeps the ``k`` best on the device;
@@ -19,9 +19,16 @@ keeps its own best ``min(k, R)``, and the shard-major union of those
 lists is cut to ``k``, with the same stable sort.  Every answer the whole
 table's top-k holds survives its shard's cut, and the union lists tied
 candidates in ascending id, so ids *and* energies are the replicated
-engine's, bitwise, ties included.  With replicated tables ``n_workers``
-(the reference's split of the query axis) changes no number, and the
-port scans the queries whole.
+engine's, bitwise, ties included.
+
+Both backends walk the chunks through one path (``parallel/util.
+worker_map``, as the eval engine does): on ``backend="shard_map"`` with
+``mesh=`` (every rank of the mesh calls the query collectively) the
+queries split over the W workers and the workers over the ranks, and the
+ranks' answers are all-gathered in rank order; on ``vmap`` the query axis
+is one worker (``eval_device.query_workers``).  Every rank returns the
+vmap engine's ids and energies exactly.  Sharded tables over a mesh are
+ROADMAP.md item 12d.
 
 ``rank()`` routes ad-hoc triplet batches through the *eval* engine
 (``core/eval_device.entity_ranks_device``), including its rank-kernel
@@ -56,6 +63,7 @@ import torch
 from repro_torch.core import eval_device
 from repro_torch.core import merge as merge_lib
 from repro_torch.core.models import KGModel, Params, get_model
+from repro_torch.parallel import util as par
 
 DEFAULT_CHUNK = eval_device.DEFAULT_CHUNK
 
@@ -168,8 +176,9 @@ class KGQueryEngine:
     ``table_sharding="sharded"`` scans the entity axis in ``n_workers``
     shards (module docstring); ``rank()`` threads the layout into the
     eval scan, and ``score()`` and relation queries never shard (the
-    relation table is whole on every shard).  ``backend="shard_map"`` and
-    ``mesh`` are ROADMAP.md item 12c and raise."""
+    relation table is whole on every shard).  ``backend="shard_map"``
+    with ``mesh`` splits the queries over the mesh's ranks, every rank
+    calling each query collectively (module docstring)."""
 
     def __init__(
         self,
@@ -183,7 +192,8 @@ class KGQueryEngine:
         chunk: int = DEFAULT_CHUNK,
         table_sharding: str = "replicated",
     ):
-        eval_device.check_layout(table_sharding, n_workers, backend, mesh)
+        eval_device.check_layout(table_sharding, n_workers, backend, mesh,
+                                 params["ent"].device)
         self.model = get_model(model)
         self.params = params
         self.norm = norm
@@ -202,23 +212,6 @@ class KGQueryEngine:
                 self.model, params,
                 n_workers * merge_lib.shard_rows(self.n_entities, n_workers))
 
-    def _chunk_queries(self, triplets: np.ndarray, exclude,
-                       chunk: Optional[int] = None):
-        """``(S, C, 3)`` queries and ``(S, C, P)`` exclusions on the device,
-        plus the unpadded count."""
-        Q = len(triplets)
-        S, C, Qp = eval_device._layout(
-            Q, self.chunk if chunk is None else chunk)
-        q = eval_device._chunks(
-            eval_device._pad_rows(np.asarray(triplets, np.int32), Qp),
-            S, C, self.device)
-        if exclude is None:
-            exclude = np.full((Q, 1), self.n_entities, np.int32)
-        ex = eval_device._chunks(
-            eval_device._pad_rows(np.asarray(exclude, np.int32), Qp),
-            S, C, self.device)
-        return q, ex, Q
-
     @staticmethod
     def _pair_triplets(a, b, side: str) -> np.ndarray:
         a = np.atleast_1d(np.asarray(a, np.int32))
@@ -232,11 +225,6 @@ class KGQueryEngine:
         else:                           # (h, ?, t) for relation queries
             cols = (a, zero, b)
         return np.stack(cols, axis=1)
-
-    @staticmethod
-    def _result(ids: list, energies: list, Q: int) -> QueryResult:
-        return QueryResult(torch.cat(ids).cpu().numpy()[:Q],
-                           _host_energies(torch.cat(energies))[:Q])
 
     # -- queries -----------------------------------------------------------
 
@@ -258,51 +246,77 @@ class KGQueryEngine:
             self._pair_triplets(tails, rels, "head"), "head", k, exclude,
             chunk)
 
+    def _walk(self, per_chunk, triplets, exclude, chunk, entry: str,
+              side: str, k: int) -> QueryResult:
+        """One query batch: ``per_chunk(q, ex)`` answers one ``(C, 3)``
+        chunk with ``(ids, energies)`` of ``(C, k)``; each worker walks
+        its ``S`` chunks, and on ``shard_map`` the grids come back
+        all-gathered from every rank (module docstring)."""
+        Q = len(triplets)
+        C = self.chunk if chunk is None else chunk
+        W = eval_device.query_workers(self.n_workers, self.backend)
+        grid = lambda a: eval_device.shard_chunks(
+            np.asarray(a, np.int32), W, C, Q)
+        if exclude is None:
+            exclude = np.full((Q, 1), self.n_entities, np.int32)
+
+        def worker(_, q_w, ex_w):
+            q_w, ex_w = (torch.as_tensor(x, device=self.device)
+                         for x in (q_w, ex_w))
+            with torch.no_grad():
+                outs = [per_chunk(q_w[s], ex_w[s])
+                        for s in range(q_w.shape[0])]
+            _note_shape(entry, self.model, side, self.norm, k, q_w,
+                        None if entry.startswith("relation") else ex_w,
+                        self.params)
+            # energies widened before any gather (bf16 widens exactly)
+            return (torch.stack([i for i, _ in outs]),
+                    torch.stack([e.float() if e.dtype == torch.bfloat16
+                                 else e for _, e in outs]))
+
+        ids, energies = par.worker_map(
+            worker, backend=self.backend, mesh=self.mesh)(
+                None, grid(triplets), grid(exclude))
+        # (W, S, C, k) grids -> (W·S·C, k) rows, cut to the batch
+        return QueryResult(ids.flatten(0, 2).cpu().numpy()[:Q],
+                           energies.flatten(0, 2).cpu().numpy()[:Q])
+
+    def _entity_scores_topk(self, q: torch.Tensor, ex: torch.Tensor,
+                            side: str, k: int) -> tuple:
+        """One chunk's top-k over the whole table, exclusions at +inf."""
+        scores = self.model.candidate_energies(self.params, q, side,
+                                               self.norm)
+        rows, cols = torch.nonzero(ex < self.n_entities, as_tuple=True)
+        scores[rows, ex[rows, cols]] = torch.inf
+        return _topk_lowest(scores, k)
+
     def _entity_topk(self, triplets, side, k, exclude,
                      chunk: Optional[int] = None) -> QueryResult:
         k = min(_check_k(k), self.n_entities)
-        E = self.n_entities
-        q, ex, Q = self._chunk_queries(triplets, exclude, chunk)
-        sharded = self.table_sharding == "sharded"
-        ids, energies = [], []
-        with torch.no_grad():
-            for s in range(q.shape[0]):
-                if sharded:
-                    i, e = _entity_topk_sharded(
-                        self.model, self._padded_params, q[s], ex[s], side,
-                        self.norm, k, self.n_workers, E)
-                else:
-                    scores = self.model.candidate_energies(
-                        self.params, q[s], side, self.norm)
-                    rows, cols = torch.nonzero(ex[s] < E, as_tuple=True)
-                    scores[rows, ex[s][rows, cols]] = torch.inf
-                    i, e = _topk_lowest(scores, k)
-                ids.append(i)
-                energies.append(e)
-        out = self._result(ids, energies, Q)
-        entry = f"entity-sharded{self.n_workers}" if sharded else "entity"
-        _note_shape(entry, self.model, side, self.norm, k, q, ex,
-                    self.params)
-        return out
+        if self.table_sharding == "sharded":
+            per_chunk = lambda q, ex: _entity_topk_sharded(
+                self.model, self._padded_params, q, ex, side, self.norm, k,
+                self.n_workers, self.n_entities)
+            entry = f"entity-sharded{self.n_workers}"
+        else:
+            per_chunk = lambda q, ex: self._entity_scores_topk(q, ex, side,
+                                                               k)
+            entry = ("entity-shard_map" if self.backend == "shard_map"
+                     else "entity")
+        return self._walk(per_chunk, triplets, exclude, chunk, entry, side,
+                          k)
 
     def query_relations(self, heads, tails, k: int = 10,
                         chunk: Optional[int] = None) -> QueryResult:
         """Top-k relations linking ``(h, ?, t)`` pairs."""
         k = min(_check_k(k), self.n_relations)
-        triplets = self._pair_triplets(heads, tails, "relation")
-        q, _, Q = self._chunk_queries(triplets, None, chunk)
-        ids, energies = [], []
-        with torch.no_grad():
-            for s in range(q.shape[0]):
-                scores = self.model.relation_energies(
-                    self.params, q[s], self.norm)
-                i, e = _topk_lowest(scores, k)
-                ids.append(i)
-                energies.append(e)
-        out = self._result(ids, energies, Q)
-        _note_shape("relation", self.model, "relation", self.norm, k, q,
-                    None, self.params)
-        return out
+        entry = ("relation-shard_map" if self.backend == "shard_map"
+                 else "relation")
+        return self._walk(
+            lambda q, _: _topk_lowest(self.model.relation_energies(
+                self.params, q, self.norm), k),
+            self._pair_triplets(heads, tails, "relation"), None, chunk,
+            entry, "relation", k)
 
     def score(self, heads, rels, tails) -> np.ndarray:
         """Model energies of fully-specified ``(h, r, t)`` triplets
@@ -335,6 +349,7 @@ class KGQueryEngine:
         out = eval_device.entity_ranks_device(
             self.params, np.asarray(triplets, np.int32), self.norm, masks,
             model=self.model, chunk=self.chunk, n_workers=self.n_workers,
-            fused=fused, table_sharding=self.table_sharding)
+            backend=self.backend, mesh=self.mesh, fused=fused,
+            table_sharding=self.table_sharding)
         group = "filtered_ranks" if cand_masks is not None else "raw_ranks"
         return out[group][side]

@@ -71,6 +71,7 @@ from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.serve import kg_engine
+from repro_torch.util import not_ported
 
 if TYPE_CHECKING:       # repro_torch.kb imports this package — keep it lazy
     from repro_torch.kb import KnowledgeBase
@@ -195,7 +196,8 @@ class KGServer:
     ``max_batch`` caps a wave; ``max_wait_us`` bounds how long the oldest
     pending request waits for peers.  ``n_workers``/``backend``/``mesh``/
     ``table_sharding`` pick the engine every tenant uses
-    (``KnowledgeBase.engine``: one device, whole tables).  ``default_k``
+    (``KnowledgeBase.engine``: one device; ``backend="shard_map"`` raises,
+    naming ROADMAP.md item 12d).  ``default_k``
     is the k ``submit`` uses when none is given *and* the k ``warmup``
     runs — traffic at other k values meets its own bucket shapes cold on
     first use.  ``warm=True`` warms every bucket at construction.
@@ -224,6 +226,9 @@ class KGServer:
     ):
         if kb is None and not tenants:
             raise ValueError("pass a KnowledgeBase (or tenants={name: kb})")
+        if backend == "shard_map":
+            raise not_ported("KGServer(backend='shard_map') (a live server "
+                             "over a mesh)", "12d")
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.max_batch = int(max_batch)

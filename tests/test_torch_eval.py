@@ -17,6 +17,7 @@ from repro_torch.core import eval_device as port_device
 
 from test_torch_parity_helpers import (
     DIM, port_graph, port_params, ref_tables)
+from test_torch_rank_worker import single_rank_mesh
 
 
 @pytest.fixture(scope="module")
@@ -82,14 +83,21 @@ def test_fused_on_cpu_runs_the_plain_kernel(setup):
                                       exact["raw_ranks"][side])
 
 
-def test_engine_options(setup):
+def test_engine_options(setup, tmp_path):
     _, port_g, _, params = setup
     assert port_device._resolve_fused(
         port_device.get_model("transe"), None, params) is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sharded tables over a mesh are item 12d; replicated ones over a
+    # one-rank mesh give the vmap engine's metrics
+    with pytest.raises(NotImplementedError, match="item 12d"):
         port_eval.evaluate_all(params, port_g, engine="device",
                                table_sharding="sharded", n_workers=3,
                                backend="shard_map", mesh=object())
+    with single_rank_mesh(tmp_path) as mesh:
+        assert port_eval.evaluate_all(
+            params, port_g, engine="device", n_workers=3,
+            backend="shard_map", mesh=mesh) == port_eval.evaluate_all(
+                params, port_g, engine="device")
     # the vmap backend's sharded scan gives the replicated metrics
     assert port_eval.evaluate_all(
         params, port_g, engine="device", table_sharding="sharded",
@@ -104,7 +112,7 @@ def test_engine_options(setup):
 @pytest.mark.parametrize("n,chunk", [(1, 256), (256, 256), (257, 256),
                                      (10, 3)])
 def test_layout(n, chunk):
-    S, C, padded = port_device._layout(n, chunk)
+    S, C, padded = port_device.shard_layout(n, chunk, 1)
     assert C == chunk and S * C == padded >= n > padded - C
     arr = np.arange(3 * n).reshape(n, 3)
     out = port_device._pad_rows(arr, padded)

@@ -66,7 +66,12 @@ def _imports(path):
         os.path.join(ROOT, "src", "repro_torch")) for f in fs
      if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py"),
                               os.path.join(ROOT, "tools",
-                                           "profile_torch_eval.py")]),
+                                           "profile_torch_eval.py"),
+                              os.path.join(ROOT, "tests",
+                                           "test_torch_rank_worker.py")]
+    + [os.path.join(ROOT, "examples", f) for f in (
+        "torch_quickstart.py", "torch_train_mapreduce_kg.py",
+        "torch_online_update.py")]),
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_reference_import_in_source(path):
     for name in _imports(path):

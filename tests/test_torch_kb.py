@@ -22,6 +22,7 @@ from repro_torch.kb import KnowledgeBase
 from repro_torch.train import checkpoint as port_ckpt
 
 from test_torch_parity_helpers import DIM, port_graph, ref_tables
+from test_torch_rank_worker import single_rank_mesh
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -363,11 +364,13 @@ def test_negative_k_raises_as_in_the_reference(kbs, call):
     assert port.query_tails([1, 2], [1, 1], k=0).ids.shape == (2, 0)
 
 
-def test_engine_takes_the_reference_keywords(kbs):
+def test_engine_takes_the_reference_keywords(kbs, tmp_path):
     """``KnowledgeBase.engine`` accepts the reference's keywords, caches
     under the reference's key (several workers and sharded tables on the
-    vmap backend included), and refuses what it does not serve (a mesh,
-    the shard_map backend) naming item 12 (its part c)."""
+    vmap backend included; a one-rank ``shard_map`` mesh, whose answers
+    are the vmap engine's bits) and refuses what it does not serve: a
+    mesh that is no ``DeviceMesh``, ``shard_map`` without a mesh, and
+    sharded tables over a mesh (item 12d)."""
     ref, port = kbs
     defaults = dict(n_workers=1, backend="vmap", mesh=None, chunk=None,
                     table_sharding="replicated")
@@ -386,10 +389,26 @@ def test_engine_takes_the_reference_keywords(kbs):
     assert sh.table_sharding == "sharded" and sh.n_workers == 3
     with pytest.raises(ValueError, match="table_sharding"):
         port.engine(table_sharding="diagonal")
-    for kw in ({"mesh": object()}, {"backend": "shard_map"},
-               {"n_workers": 2, "table_sharding": "sharded",
-                "backend": "shard_map", "mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    for kw, exc, match in (
+            ({"mesh": object()}, TypeError, "DeviceMesh"),
+            ({"backend": "shard_map"}, ValueError, "needs a mesh"),
+            ({"n_workers": 2, "table_sharding": "sharded",
+              "backend": "shard_map", "mesh": object()},
+             NotImplementedError, "item 12d")):
+        with pytest.raises(exc, match=match):
             port.engine(**kw)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(exc, match=match):
             port.query_tails([0], [0], k=3, **kw)
+    heads, rels = np.arange(5), np.arange(5) % port.n_relations
+    with single_rank_mesh(tmp_path) as mesh:
+        kw = dict(n_workers=2, backend="shard_map", mesh=mesh)
+        assert port.engine(**kw) is port.engine(**kw)
+        assert port.engine(**kw).backend == "shard_map"
+        for got, want in (
+                (port.query_tails(heads, rels, k=4, **kw),
+                 port.query_tails(heads, rels, k=4)),
+                (port.query_relations(heads, heads, k=2, mesh=mesh,
+                                      backend="shard_map"),
+                 port.query_relations(heads, heads, k=2))):
+            np.testing.assert_array_equal(got.ids, want.ids)
+            assert got.energies.tobytes() == want.energies.tobytes()

@@ -7,8 +7,12 @@ on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/test_torch_kernels_cuda.py
 """
+import contextlib
+import datetime
+
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch import kg
 from repro_torch.core import eval_device, keys, mapreduce, negative
@@ -704,3 +708,93 @@ def test_update_on_card_keeps_frozen_rows(cuda, tmp_path):
     assert kb_card.fingerprint() == kb_cpu.fingerprint()
     re = KnowledgeBase.load_chain(chain, device=cuda)
     assert re.fingerprint() == kb_card.fingerprint()
+
+
+@contextlib.contextmanager
+def _nccl_mesh(tmp_path):
+    """A one-rank NCCL process group (a ``FileStore`` under ``tmp_path``)
+    and its ``"workers"`` mesh on the card, torn down on exit."""
+    from repro_torch.parallel import util as par
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        yield par.workers_mesh(1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paradigm,opts", [
+    ("sgd", dict(reduce_impl="allgather")),
+    ("sgd", dict(reduce_impl="psum", strategy="random")),
+    ("sgd", dict(merge_transport="sparse", strategy="miniloss_perkey")),
+    ("bgd", {}),
+    ("bgd", dict(merge_transport="sparse")),
+    ("sgd", dict(pipeline="device", merge_every=2, repartition_every=2,
+                 block_epochs=2)),
+    ("sgd", dict(pipeline="device", merge_every=2, repartition_every=2,
+                 block_epochs=2, merge_transport="sparse")),
+])
+def test_shard_map_one_rank_is_vmap_bitwise(cuda, tmp_path, paradigm, opts):
+    """The shard_map backend over a one-rank NCCL mesh on the card gives
+    the vmap backend's bits (the psum Reduce too, at M = 1), and its
+    evaluation and top-k the vmap engine's."""
+    graph = kg_data.synthetic_kg(0, n_entities=2000, n_relations=40,
+                                 n_triplets=12000)
+    kw = dict(dim=32, batch_size=128, n_workers=4, epochs=2, seed=0,
+              device=cuda, **opts)
+    want = kg.fit(graph, "transe", paradigm, **kw)
+    with _nccl_mesh(tmp_path) as mesh:
+        got = kg.fit(graph, "transe", paradigm, backend="shard_map",
+                     mesh=mesh, **kw)
+        for name in want.params:
+            assert torch.equal(got.params[name].view(torch.int32),
+                               want.params[name].view(torch.int32)), name
+        assert got.loss_history == want.loss_history
+        assert kg.evaluate(want.kb, engine="device", backend="shard_map",
+                           mesh=mesh, n_workers=4) == kg.evaluate(
+                               want.kb, engine="device")
+        pairs = graph.test[:300]
+        a = want.kb.query_tails(pairs[:, 0], pairs[:, 1], k=10,
+                                filtered=True, backend="shard_map",
+                                mesh=mesh, n_workers=4)
+        b = want.kb.query_tails(pairs[:, 0], pairs[:, 1], k=10,
+                                filtered=True)
+        assert (a.ids == b.ids).all()
+        assert a.energies.tobytes() == b.energies.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["dense", "sparse"])
+def test_shard_map_block_makes_no_host_sync(cuda, tmp_path, transport):
+    """A device-pipeline block over a one-rank NCCL mesh makes no host
+    sync (its collectives are NCCL's, which make none) and gives the vmap
+    block's bits."""
+    graph = kg_data.synthetic_kg(0, n_entities=4000, n_relations=300,
+                                 n_triplets=5000)
+    part = torch.as_tensor(kg_data.PARTITIONERS["balanced"](
+        0, graph.train, 4), device=cuda)
+    out = {}
+    with _nccl_mesh(tmp_path) as mesh:
+        for backend in ("vmap", "shard_map"):
+            kcfg, mcfg = kg.make_configs(
+                graph, "transe", "sgd", dim=32, batch_size=128,
+                pipeline="device", merge_transport=transport,
+                reduce_impl="allgather", merge_every=2, repartition_every=2,
+                block_epochs=2, backend=backend)
+            init = get_model("transe").init_params(
+                torch.Generator().manual_seed(0), kcfg, device=cuda)
+            block_fn = mapreduce.make_block_fn(
+                mcfg, kcfg, part, seed=3, with_overflow=True,
+                mesh=mesh if backend == "shard_map" else None)
+            block_fn(dict(init), range(2))          # communicators, caches
+            torch.cuda.synchronize()
+            with _NoHostSync():
+                out[backend] = block_fn(dict(init), range(2, 4))
+    (p_v, l_v, _), (p_s, l_s, ovf) = out["vmap"], out["shard_map"]
+    assert int(ovf) == 0 and torch.equal(l_v, l_s)
+    for name in p_v:
+        assert torch.equal(p_v[name].view(torch.int32),
+                           p_s[name].view(torch.int32)), name

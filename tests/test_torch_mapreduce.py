@@ -156,25 +156,27 @@ def test_epoch_draws_are_pure_in_seed_and_epoch():
     assert not torch.equal(draw(0, 3, 0), draw(1, 3, 0))
 
 
-@pytest.mark.parametrize("option,item", [
+@pytest.mark.parametrize("option,exc,match", [
     (dict(merge_transport="sparse", staleness=1, pipeline="device",
-          backend="shard_map"), 12),
-    (dict(merge_transport="sparse", backend="shard_map"), 12),
-    (dict(backend="shard_map"), 12),
+          backend="shard_map"), NotImplementedError, "item 12d"),
+    (dict(merge_transport="sparse", backend="shard_map"), ValueError,
+     "shard_map backend needs a mesh"),
+    (dict(backend="shard_map"), ValueError, "shard_map backend needs a mesh"),
     (dict(table_sharding="sharded", merge_transport="sparse",
-          backend="shard_map"), 12),
-    (dict(staleness=1, pipeline="device", backend="shard_map"), 12),
+          backend="shard_map"), NotImplementedError, "item 12d"),
+    (dict(staleness=1, pipeline="device", backend="shard_map"),
+     NotImplementedError, "item 12d"),
     (dict(negatives="joint", merge_transport="sparse", staleness=1,
-          pipeline="device", mesh=object()), 12),
-    (dict(mesh=object()), 12),
+          pipeline="device", mesh=object()), TypeError, "DeviceMesh"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
 ])
-def test_options_not_ported(graphs, option, item):
-    """What is left of item 12 is its part c, the shard_map backend and
-    ``mesh=``, alone or with staleness and sharded tables (which run on
-    the vmap backend: test_torch_staleness.py and
-    test_torch_sharded_tables.py)."""
+def test_options_not_ported(graphs, option, exc, match):
+    """The shard_map backend runs (``test_torch_shard_map.py``); without a
+    mesh it raises the reference's ``ValueError``, a mesh that is no
+    ``DeviceMesh`` a ``TypeError``, and what is left of item 12 (its part
+    d: staleness and sharded tables over a mesh) names item 12d."""
     _, graph = graphs
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(exc, match=match):
         port_kg.fit(graph, epochs=1, device="cpu", **dict(KW, **option))
 
 

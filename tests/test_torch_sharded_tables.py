@@ -1,7 +1,7 @@
 """Sharded tables (``table_sharding="sharded"``, sparse transport, vmap
 backend) in the port: bitwise the replicated layout across training,
 evaluation and serving (the reference's ``tests/test_sharded_tables.py``,
-minus its shard_map cells, which are item 12c), and against the
+minus its shard_map cells, which are item 12d), and against the
 reference.
 
 W = 3 shards over 200 entities keep the blocks ragged (67/67/66 and one
@@ -355,7 +355,7 @@ def test_sharded_eval_rejects_fused_and_bad_value(graphs):
     with pytest.raises(ValueError, match="table_sharding"):
         eval_device.entity_ranks_device(params, test,
                                         table_sharding="diagonal")
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         eval_device.entity_ranks_device(params, test, n_workers=W,
                                         backend="shard_map", mesh=object(),
                                         table_sharding="sharded")
@@ -465,7 +465,7 @@ def test_engine_rejects_bad_sharding_config(graphs):
     with pytest.raises(ValueError, match="mesh"):
         KGQueryEngine("transe", params, n_workers=2, backend="shard_map",
                       table_sharding="sharded")
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(NotImplementedError, match="item 12d"):
         KGQueryEngine("transe", params, n_workers=2, backend="shard_map",
                       mesh=object(), table_sharding="sharded")
     with pytest.raises(ValueError, match="n_workers"):

@@ -289,6 +289,26 @@
    Reports the epoch seconds beside vmap's, the bytes of a dense
    ``average`` Reduce under each ``reduce_impl`` and the gloo seconds
    (gloo over one card, not a multi-GPU speed).
+   Then item 12d on both meshes, on the cut split with the entity count
+   padded to a multiple of W (14,952: one entity no triplet names), so
+   the entity table divides into the workers' row blocks: (a) on the NCCL
+   rank, device SGD with ``staleness=2`` (``block_epochs`` 4,
+   ``merge_every`` 2, 4 epochs) under the dense, sparse and sparse +
+   ``"sharded"`` transports, sparse + ``"sharded"`` device SGD (2 epochs)
+   and BGD (1), ``kg.evaluate`` and the 1,024 filtered top-k queries on a
+   sharded engine over the mesh, and a sharded ``KGServer`` over the mesh
+   (warm-up, waves of 1, 3 and 16, filtered and not, a burst of
+   ``SHARD_SERVER_REQUESTS``, the first wave again from the cache); (b)
+   on the 2 gloo ranks, a stale sparse + sharded round (4 epochs), a
+   sharded sparse SGD round, a sharded evaluation, each rank's resting
+   bytes of the tables after a sharded block, and the live server over
+   the mesh (rank 0 serving ``SHARD_SERVER_REQUESTS`` requests, rank 1
+   following).  Checks: every run and query the vmap twin's bits, every
+   served answer the direct engine call's bits, ``steady_recompiles`` 0,
+   each rank resting its own half of the entity table and the whole
+   relation table, ``transe_score`` and its backward launched on the
+   stale and sharded runs.  Reports their epoch seconds beside vmap's,
+   the evaluation seconds and the server's p50/p99.
 
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -423,7 +443,16 @@ ENTRY_SUBPROCESS_S = 180    # the launcher subprocess's and examples' bound
 SHARD_GLOO_RANKS = 2
 SHARD_M1_BACKEND = "nccl"    # the one-rank mesh of (a)
 SHARD_COLLECTIVE_S = 120    # a collective's timeout in every rank
-SHARD_RANK_S = 180          # every gloo rank's bound
+SHARD_RANK_S = 240          # every gloo rank's bound
+# phase 13's item-12d runs: bounded staleness and sharded tables
+SHARD_STALE = dict(strategy="average", pipeline="device", merge_every=2,
+                   block_epochs=4, staleness=2)
+SHARD_STALE_EPOCHS = 4
+SHARDED = dict(merge_transport="sparse", table_sharding="sharded")
+SHARD_TRANSPORTS = {"dense": {}, "sparse": dict(merge_transport="sparse"),
+                    "sharded": SHARDED}
+SHARD_SERVER_REQUESTS = 300
+SHARD_SERVER_WAVES = ((1, False), (3, True), (16, False), (16, True))
 DEVICE = "cuda"
 # the CUDA kernels of each transe_score wrapper call, timed as their sum
 TRANSE_KERNELS = {"fwd": ("transe_score_fwd_kernel",),
@@ -3384,6 +3413,149 @@ def _shard_runs(torch, graph, mesh, timed):
     return runs
 
 
+def shard_graph(graph):
+    """``graph`` with its entity count padded to a multiple of the
+    workers (one entity no triplet names, for FB15k's 14,951), so a
+    sharded entity table rests in the workers' row blocks."""
+    from repro_torch.data import kg as kg_data
+
+    W = TRAIN["n_workers"]
+    return kg_data.KG(graph.n_entities + (-graph.n_entities) % W,
+                      graph.n_relations, graph.train, graph.valid,
+                      graph.test)
+
+
+def _twelve_d_runs(torch, graph, mesh, timed, labels=None):
+    """Phase 13's item-12d training runs on ``mesh`` (``None``: the vmap
+    twins), those in ``labels`` (default all): ``{label: result}``, each
+    run's seconds in ``timed``."""
+    from repro_torch import kg
+
+    shard = {} if mesh is None else dict(backend="shard_map", mesh=mesh)
+    cells = {f"stale_{name}": ("sgd", SHARD_STALE_EPOCHS,
+                               dict(SHARD_STALE, **extra))
+             for name, extra in SHARD_TRANSPORTS.items()}
+    cells["sharded_sgd"] = ("sgd", 2, dict(DEVICE_SGD, block_epochs=2,
+                                           **SHARDED))
+    cells["sharded_bgd"] = ("bgd", 1, dict(pipeline="device",
+                                           block_epochs=1, **SHARDED))
+    runs = {}
+    for label, (paradigm, epochs, kw) in cells.items():
+        if labels is not None and label not in labels:
+            continue
+        runs[label], timed[label] = wall(torch, lambda: kg.fit(
+            graph, "transe", paradigm, epochs=epochs, seed=0, device=DEVICE,
+            **TRAIN, **shard, **kw))
+    return runs
+
+
+def shard_server_queries(graph, n, seed):
+    """``n`` (head, relation, filtered) tail queries of the test split."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = graph.test[rng.choice(len(graph.test), n, replace=False)]
+    return [(int(h), int(r), bool(i % 2)) for i, (h, r) in
+            enumerate(rows[:, :2])]
+
+
+def shard_server(torch, kb, mesh, queries):
+    """The live server over ``mesh`` (sharded tables, W workers), driven
+    from this rank (the mesh's rank 0; every other rank constructs the
+    same server and stops it): warm-up, the waves of
+    ``SHARD_SERVER_WAVES`` (admission paused, so each is one wave), the
+    ``queries`` as one burst, then the first wave again from the cache.
+    Returns ``(checks, stats)``: every answer the direct engine call's
+    bits on this artifact, the cached one the fresh one's, no steady
+    recompile."""
+    import numpy as np
+
+    from repro_torch.serve import KGServer
+
+    def direct(qs):
+        out = {}
+        for filt in (False, True):
+            sel = [(h, r) for h, r, f in qs if f == filt]
+            if sel:
+                h, r = np.array(sel).T
+                res = kb.query_tails(h, r, k=LIVE_K, filtered=filt)
+                out.update({(int(a), int(b), filt): (res.ids[i],
+                                                     res.energies[i])
+                            for i, (a, b) in enumerate(sel)})
+        return out
+
+    waves = []
+    for i, (size, filt) in enumerate(SHARD_SERVER_WAVES):
+        waves.append([(h, r, filt) for h, r, _ in
+                      queries[i * 16:i * 16 + size]])
+    want = direct([q for w in waves for q in w] + list(queries))
+    srv = KGServer(kb, max_batch=16, max_wait_us=1000, default_k=LIVE_K,
+                   n_workers=TRAIN["n_workers"], table_sharding="sharded",
+                   backend="shard_map", mesh=mesh)
+    checks, answers = {}, []
+    try:
+        warm = srv.warmup(kinds=("tails",))
+        for wave in waves + waves[:1]:
+            srv.pause()
+            futs = [srv.submit("tails", h, r, filtered=f) for h, r, f in wave]
+            srv.resume()
+            answers.append([f.result(timeout=LIVE_TIMEOUT_S) for f in futs])
+        futs = [srv.submit("tails", h, r, filtered=f) for h, r, f in queries]
+        burst = [f.result(timeout=LIVE_TIMEOUT_S) for f in futs]
+        stats = srv.stats()
+    finally:
+        srv.stop()
+    checks["waves_equal_engine"] = all(
+        answer_bits(a, *want[q]) for wave, got in zip(waves, answers)
+        for q, a in zip(wave, got))
+    checks["burst_equals_engine"] = all(
+        answer_bits(a, *want[q]) for q, a in zip(queries, burst))
+    checks["cached_equals_fresh"] = all(
+        a.cached and not b.cached and answer_bits(a, b.ids, b.energies)
+        for a, b in zip(answers[-1], answers[0]))
+    checks["steady_recompiles_0"] = stats.steady_recompiles == 0
+    return checks, {"p50_ms": stats.p50_ms, "p99_ms": stats.p99_ms,
+                    "warm_compiles": warm,
+                    "waves": stats.waves, "mean_wave": stats.mean_wave,
+                    "bucket_waves": stats.bucket_waves,
+                    "steady_recompiles": stats.steady_recompiles,
+                    "requests": stats.requests}
+
+
+def shard_resting(torch, graph, mesh):
+    """One sharded sparse SGD block driven directly over ``mesh``: the
+    tables this rank rests after it, their bytes and rows."""
+    from repro_torch import kg
+    from repro_torch.core import mapreduce
+    from repro_torch.core.models import get_model
+    from repro_torch.data import kg as kg_data
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel import util as par
+
+    W = TRAIN["n_workers"]
+    kcfg, mcfg = kg.make_configs(graph, "transe", "sgd", **TRAIN,
+                                 backend="shard_map", block_epochs=2,
+                                 **DEVICE_SGD, **SHARDED)
+    model = get_model("transe")
+    params = model.init_params(torch.Generator().manual_seed(0), kcfg,
+                               device=DEVICE)
+    lo, hi = par.local_workers(mesh, W)
+    part = kg_data.PARTITIONERS[mcfg.partition](0, graph.train, W)[lo:hi]
+    layout = mapreduce.resting_layout(mcfg, kcfg, model)
+    block = mapreduce.make_block_fn(
+        mcfg, kcfg, torch.as_tensor(part, device=DEVICE), model=model,
+        seed=0, mesh=mesh)
+    rest, _ = block(sharding.place(params, layout, W, mesh), range(2))
+    torch.cuda.synchronize()
+    return {"layout": layout,
+            "rows": sharding.resting_rows(kcfg.n_entities, W, mesh),
+            "bytes": {n: sharding.resident_bytes({n: t})
+                      for n, t in rest.items()},
+            "whole_bytes": {n: t.numel() * t.element_size()
+                            for n, t in params.items()},
+            "ent": rest["ent"].cpu().numpy()}
+
+
 def shard_rank(spec_path, rank):
     """One gloo rank of phase 13 (b), run as ``python3 chip_smoke.py
     --shard-rank SPEC RANK`` by ``shard_map_path``: the device-pipeline
@@ -3425,9 +3597,33 @@ def shard_rank(spec_path, rank):
         metrics, timed["evaluate"] = wall(torch, lambda: kg.evaluate(
             runs["device_sgd_dense"].kb, engine="device",
             backend="shard_map", mesh=mesh, n_workers=TRAIN["n_workers"]))
+        # item 12d over the gloo mesh
+        sgraph = shard_graph(graph)
+        runs.update(_twelve_d_runs(torch, sgraph, mesh, timed,
+                                   ("stale_sharded", "sharded_sgd")))
+        kb = runs["sharded_sgd"].kb
+        sharded_metrics, timed["evaluate_sharded"] = wall(
+            torch, lambda: kg.evaluate(
+                kb, engine="device", backend="shard_map", mesh=mesh,
+                n_workers=TRAIN["n_workers"], table_sharding="sharded"))
+        resting = shard_resting(torch, sgraph, mesh)
+        server = None
+        queries = shard_server_queries(sgraph, SHARD_SERVER_REQUESTS, 5)
+        t0 = time.perf_counter()
+        if par.mesh_rank(mesh) == 0:
+            server = shard_server(torch, kb, mesh, queries)
+        else:
+            from repro_torch.serve import KGServer
+
+            KGServer(kb, max_batch=16, max_wait_us=1000, default_k=LIVE_K,
+                     n_workers=TRAIN["n_workers"], table_sharding="sharded",
+                     backend="shard_map", mesh=mesh).stop(
+                         timeout=SHARD_COLLECTIVE_S)
+        timed["server"] = time.perf_counter() - t0
         out = {"params": {k: _host_params(r) for k, r in runs.items()},
                "loss": {k: r.loss_history for k, r in runs.items()},
-               "metrics": metrics, "seconds": timed,
+               "metrics": metrics, "sharded_metrics": sharded_metrics,
+               "resting": resting, "server": server, "seconds": timed,
                "launches": {"rank_counts": rank_topk.rank_counts.launches,
                             "transe_score": ts.transe_score.launches,
                             "transe_score_bwd":
@@ -3462,6 +3658,7 @@ def shard_map_path(torch, graph):
     rng = np.random.default_rng(3)
     pairs = graph.test[rng.choice(len(graph.test), N_QUERY_PAIRS,
                                   replace=False)]
+    sgraph = shard_graph(graph)
     t_phase = time.perf_counter()
     host_sgd = (("host_sgd_average", {}),
                 ("host_sgd_random", dict(strategy="random")))
@@ -3497,6 +3694,14 @@ def shard_map_path(torch, graph):
             kb, engine="device"))
         want_q = kb.query_tails(pairs[:, 0], pairs[:, 1], k=LIVE_K,
                                 filtered=True)
+        # item 12d's twins, on the padded graph
+        vmap_12d = _twelve_d_runs(torch, sgraph, None, twin_s)
+        kb12 = vmap_12d["sharded_sgd"].kb
+        want_m12, twin_s["evaluate_sharded"] = wall(
+            torch, lambda: kg.evaluate(kb12, engine="device", n_workers=W,
+                                       table_sharding="sharded"))
+        want_q12 = kb12.query_tails(pairs[:, 0], pairs[:, 1], k=LIVE_K,
+                                    filtered=True)
         ts.transe_score.launches = 0           # --- shard_map path ---
         ts.transe_score_bwd.launches = 0
         rank_topk.rank_counts.launches = 0
@@ -3523,6 +3728,27 @@ def shard_map_path(torch, graph):
         got_q, timed["query_tails"] = wall(torch, lambda: kb.query_tails(
             pairs[:, 0], pairs[:, 1], k=LIVE_K, filtered=True,
             backend="shard_map", mesh=mesh, n_workers=W))
+        # item 12d: staleness, sharded tables and the live server
+        before_12d = (ts.transe_score.launches,
+                      ts.transe_score_bwd.launches)
+        got_12d = _twelve_d_runs(torch, sgraph, mesh, timed)
+        nccl_launches_12d = {
+            "transe_score": ts.transe_score.launches - before_12d[0],
+            "transe_score_bwd": ts.transe_score_bwd.launches
+            - before_12d[1]}
+        got_m12, timed["evaluate_sharded"] = wall(torch, lambda: kg.evaluate(
+            kb12, engine="device", backend="shard_map", mesh=mesh,
+            n_workers=W, table_sharding="sharded"))
+        got_q12, timed["query_tails_sharded"] = wall(
+            torch, lambda: kb12.query_tails(
+                pairs[:, 0], pairs[:, 1], k=LIVE_K, filtered=True,
+                backend="shard_map", mesh=mesh, n_workers=W,
+                table_sharding="sharded"))
+        t0 = time.perf_counter()
+        server_ok, server_stats = shard_server(
+            torch, kb12, mesh, shard_server_queries(
+                sgraph, SHARD_SERVER_REQUESTS, 5))
+        timed["server"] = time.perf_counter() - t0
         nccl_launches = {"rank_counts": rank_topk.rank_counts.launches,
                          "transe_score": ts.transe_score.launches,
                          "transe_score_bwd": ts.transe_score_bwd.launches}
@@ -3536,6 +3762,13 @@ def shard_map_path(torch, graph):
     pairs_ok["query_tails"] = bool(
         (got_q.ids == want_q.ids).all()
         and got_q.energies.tobytes() == want_q.energies.tobytes())
+    for label in vmap_12d:
+        pairs_ok[label] = same(got_12d[label], vmap_12d[label])
+    pairs_ok["evaluate_sharded"] = got_m12 == want_m12
+    pairs_ok["query_tails_sharded"] = bool(
+        (got_q12.ids == want_q12.ids).all()
+        and got_q12.energies.tobytes() == want_q12.energies.tobytes())
+    pairs_ok.update({f"server_{k}": v for k, v in server_ok.items()})
     # (b) M = 2 gloo ranks sharing the card, against (a)'s vmap twins
     M = SHARD_GLOO_RANKS
     _graph_file(graph, os.path.join(tmp.name, "graph.npz"))
@@ -3573,6 +3806,26 @@ def shard_map_path(torch, graph):
         gloo_ok[f"rank{r}_equals_rank0"] = all(
             out["params"][k][n].tobytes() == ranks[0]["params"][k][n].tobytes()
             for k in out["params"] for n in out["params"][k])
+        for label in ("stale_sharded", "sharded_sgd"):
+            twin = vmap_12d[label]
+            gloo_ok[f"rank{r}_{label}_bitwise"] = all(
+                out["params"][label][n].tobytes()
+                == twin.params[n].cpu().numpy().tobytes()
+                for n in twin.params) \
+                and out["loss"][label] == twin.loss_history
+        gloo_ok[f"rank{r}_evaluate_sharded_exact"] = (
+            out["sharded_metrics"] == want_m12)
+        rest = out["resting"]
+        lo, hi = rest["rows"]
+        gloo_ok[f"rank{r}_rests_own_rows"] = rest["ent"].tobytes() == (
+            vmap_12d["sharded_sgd"].params["ent"].cpu().numpy()[lo:hi]
+            .tobytes())
+        gloo_ok[f"rank{r}_rests_1_of_M"] = (
+            rest["layout"] == {"ent": "row", "rel": "whole"}
+            and rest["bytes"]["ent"] * M == rest["whole_bytes"]["ent"]
+            and rest["bytes"]["rel"] == rest["whole_bytes"]["rel"])
+    gloo_server_ok, gloo_server = ranks[0]["server"]
+    gloo_ok.update({f"server_{k}": v for k, v in gloo_server_ok.items()})
     gloo_launches = {k: sum(out["launches"][k] for out in ranks)
                      for k in ranks[0]["launches"]}
     launches = {k: nccl_launches[k] + gloo_launches[k] for k in nccl_launches}
@@ -3590,15 +3843,32 @@ def shard_map_path(torch, graph):
         "shard_dense_psum": timed["device_sgd_psum"] / 2,
         "vmap_sparse": twin_s["device_sgd_sparse"] / 2,
         "shard_sparse": timed["device_sgd_sparse"] / 2}
+    epochs_12d = {f"stale_{t}": SHARD_STALE_EPOCHS for t in SHARD_TRANSPORTS}
+    epochs_12d.update(sharded_sgd=2, sharded_bgd=1)
+    for label, n in epochs_12d.items():
+        epoch_s[f"vmap_{label}"] = twin_s[label] / n
+        epoch_s[f"shard_{label}"] = timed[label] / n
+    eval_s = {"vmap_sharded": twin_s["evaluate_sharded"],
+              "shard_sharded": timed["evaluate_sharded"],
+              "vmap_replicated": twin_s["evaluate"],
+              "shard_replicated": timed["evaluate"]}
     gloo_s = {f"rank{r}": out["seconds"] for r, out in enumerate(ranks)}
+    resting = {f"rank{r}": {"rows": out["resting"]["rows"],
+                            "bytes": out["resting"]["bytes"],
+                            "whole_bytes": out["resting"]["whole_bytes"]}
+               for r, out in enumerate(ranks)}
     info.update({
         "nccl_m1": {"seconds": timed, "vmap_seconds": twin_s,
-                    "epoch_s": epoch_s, "bitwise_vmap": pairs_ok,
-                    "launches": nccl_launches},
+                    "epoch_s": epoch_s, "evaluate_s": eval_s,
+                    "bitwise_vmap": pairs_ok, "launches": nccl_launches,
+                    "launches_12d": nccl_launches_12d,
+                    "server": server_stats},
         "gloo_m2_one_card": {"seconds": gloo_s, "checks": gloo_ok,
                              "launches": gloo_launches,
+                             "resting": resting, "server": gloo_server,
                              "process_s": {k: v[2] for k, v in
                                            procs.items()}},
+        "entities_12d": sgraph.n_entities,
         "reduce_bytes": reduce_bytes,
         "steps_per_epoch": len(graph.train) // W // TRAIN["batch_size"],
         "launches": launches,
@@ -3607,6 +3877,11 @@ def shard_map_path(torch, graph):
           f"{json.dumps(epoch_s)}; bytes a dense average Reduce "
           f"{json.dumps(reduce_bytes)}; gloo over one card, M={M}: "
           f"{json.dumps(gloo_s)}", flush=True)
+    print(f"shard_map 12d on {info['card']}: evaluation s "
+          f"{json.dumps(eval_s)}; server over the NCCL mesh p50/p99 ms "
+          f"{server_stats['p50_ms']}/{server_stats['p99_ms']}, over the "
+          f"gloo mesh {gloo_server['p50_ms']}/{gloo_server['p99_ms']}; "
+          f"resting bytes a gloo rank {json.dumps(resting)}", flush=True)
     print("shard_map " + json.dumps(info), flush=True)
     failed = [k for k, v in {**pairs_ok, **gloo_ok}.items() if not v]
     if failed:
@@ -3614,6 +3889,10 @@ def shard_map_path(torch, graph):
     for name, count in launches.items():
         if count <= 0:
             fail(f"{name} launched {count} times on the shard_map path")
+    for name, count in nccl_launches_12d.items():
+        if count <= 0:
+            fail(f"{name} launched {count} times on the stale and sharded "
+                 "runs")
     return info, launches
 
 

@@ -26,7 +26,10 @@ a candidate lies within an ulp of the gold.
 ``n_workers`` shards (:func:`_entity_ranks_sharded`): each shard scores
 only its block of entity rows (``candidate_slice_energies``), and the
 partial results combine exactly, so ranks are the replicated scan's,
-bitwise.  On one device the shards run one after another.
+bitwise.  On one device the shards run one after another; over a mesh
+each rank scores its workers' blocks for every query, and the parts
+combine by all-reduces: a split of compute, not of memory, since every
+rank holds the whole (padded) entity table.
 
 Both backends walk the queries through one path
 (``parallel/util.worker_map`` over ``shard_chunks``): the queries are
@@ -38,8 +41,9 @@ over the ranks and the ranks' grids are all-gathered in rank order; on
 ``vmap`` the query axis is one worker (``query_workers``), since the
 reference's W-way split of it only pads on one device.  A query's rank
 depends on nothing else in its chunk, so every rank returns the vmap
-engine's ranks exactly.  Sharded tables over a mesh are ROADMAP.md item
-12d.
+engine's ranks exactly.  The sharded scan over a mesh does not split
+the query axis: every rank walks every chunk and meets the others in each
+chunk's all-reduces.
 """
 from __future__ import annotations
 
@@ -52,7 +56,6 @@ from repro_torch.core import eval as host_eval
 from repro_torch.core import merge as merge_lib
 from repro_torch.core.models import KGModel, Params, get_model
 from repro_torch.parallel import util as par
-from repro_torch.util import not_ported
 
 DEFAULT_CHUNK = 256
 
@@ -96,13 +99,21 @@ def query_workers(n_workers: int, backend: str) -> int:
     return n_workers if backend == "shard_map" else 1
 
 
+def query_walk(backend: str, mesh, table_sharding: str) -> tuple:
+    """``(backend, mesh)`` the query axis is walked on: the engine's own,
+    except that sharded tables split the entity axis over a mesh instead
+    of the queries, so every rank walks every query, as on ``vmap``."""
+    if table_sharding == "sharded":
+        return "vmap", None
+    return backend, mesh
+
+
 def check_layout(table_sharding: str, n_workers: int, backend: str,
                  mesh, device=None) -> None:
     """Validate an engine's layout keywords (the reference's names): a bad
     ``table_sharding``, ``backend`` or ``n_workers`` raises ``ValueError``;
-    ``shard_map`` without a mesh raises ``ValueError``, with sharded
-    tables ``NotImplementedError`` naming item 12d; a ``mesh`` that is no
-    ``DeviceMesh`` raises ``TypeError``, one of another device type than
+    ``shard_map`` without a mesh raises ``ValueError``; a ``mesh`` that
+    is no ``DeviceMesh`` raises ``TypeError``, one of another device type than
     ``device`` or over which ``n_workers`` does not divide ``ValueError``
     (``parallel.util.check_mesh``)."""
     if table_sharding not in ("replicated", "sharded"):
@@ -113,8 +124,6 @@ def check_layout(table_sharding: str, n_workers: int, backend: str,
         raise ValueError(f"bad backend {backend!r}")
     if n_workers < 1:
         raise ValueError(f"n_workers must be >= 1, got {n_workers}")
-    if table_sharding == "sharded":
-        _check_sharded_mesh(backend, mesh, n_workers)
     if backend == "shard_map" and mesh is None:
         raise ValueError("backend='shard_map' needs a mesh")
     if mesh is not None:
@@ -134,19 +143,6 @@ def _pad_ent_tables(model: KGModel, params: Params, padded_E: int) -> Params:
             out[name] = torch.cat([t, t.new_zeros(
                 (padded_E - t.shape[0],) + t.shape[1:])])
     return out
-
-
-def _check_sharded_mesh(backend: str, mesh, n_shards: int) -> None:
-    """The sharded scan over ``shard_map`` puts row block ``i`` on mesh
-    position ``i``; the vmap backend simulates the shards on one device
-    and needs no mesh.  The shard_map form is item 12d."""
-    if backend != "shard_map":
-        return
-    if mesh is None:
-        raise ValueError("backend='shard_map' needs a mesh")
-    raise not_ported(
-        f"table_sharding='sharded' over shard_map ({n_shards} shards)",
-        "12d")
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +224,12 @@ def _entity_ranks_sharded(
     norm: str,
     n_shards: int,
     n_entities: int,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`_entity_chunk` with the candidate axis sharded (the
-    reference's ``_entity_ranks_sharded``, vmap form): each of ``n_shards``
-    shards scores only its block of ``R = shard_rows(E, W)`` entity rows,
-    and the parts combine exactly —
+    reference's ``_entity_ranks_sharded``): each of ``n_shards`` shards
+    scores only its block of ``R = shard_rows(E, W)`` entity rows, and the
+    parts combine exactly —
 
       * the gold score: the min over the shards' parts (the owner's value;
         every other shard holds +inf), an operand returned bit-exactly;
@@ -242,24 +239,36 @@ def _entity_ranks_sharded(
         shard, which checks it against the combined gold; counts summed
         as integers.
 
-    So the ranks are the replicated scan's, bitwise."""
+    Without a ``mesh`` (vmap) the shards run one after another on one
+    device.  Over a mesh every rank holds the same chunk and scores only
+    the blocks of its workers ``[lo, hi)``; the min is an all-reduce MIN
+    and the counts integer all-reduce sums.  So the ranks are the
+    replicated scan's, bitwise, either way; no rank kernel runs here, as
+    in the reference."""
     E, W = n_entities, n_shards
     R = merge_lib.shard_rows(E, W)
+    lo, hi = (0, W) if mesh is None else par.local_workers(mesh, W)
     gold_ids = chunk[:, 2] if side == "tail" else chunk[:, 0]
     cols = torch.arange(R, device=chunk.device)
-    parts = [_shard_slice_parts(model, params, chunk, side, norm, gold_ids,
-                                s * R, R) for s in range(W)]
-    gold = torch.stack([gp for _, gp in parts]).amin(0)
-    raw = 1
+    parts = [(s * R,) + _shard_slice_parts(model, params, chunk, side, norm,
+                                           gold_ids, s * R, R)
+             for s in range(lo, hi)]
+    gold = torch.stack([gp for *_, gp in parts]).amin(0)
+    if mesh is not None:
+        gold = par.all_reduce(gold, mesh, "min")
+    raw = 0
     better = 0
-    for s, (sc, _) in enumerate(parts):
-        lo = s * R
-        raw = raw + ((sc < gold[:, None]) & (lo + cols < E)[None, :]).sum(1)
-        off = cands - lo
+    for start, sc, _ in parts:
+        raw = raw + ((sc < gold[:, None])
+                     & (start + cols < E)[None, :]).sum(1)
+        off = cands - start
         inr = (off >= 0) & (off < R) & (cands < E)
         cv = sc.gather(1, off.clamp(0, R - 1))
         better = better + (inr & (cv < gold[:, None])
                            & (cands != gold_ids[:, None])).sum(1)
+    if mesh is not None:
+        raw, better = par.all_reduce(torch.stack([raw, better]), mesh, "sum")
+    raw = 1 + raw
     return raw.int(), (raw - better).clamp(min=1).int()
 
 
@@ -287,10 +296,11 @@ def entity_ranks_device(
     with a kernel and CUDA tables).
 
     ``table_sharding="sharded"`` scans the candidate axis in
-    ``n_workers`` shards (:func:`_entity_ranks_sharded`), with the same
-    ranks bitwise; it takes no rank kernel (``fused=True`` raises, and
-    ``fused=None`` picks the plain scan), as in the reference, whose
-    kernel streams the whole table."""
+    ``n_workers`` shards (:func:`_entity_ranks_sharded`; over a mesh
+    every rank walks every query),
+    with the same ranks bitwise; it takes no rank kernel (``fused=True``
+    raises, and ``fused=None`` picks the plain scan), as in the
+    reference, whose kernel streams the whole table."""
     model = get_model(model)
     check_layout(table_sharding, n_workers, backend, mesh,
                  params["ent"].device)
@@ -314,11 +324,13 @@ def entity_ranks_device(
     else:
         tails, heads = cand_masks
     dev = params["ent"].device
+    walk, walk_mesh = query_walk(backend, mesh, table_sharding)
     if sharded:
         scan = _pad_ent_tables(
             model, params, n_workers * merge_lib.shard_rows(E, n_workers))
+        on_mesh = mesh if backend == "shard_map" else None
         entity_chunk = lambda chunk, cands, side: _entity_ranks_sharded(
-            model, scan, chunk, cands, side, norm, n_workers, E)
+            model, scan, chunk, cands, side, norm, n_workers, E, on_mesh)
     else:
         entity_chunk = lambda chunk, cands, side: _entity_chunk(
             model, params, chunk, cands, side, norm, fused)
@@ -342,8 +354,8 @@ def entity_ranks_device(
         return {name: torch.stack(v) for name, v in outs.items()}
 
     grid = lambda a: shard_chunks(
-        a, query_workers(n_workers, backend), chunk, Q)
-    grids = par.worker_map(per_worker, backend=backend, mesh=mesh)(
+        a, query_workers(n_workers, walk), chunk, Q)
+    grids = par.worker_map(per_worker, backend=walk, mesh=walk_mesh)(
         None, grid(test), grid(np.asarray(tails, np.int32)),
         grid(np.asarray(heads, np.int32)))
     host = lambda name: grids[name].reshape(-1).cpu().numpy()[:Q]

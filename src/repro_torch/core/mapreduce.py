@@ -133,10 +133,16 @@ Two **backends**, selected by ``MapReduceConfig.backend``:
                     ranks in the backend's order, the vmap bits at M = 1
                     and within rtol 1e-4 / atol 1e-5 at M > 1.  Losses are
                     all-gathered and summed in worker order, the vmap
-                    bits under every Reduce.
-
-Not ported yet, raising and naming ROADMAP.md item 12d: bounded staleness
-and sharded tables on the ``shard_map`` backend.
+                    bits under every Reduce.  Sharded tables there route
+                    each merged row block to the rank whose worker owns it
+                    (``merge_lib.merge_sparse_sharded_collective``), and
+                    on the device pipeline a dividing entity-role table
+                    rests between blocks as the row blocks of the rank's
+                    workers (``parallel/sharding.py``), all-gathered
+                    whole at each block's start.  Bounded staleness there
+                    keeps each rank's workers' locals on the rank and
+                    Reduces by all-gathers (:func:`_merge_tables_stale_
+                    collective`).  Both give the vmap backend's bits.
 """
 from __future__ import annotations
 
@@ -155,9 +161,10 @@ from repro_torch.core import trace as trace_lib
 from repro_torch.core.models.base import (
     EpochStats, KGConfig, KGModel, Params, apply_gradients)
 from repro_torch.data import kg as kg_lib
+from repro_torch.parallel import sharding as sharding_lib
 from repro_torch.parallel import util as par
 from repro_torch.train import checkpoint as checkpoint_lib
-from repro_torch.util import exact_div, not_ported, pairwise_mean, warn_fresh
+from repro_torch.util import exact_div, pairwise_mean, warn_fresh
 
 #: an epoch's draws on the host pipeline: its negatives (W, S, B, 3) and,
 #: for the ``random`` strategy, each table's merge priorities (W, N); on
@@ -406,11 +413,6 @@ class MapReduceConfig:
                 "device pipeline (BGD's gradient Reduce has no local copies "
                 "to go stale; the host loop Reduces synchronously every "
                 "epoch) — set paradigm='sgd', pipeline='device'")
-        if self.backend == "shard_map" and self.staleness > 0:
-            raise not_ported("staleness > 0 with backend='shard_map'", "12d")
-        if self.backend == "shard_map" and self.table_sharding == "sharded":
-            raise not_ported(
-                "table_sharding='sharded' with backend='shard_map'", "12d")
         if self.pipeline == "host" and (
             self.schedule.block_epochs != 1
             or self.schedule.merge_every != 1
@@ -714,9 +716,12 @@ def _merge_tables_sparse_collective(
     (``parallel.util.all_gather_deltas``, the transport's only
     cross-worker traffic) and every rank replays the stacked sparse merge
     (``merge_lib.merge_sparse_stacked``) on the full ``(W, C, ...)``
-    buffers: the vmap backend's bits, whatever ``cfg.reduce_impl`` says
-    (there is nothing to psum).  Returns ``(params, overflow)`` with the
-    overflow maxed over the ranks."""
+    buffers — or, under ``table_sharding="sharded"``, merges only the
+    candidate blocks its workers own and all-gathers the merged blocks
+    (``merge_lib.merge_sparse_sharded_collective``): the vmap backend's
+    bits either way, whatever ``cfg.reduce_impl`` says (there is nothing
+    to psum).  Returns ``(params, overflow)`` with the overflow maxed over
+    the ranks."""
     m = _virgin_repeats(tcfg, n_steps, k_epochs)
     wl = par.all_gather(stats.mean_loss, mesh)                   # (W,)
     overflow, packed = _pack_tables(model, cfg, local, stats, n_steps,
@@ -724,12 +729,61 @@ def _merge_tables_sparse_collective(
     out = {}
     for name, deltas in packed.items():
         idx, vals, cnt, lss = par.all_gather_deltas(deltas, mesh)
-        out[name] = merge_lib.merge_sparse_stacked(
-            cfg.strategy, idx, vals, cnt, lss, wl, local[name][0],
-            base[name],
-            lambda rows, name=name: model.normalize_rows(name, rows), m,
-            None if priorities is None else priorities[name])
+        args = (cfg.strategy, idx, vals, cnt, lss, wl, local[name][0],
+                base[name],
+                lambda rows, name=name: model.normalize_rows(name, rows), m,
+                None if priorities is None else priorities[name])
+        if cfg.table_sharding == "sharded":
+            out[name] = merge_lib.merge_sparse_sharded_collective(
+                *args, mesh=mesh)
+        else:
+            out[name] = merge_lib.merge_sparse_stacked(*args)
     return out, par.all_reduce(overflow, mesh, "max")
+
+
+def _merge_tables_stale_collective(
+    model: KGModel,
+    cfg: MapReduceConfig,
+    local: Params,               # this rank's (W/M, N, k) worker copies
+    stats: EpochStats,
+    priorities: Optional[Dict[str, torch.Tensor]],
+    base: Params,                # the global view being merged into
+    n_steps: int,
+    k_epochs: int,
+    mesh,
+) -> tuple:
+    """The bounded-staleness Reduce over a mesh (port of the reference's
+    ``_merge_tables_stale_collective``), table by table in sorted name
+    order.  Sparse transport: the packed buffers are all-gathered and
+    every rank replays the stale merge, shard-routed under
+    ``table_sharding="sharded"`` (``merge_lib.merge_sparse_stale_
+    collective``).  Dense transport: the tables and touch stats are
+    all-gathered and every rank replays ``merge_lib.merge_stacked_stale``;
+    there is no psum winner-select, since the participation masks need
+    every toucher's row.  The vmap backend's bits either way.  Returns
+    ``(params, overflow)`` with the overflow maxed over the ranks (0 on
+    the dense transport)."""
+    wl = par.all_gather(stats.mean_loss, mesh)                   # (W,)
+    gather = lambda t: None if t is None else par.all_gather(t, mesh)
+    out = {}
+    if cfg.merge_transport == "sparse":
+        overflow, packed = _pack_tables(model, cfg, local, stats, n_steps,
+                                        k_epochs)
+        for name, deltas in packed.items():
+            idx, vals, cnt, lss = par.all_gather_deltas(deltas, mesh)
+            out[name] = merge_lib.merge_sparse_stale_collective(
+                cfg.strategy, idx, vals, cnt, lss, wl, base[name],
+                None if priorities is None else priorities[name],
+                mesh=mesh, sharded=cfg.table_sharding == "sharded")
+        return out, par.all_reduce(overflow, mesh, "max")
+    roles = model.param_roles()
+    for name in sorted(local):
+        count, loss = _stats_for_role(stats, roles[name])
+        out[name] = merge_lib.merge_stacked_stale(
+            cfg.strategy, gather(local[name]), gather(count), gather(loss),
+            wl, base[name],
+            None if priorities is None else priorities[name])
+    return out, torch.zeros((), dtype=torch.int64, device=wl.device)
 
 
 def _gathered_mean(local_losses: torch.Tensor, mesh) -> torch.Tensor:
@@ -883,9 +937,14 @@ def _bgd_sparse_update_collective(
     all-gathered, and every rank replays the stacked mean and update on
     the union — :func:`_bgd_sparse_update_stacked`'s bits: a worker's
     gradient at a row no batch of its references is exactly ``+0.0``,
-    which is what the lookup fills where a rank did not list the row."""
+    which is what the lookup fills where a rank did not list the row.
+    Under ``table_sharding="sharded"`` each rank updates only the
+    candidates its workers own (``merge_lib.own_candidates``) and the
+    updated blocks are all-gathered, ids and rows
+    (``merge_lib.own_blocks_collective``): the same bits."""
     roles = model.param_roles()
     Wl = pos_b.shape[0]
+    W = cfg.n_workers
     out = {}
     for name, table in params.items():
         n_rows = table.shape[0]
@@ -895,11 +954,21 @@ def _bgd_sparse_update_collective(
         vals = par.all_gather(gvals, mesh)                  # (W, U, k)
         cand = merge_lib.sparse_candidates(idx, n_rows)
         zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
-        gc = merge_lib.worker_mean(
-            merge_lib.lookup_rows(idx, vals, cand, zero, n_rows))
-        pc = merge_lib.take_fill(table, cand, 0)
-        out[name] = merge_lib.apply_delta(
-            table, cand, pc - tcfg.learning_rate * gc)
+
+        def update(ids, table=table):
+            gc = merge_lib.worker_mean(
+                merge_lib.lookup_rows(idx, vals, ids, zero, n_rows))
+            pc = merge_lib.take_fill(table, ids, 0)
+            return ids, pc - tcfg.learning_rate * gc
+
+        if cfg.table_sharding == "sharded":
+            R = merge_lib.shard_rows(n_rows, W)
+            out[name] = merge_lib.put_drop_(
+                table.clone(), *merge_lib.own_blocks_collective(
+                    lambda s: update(merge_lib.own_candidates(
+                        cand, s * R, R, n_rows)), W, mesh))
+        else:
+            out[name] = merge_lib.apply_delta(table, *update(cand))
     return out
 
 
@@ -1144,7 +1213,16 @@ def make_block_fn(
     (:func:`_merge_tables_collective`,
     :func:`_merge_tables_sparse_collective`, BGD's
     :func:`_bgd_epoch_collective`), and the block's losses are all-gathered
-    once at its end.  Nothing else syncs with the host."""
+    once at its end.  Nothing else syncs with the host.  Under bounded
+    staleness the locals of the state are this rank's ``(W/M, N, k)``
+    workers' copies; each worker's refresh phase is the one the vmap
+    backend draws for its global worker id, and the stale Reduce is
+    :func:`_merge_tables_stale_collective`.  Under ``table_sharding=
+    "sharded"`` the params (the stale state's global view) are taken and
+    returned at rest (:func:`resting_layout`): each dividing entity-role
+    table as the row blocks of this rank's workers, all-gathered whole at
+    the block's start, so the Map sees whole tables, and cut back at its
+    end."""
     model = _resolve(cfg, model)
     W, B, K = cfg.n_workers, cfg.batch_size, cfg.schedule.merge_every
     M, S = cfg.schedule.repartition_every, cfg.staleness
@@ -1170,7 +1248,8 @@ def make_block_fn(
                                           dev)
                    if stale_offsets is None else
                    torch.as_tensor(np.asarray(stale_offsets, np.int64),
-                                   device=dev))
+                                   device=dev))[lo:hi]
+    layout = resting_layout(cfg, tcfg, model) if shard else None
     touch_losses = cfg.strategy == "miniloss_perkey"
     sparse = cfg.merge_transport == "sparse"
     n_steps = partitioned.shape[1] // B
@@ -1304,7 +1383,12 @@ def make_block_fn(
             local = None
             stacked, acc, priorities = local_round(stacked, eids, part,
                                                    losses)
-            if sparse:
+            if shard:
+                g, o = _merge_tables_stale_collective(
+                    model, cfg, stacked, acc, priorities, g, n_steps, K,
+                    mesh)
+                overflow = torch.maximum(overflow, o)
+            elif sparse:
                 g, o = _merge_tables_stale_sparse(
                     model, cfg, stacked, acc, priorities, g, n_steps, K)
                 overflow = torch.maximum(overflow, o)
@@ -1312,6 +1396,9 @@ def make_block_fn(
                 g = _merge_tables_stale_stacked(model, cfg.strategy, stacked,
                                                 acc, priorities, g)
             local = stacked
+        if shard:
+            return ((g, local), _gathered_mean(torch.stack(losses, 1), mesh),
+                    overflow)
         return (g, local), torch.stack(losses), overflow
 
     def bgd_block(params: Params, epoch_ids: list) -> tuple:
@@ -1336,6 +1423,16 @@ def make_block_fn(
     else:
         body = sgd_block_stale if S > 0 else sgd_block
 
+    def block_input(state):
+        """The body's state: under donation the given dicts emptied into
+        a copy; at rest over a mesh, the tables gathered whole."""
+        if donate:
+            state = _take_state(state)
+        if layout is not None:
+            state = _with_view(state, lambda g: sharding_lib.gather(
+                g, layout, mesh))
+        return state
+
     def block_fn(params, epoch_ids) -> tuple:
         epoch_ids = list(epoch_ids)
         if not epoch_ids or len(epoch_ids) % K:
@@ -1344,10 +1441,37 @@ def make_block_fn(
                 f"is not a positive multiple of merge_every={K}")
         # donated, the body's argument is the only reference to the
         # tables: this frame keeps none, so the body can drop them
-        out = body(_take_state(params) if donate else params, epoch_ids)
+        out = body(block_input(params), epoch_ids)
+        if layout is not None:
+            out = (_with_view(out[0], lambda g: sharding_lib.place(
+                g, layout, W, mesh)),) + out[1:]
         return out if with_overflow else out[:2]
 
     return block_fn
+
+
+def resting_layout(cfg: MapReduceConfig, tcfg: KGConfig,
+                   model: KGModel) -> Optional[Dict[str, str]]:
+    """How the device pipeline rests each table between blocks over a
+    mesh (``parallel/sharding.kg_table_shardings``): ``None`` when every
+    table stays whole (``table_sharding="replicated"``), else ``{name:
+    "row" | "whole"}``, each dividing entity-role table kept as the row
+    blocks of the rank's workers."""
+    if cfg.table_sharding != "sharded":
+        return None
+    rows = {"ent": tcfg.n_entities, "rel": tcfg.n_relations}
+    roles = model.param_roles()
+    return sharding_lib.kg_table_shardings(
+        roles, {name: rows[role] for name, role in roles.items()},
+        cfg.n_workers, "sharded")
+
+
+def _with_view(state, fn):
+    """``fn`` applied to a block state's params: the params dict, or the
+    global view of the stale ``(global_view, worker_locals)`` pair."""
+    if isinstance(state, tuple):
+        return (fn(state[0]), state[1])
+    return fn(state)
 
 
 def _take_state(state):
@@ -1704,7 +1828,7 @@ def train(
             recorder=recorder, eval_loop=eval_loop, writer=writer,
             start_epoch=start_epoch, prior_history=prior_history,
             strata=strata, draws=draws, stale_offsets=stale_offsets,
-            update_mask=update_mask, mesh=mesh)
+            update_mask=update_mask, mesh=mesh, checkpoint=checkpoint)
 
     # the ids are proved in range: the partition above, the own negatives
     # by construction, injected ones as they come in; a sparse SGD run's
@@ -1781,6 +1905,7 @@ def _train_device(
     stale_offsets=None,
     update_mask: Optional[Dict[str, object]] = None,
     mesh=None,
+    checkpoint: Optional[CheckpointConfig] = None,
 ) -> TrainResult:
     """Device-pipeline driver: put the partition (and the degree strata)
     on the device once, then run epochs in blocks (:func:`make_block_fn`).
@@ -1796,7 +1921,14 @@ def _train_device(
     the initial tables (round 0 refreshes every worker anyway) and
     surviving every block boundary; evaluation, the callback and the
     result read the global view.  Over a mesh (``shard_map``) each rank
-    puts only its workers' ``(W/M, N_w, 3)`` partitions on its device."""
+    puts only its workers' ``(W/M, N_w, 3)`` partitions on its device and
+    keeps only its workers' stale locals; under sharded tables it rests
+    only its workers' row blocks of each dividing entity-role table
+    between blocks (:func:`resting_layout`), and every rank all-gathers
+    whole tables where an evaluation, a checkpoint or the result needs
+    them.  Every rank slices its blocks at the ``checkpoint``'s cadence,
+    whichever rank writes it, so all ranks run the same blocks and meet
+    in the same collectives."""
     sched = cfg.schedule
     if epochs % sched.merge_every != 0:
         raise ValueError(
@@ -1804,9 +1936,13 @@ def _train_device(
             f"merge_every={sched.merge_every} — the trailing local epochs "
             "would never be Reduced into the shared params; pick a multiple")
     with_overflow = cfg.paradigm == "sgd" and cfg.merge_transport == "sparse"
-    if cfg.backend == "shard_map":
+    shard = cfg.backend == "shard_map"
+    lo, hi = 0, cfg.n_workers
+    layout = None
+    if shard:
         lo, hi = par.local_workers(mesh, cfg.n_workers)
         partitioned = partitioned[lo:hi]
+        layout = resting_layout(cfg, tcfg, model)
     block_fn = make_block_fn(
         cfg, tcfg, torch.as_tensor(partitioned, device=device), model=model,
         head_prob=head_prob, seed=seed,
@@ -1816,10 +1952,26 @@ def _train_device(
         draws=draws, with_overflow=with_overflow,
         stale_offsets=stale_offsets, update_mask=update_mask, mesh=mesh)
     stale = cfg.staleness > 0
-    state = (params, _broadcast(params, cfg.n_workers)) if stale else params
+    # over a mesh each rank keeps its own workers' locals, and under
+    # sharded tables only its workers' row blocks of the global view
+    state = (params, _broadcast(params, hi - lo)) if stale else params
+    if layout is not None:
+        state = _with_view(state, lambda g: sharding_lib.place(
+            g, layout, cfg.n_workers, mesh))
+    params = None
+
+    def whole(state) -> Params:
+        """The params (the stale global view) as whole tables: over a
+        mesh under sharded tables, a collective every rank calls."""
+        g = state[0] if stale else state
+        return g if layout is None else sharding_lib.gather(g, layout, mesh)
+
+    # every rank gathers where any rank needs whole tables (only rank 0
+    # holds the checkpoint writer)
+    need_whole = recorder is not None or checkpoint is not None
 
     eval_every = eval_loop.eval_every if eval_loop is not None else None
-    ckpt_every = writer.cfg.every if writer is not None else None
+    ckpt_every = checkpoint.every if checkpoint is not None else None
     repart = sched.repartition_every
     loss_blocks = []
     history = list(prior_history or [])    # host floats read so far
@@ -1842,7 +1994,7 @@ def _train_device(
             _raise_on_overflow(overflow, start + length - 1)
         else:
             state, losses = block_fn(state, range(start, start + length))
-        params = state[0] if stale else state
+        params = whole(state) if need_whole else None
         loss_blocks.append(losses)
         start += length
         last = None
@@ -1862,5 +2014,5 @@ def _train_device(
             epochs_run = start
             break
     _finish_writes(writer, cfg, mesh)
-    return _finish_result(params, snapshot_history(), epochs_run, model,
-                          recorder)
+    return _finish_result(whole(state), snapshot_history(), epochs_run,
+                          model, recorder)

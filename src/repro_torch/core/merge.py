@@ -83,7 +83,12 @@ of the W workers) Reduces by collectives: :func:`merge_allgather` gathers
 the full stacks and gives the stacked merge's bits;
 :func:`merge_collective` (``reduce_impl="psum"``) sums each rank's own
 workers, then all-reduces, and agrees within tolerance (bitwise at M =
-1).  The stale and sharded merges over a mesh are ROADMAP.md item 12d.
+1).  The sharded and the stale sparse merges over a mesh
+(:func:`merge_sparse_sharded_collective`,
+:func:`merge_sparse_stale_collective`) take the all-gathered packed
+buffers; each rank merges only the candidate blocks its workers own and
+the merged blocks are all-gathered, which returns them exactly, so they
+give the stacked forms' bits.
 """
 from __future__ import annotations
 
@@ -635,6 +640,20 @@ def scatter_blocks(out: torch.Tensor, blocks: list) -> torch.Tensor:
     return put_drop_(out, owns, rows)
 
 
+def own_blocks_collective(block_fn, n_workers: int, mesh) -> tuple:
+    """``(owns, rows)`` of every shard, in shard order, on every rank:
+    this rank merges the blocks of its workers ``[lo, hi)`` in worker
+    order (``block_fn(s)`` gives shard ``s``'s ``(own, rows)``), and the
+    concatenated blocks are all-gathered in rank order, the ranks' bytes
+    exactly.  At M = W each rank merges one block, as in the
+    reference."""
+    lo, hi = par.local_workers(mesh, n_workers)
+    blocks = [block_fn(s) for s in range(lo, hi)]
+    owns = torch.cat([own for own, _ in blocks])
+    rows = torch.cat([r for _, r in blocks])
+    return par.all_gather(owns, mesh), par.all_gather(rows, mesh)
+
+
 def merge_sparse_sharded_stacked(
     strategy: str,
     idx: torch.Tensor,                    # (W, C) packed row ids
@@ -799,3 +818,73 @@ def merge_sparse_stale_sharded_stacked(
                                      priorities)
               for s in range(n_shards)]
     return scatter_blocks(base.clone(), blocks)
+
+
+def merge_sparse_sharded_collective(
+    strategy: str,
+    idx: torch.Tensor,                    # (W, C) all-gathered packed ids
+    vals: torch.Tensor,                   # (W, C, k)
+    cnts: torch.Tensor,                   # (W, C)
+    losses: Optional[torch.Tensor],       # (W, C)
+    worker_loss: torch.Tensor,            # (W,)
+    local: torch.Tensor,                  # (N, k) any one worker's table
+    base: torch.Tensor,                   # (N, k) the round-input table
+    normalize_row_fn: Callable,
+    repeats: int,
+    priorities: Optional[torch.Tensor] = None,
+    *,
+    mesh,
+) -> torch.Tensor:
+    """The shard-routed merge over a mesh (port of the reference's
+    ``merge_sparse_sharded_collective``): the packed buffers are already
+    all-gathered, each rank merges only the candidate blocks its workers
+    own (``lo = s · R`` for its shards ``s``), the merged blocks are
+    all-gathered — O(W·cap·k) bytes, never a whole table — and every rank
+    scatters them into the untouched rows' value.  The result is
+    :func:`merge_sparse_sharded_stacked`'s bits on every rank."""
+    W = idx.shape[0]
+    n_rows = base.shape[0]
+    R = shard_rows(n_rows, W)
+    cand = sparse_candidates(idx, n_rows)
+    owns, rows = own_blocks_collective(
+        lambda s: _merge_own_block(strategy, idx, vals, cnts, losses,
+                                   worker_loss, base, normalize_row_fn,
+                                   repeats, s * R, R, cand, priorities),
+        W, mesh)
+    return put_drop_(sparse_untouched_base(strategy, local, W).clone(), owns,
+                     rows)
+
+
+def merge_sparse_stale_collective(
+    strategy: str,
+    idx: torch.Tensor,                    # (W, C) all-gathered packed ids
+    vals: torch.Tensor,
+    cnts: torch.Tensor,
+    losses: Optional[torch.Tensor],
+    worker_loss: torch.Tensor,
+    base: torch.Tensor,                   # (N, k) the global view
+    priorities: Optional[torch.Tensor] = None,
+    *,
+    mesh,
+    sharded: bool = False,
+) -> torch.Tensor:
+    """The bounded-staleness Reduce over a mesh (port of the reference's
+    ``merge_sparse_stale_collective``): on the all-gathered packed
+    buffers every rank replays :func:`merge_sparse_stale`, or, with
+    ``sharded=True``, merges only its workers' candidate blocks and
+    all-gathers the merged blocks, as
+    :func:`merge_sparse_sharded_collective` does.  The vmap forms' bits
+    either way."""
+    if not sharded:
+        return merge_sparse_stale(strategy, idx, vals, cnts, losses,
+                                  worker_loss, base, priorities)
+    W = idx.shape[0]
+    n_rows = base.shape[0]
+    R = shard_rows(n_rows, W)
+    cand = sparse_candidates(idx, n_rows)
+    owns, rows = own_blocks_collective(
+        lambda s: _merge_own_block_stale(strategy, idx, vals, cnts, losses,
+                                         worker_loss, base, s * R, R, cand,
+                                         priorities),
+        W, mesh)
+    return put_drop_(base.clone(), owns, rows)

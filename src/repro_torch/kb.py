@@ -268,8 +268,11 @@ class KnowledgeBase:
         answers bitwise.  ``backend="shard_map"`` with ``mesh`` (a
         ``DeviceMesh``, ``parallel.util.workers_mesh``) splits the
         queries over the mesh's ranks, each of which calls every query
-        collectively, with the vmap engine's answers; sharded tables
-        there raise (ROADMAP.md item 12d)."""
+        collectively, with the vmap engine's answers; with sharded tables
+        there each rank scans only its workers' row blocks for every
+        query and the blocks' answers combine exactly, so the answers are
+        the vmap engine's too.  That splits the scan's compute, not its
+        memory: every rank holds the whole (padded) entity table."""
         eval_device.check_layout(table_sharding, n_workers, backend, mesh,
                                  self.params["ent"].device)
         key = (n_workers, backend, chunk, mesh, table_sharding)

@@ -244,8 +244,11 @@ def fit(
     ``torchrun``, runs W/M of the W workers and returns the same result
     (``mapreduce.train``).  In-training evaluations on the device engine
     split the queries over the same mesh; only rank 0 writes checkpoints,
-    and the ranks meet before a resume reads one.  Bounded staleness and
-    sharded tables there are not ported yet (ROADMAP.md item 12d)."""
+    and the ranks meet before a resume reads one.  Bounded staleness
+    (each rank keeps its workers' stale locals) and sharded tables (each
+    rank rests its workers' row blocks of a dividing entity table between
+    blocks) give the vmap backend's bits there too; ``TrainResult.params``
+    holds whole tables on every rank."""
     if mesh is not None:
         par.check_mesh(mesh, device)
     device = resolve_device(device)
@@ -348,7 +351,8 @@ def evaluate(
     (identical numbers); its options (``chunk``, ``fused``,
     ``max_fanout``, ``n_workers``, ``table_sharding``, and
     ``backend="shard_map"`` with ``mesh=``: every rank of the mesh calls
-    ``evaluate`` and the query axis splits over them) ride in
+    ``evaluate`` and the query axis splits over them, or, with
+    ``table_sharding="sharded"``, the entity table's row blocks) ride in
     ``engine_kw`` — see
     ``repro_torch.core.eval_device.evaluate_all_device``."""
     if isinstance(params, kb_lib.KnowledgeBase):

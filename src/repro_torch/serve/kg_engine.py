@@ -26,9 +26,12 @@ worker_map``, as the eval engine does): on ``backend="shard_map"`` with
 ``mesh=`` (every rank of the mesh calls the query collectively) the
 queries split over the W workers and the workers over the ranks, and the
 ranks' answers are all-gathered in rank order; on ``vmap`` the query axis
-is one worker (``eval_device.query_workers``).  Every rank returns the
-vmap engine's ids and energies exactly.  Sharded tables over a mesh are
-ROADMAP.md item 12d.
+is one worker (``eval_device.query_workers``).  Sharded tables over a mesh
+split the entity axis instead of the queries: every rank walks every
+chunk, scores its workers' row blocks, and the blocks' lists are
+all-gathered shard-major.  That splits compute, not memory: every rank
+holds the whole (padded) entity table.  Every rank returns
+the vmap engine's ids and energies exactly.
 
 ``rank()`` routes ad-hoc triplet batches through the *eval* engine
 (``core/eval_device.entity_ranks_device``), including its rank-kernel
@@ -122,6 +125,25 @@ def _topk_lowest(scores: torch.Tensor, k: int):
     return ids[:, :k].int(), vals[:, :k]
 
 
+def _shard_topk(model: KGModel, params: Params, q: torch.Tensor,
+                ex: torch.Tensor, side: str, norm: str, kk: int, lo: int,
+                R: int, E: int) -> tuple:
+    """One shard's ``min(k, R)`` best of its rows ``[lo, lo + R)``: its
+    ``(C, R)`` slice (``candidate_slice_energies``), pad rows and the
+    excluded ids it owns at +inf, then :func:`_topk_lowest`; global ids."""
+    cols = torch.arange(R, device=q.device)
+    sc = model.candidate_slice_energies(params, q, side, norm, lo=lo, n=R)
+    sc = torch.where((lo + cols >= E)[None, :], torch.inf, sc)
+    off = ex - lo
+    valid = (off >= 0) & (off < R) & (ex < E)
+    # ids outside the block write -inf, which max() ignores
+    sc = sc.scatter_reduce(
+        1, off.clamp(0, R - 1),
+        torch.where(valid, torch.inf, -torch.inf).to(sc.dtype), "amax")
+    i, e = _topk_lowest(sc, kk)
+    return i + lo, e
+
+
 def _entity_topk_sharded(
     model: KGModel,
     params: Params,          # entity-role tables padded to n_shards * R
@@ -132,36 +154,33 @@ def _entity_topk_sharded(
     k: int,
     n_shards: int,
     n_entities: int,
+    mesh=None,
 ) -> tuple:
     """One chunk's top-k with the candidate axis sharded (the reference's
-    ``_entity_topk_sharded``, vmap form): per shard, its ``(C, R)`` slice
-    (``candidate_slice_energies``), pad rows and the excluded ids it owns
-    set to +inf, and its ``min(k, R)`` best (:func:`_topk_lowest`); then
-    the shard-major union ``(C, W·kk)`` cut to ``k`` by the same stable
-    sort.  Within a tie the union lists ids in ascending order (shards
-    hold ascending id ranges, and each local list is id-ascending within
-    ties), so the answer is the replicated scan's, ids and energies."""
+    ``_entity_topk_sharded``): per shard its ``min(k, R)`` best
+    (:func:`_shard_topk`), then the shard-major union ``(C, W·kk)`` cut to
+    ``k`` by the same stable sort.  Within a tie the union lists ids in
+    ascending order (shards hold ascending id ranges, and each local list
+    is id-ascending within ties), so the answer is the replicated scan's,
+    ids and energies.  Without a ``mesh`` (vmap) the shards run one after
+    another; over a mesh every rank holds the same chunk, takes the lists
+    of its workers' blocks, and the ranks' lists are all-gathered (rank
+    order is shard order, the bytes exactly) before the same cut."""
     E, W = n_entities, n_shards
     R = merge_lib.shard_rows(E, W)
     kk = min(k, R)
-    cols = torch.arange(R, device=q.device)
-    ids, energies = [], []
-    for s in range(W):
-        lo = s * R
-        sc = model.candidate_slice_energies(params, q, side, norm, lo=lo,
-                                            n=R)
-        sc = torch.where((lo + cols >= E)[None, :], torch.inf, sc)
-        off = ex - lo
-        valid = (off >= 0) & (off < R) & (ex < E)
-        # ids outside the block write -inf, which max() ignores
-        sc = sc.scatter_reduce(
-            1, off.clamp(0, R - 1),
-            torch.where(valid, torch.inf, -torch.inf).to(sc.dtype), "amax")
-        i, e = _topk_lowest(sc, kk)
-        ids.append(i + lo)
-        energies.append(e)
-    j, e = _topk_lowest(torch.cat(energies, 1), k)
-    return torch.cat(ids, 1).gather(1, j.long()), e
+    lo, hi = (0, W) if mesh is None else par.local_workers(mesh, W)
+    ids, energies = zip(*(
+        _shard_topk(model, params, q, ex, side, norm, kk, s * R, R, E)
+        for s in range(lo, hi)))
+    if mesh is None:
+        union = lambda parts: torch.cat(parts, 1)
+    else:                   # (W, C, kk) in shard order -> (C, W·kk)
+        union = lambda parts: par.all_gather(
+            torch.stack(parts), mesh).permute(1, 0, 2).reshape(
+                q.shape[0], W * kk)
+    j, e = _topk_lowest(union(energies), k)
+    return union(ids).gather(1, j.long()), e
 
 
 class KGQueryEngine:
@@ -247,14 +266,17 @@ class KGQueryEngine:
             chunk)
 
     def _walk(self, per_chunk, triplets, exclude, chunk, entry: str,
-              side: str, k: int) -> QueryResult:
+              side: str, k: int, walk: tuple) -> QueryResult:
         """One query batch: ``per_chunk(q, ex)`` answers one ``(C, 3)``
         chunk with ``(ids, energies)`` of ``(C, k)``; each worker walks
-        its ``S`` chunks, and on ``shard_map`` the grids come back
-        all-gathered from every rank (module docstring)."""
+        its ``S`` chunks on the ``walk = (backend, mesh)`` the caller
+        picks (``eval_device.query_walk``), and on ``shard_map`` the
+        grids come back all-gathered from every rank (module
+        docstring)."""
         Q = len(triplets)
         C = self.chunk if chunk is None else chunk
-        W = eval_device.query_workers(self.n_workers, self.backend)
+        backend, mesh = walk
+        W = eval_device.query_workers(self.n_workers, backend)
         grid = lambda a: eval_device.shard_chunks(
             np.asarray(a, np.int32), W, C, Q)
         if exclude is None:
@@ -274,8 +296,7 @@ class KGQueryEngine:
                     torch.stack([e.float() if e.dtype == torch.bfloat16
                                  else e for _, e in outs]))
 
-        ids, energies = par.worker_map(
-            worker, backend=self.backend, mesh=self.mesh)(
+        ids, energies = par.worker_map(worker, backend=backend, mesh=mesh)(
                 None, grid(triplets), grid(exclude))
         # (W, S, C, k) grids -> (W·S·C, k) rows, cut to the batch
         return QueryResult(ids.flatten(0, 2).cpu().numpy()[:Q],
@@ -294,17 +315,20 @@ class KGQueryEngine:
                      chunk: Optional[int] = None) -> QueryResult:
         k = min(_check_k(k), self.n_entities)
         if self.table_sharding == "sharded":
+            mesh = self.mesh if self.backend == "shard_map" else None
             per_chunk = lambda q, ex: _entity_topk_sharded(
                 self.model, self._padded_params, q, ex, side, self.norm, k,
-                self.n_workers, self.n_entities)
-            entry = f"entity-sharded{self.n_workers}"
+                self.n_workers, self.n_entities, mesh)
+            entry = (f"entity-sharded{self.n_workers}"
+                     + ("-shard_map" if mesh is not None else ""))
         else:
             per_chunk = lambda q, ex: self._entity_scores_topk(q, ex, side,
                                                                k)
             entry = ("entity-shard_map" if self.backend == "shard_map"
                      else "entity")
         return self._walk(per_chunk, triplets, exclude, chunk, entry, side,
-                          k)
+                          k, eval_device.query_walk(
+                              self.backend, self.mesh, self.table_sharding))
 
     def query_relations(self, heads, tails, k: int = 10,
                         chunk: Optional[int] = None) -> QueryResult:
@@ -316,7 +340,7 @@ class KGQueryEngine:
             lambda q, _: _topk_lowest(self.model.relation_energies(
                 self.params, q, self.norm), k),
             self._pair_triplets(heads, tails, "relation"), None, chunk,
-            entry, "relation", k)
+            entry, "relation", k, (self.backend, self.mesh))
 
     def score(self, heads, rels, tails) -> np.ndarray:
         """Model energies of fully-specified ``(h, r, t)`` triplets

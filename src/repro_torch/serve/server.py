@@ -52,6 +52,39 @@ wave — a CUDA error included — is set on the wave's futures, and the
 server keeps serving.  The server moves no table between devices: it
 serves where the artifact's tables live.
 
+**Over a mesh** (``backend="shard_map"``, ``mesh=``): every rank of the
+mesh constructs the server with the same artifacts, and every engine call
+is a collective all ranks must enter in the same order.  Wave boundaries
+hang on timing, so ranks that batched on their own would deadlock: the
+mesh's rank 0 alone owns the batcher, the answer cache, the counters and
+the futures (``submit`` there only), and broadcasts each engine call it
+makes — a wave that missed the cache as (tenant generation, kind, k, the
+padded ids and exclusions, the bucket), a warm-up, a swap, a stop — over
+a gloo command group of its own; every other rank runs a follower thread
+that makes exactly those calls, in that order.  On a follower,
+``warmup()`` does nothing (rank 0's warm-up runs there), ``swap(kb)``
+hands the artifact to the follower, which binds it when rank 0's swap
+arrives (and checks its fingerprint), and ``stop()`` waits, without a
+cap, for rank 0's stop: call it when the follower's rank has nothing
+else to do.
+
+Every rank acknowledges each wave, warm-up and swap on the command group
+twice — once it is ready for the call (it holds the tenant, or has bound
+the swapped-in artifact), once the call has run — with a one-int
+all-reduce.  If any rank failed, every rank learns each failure, the
+followers stop following and the mesh server shuts down: rank 0 raises
+the error from the wave's futures, ``warmup()`` or ``swap()``, refuses
+later requests, and each follower's ``stop()`` raises it.  The command
+group's collectives time out after ``CHANNEL_TIMEOUT_S`` (an idle rank 0
+sends a heartbeat every ``HEARTBEAT_S``), so a lost rank 0 ends its
+followers and a lost follower surfaces on rank 0 as an exception within
+that bound.  A rank that fails inside an engine call before that call's
+own collectives leaves the others waiting in them until the mesh's
+process group times out: that bound is the mesh's.  While such a server
+runs, its engine calls hold the mesh: run no other collective on it.
+``stop()`` destroys the command group.  On a one-rank mesh there is
+nothing to broadcast.
+
     kb = KnowledgeBase.load("my_kb")
     with KGServer(kb, max_batch=16, max_wait_us=2000, warm=True) as srv:
         ans = srv.query_tails(h, r, k=10)      # blocking convenience
@@ -63,20 +96,31 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import queue
 import threading
 import time
 from concurrent.futures import Future
+from datetime import timedelta
 from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.parallel import util as par
 from repro_torch.serve import kg_engine
-from repro_torch.util import not_ported
 
 if TYPE_CHECKING:       # repro_torch.kb imports this package — keep it lazy
     from repro_torch.kb import KnowledgeBase
 
 KINDS = ("tails", "heads", "relations")
+
+#: over a mesh: the command group's collective timeout, and how long an
+#: idle rank 0 waits before it sends its followers a heartbeat (both read
+#: when a server is constructed)
+CHANNEL_TIMEOUT_S = 120.0
+HEARTBEAT_S = 2.0
+#: the commands every rank acknowledges before it makes their calls
+_ACKED = ("wave", "warm", "swap")
 
 
 def _pow2ceil(n: int) -> int:
@@ -166,6 +210,7 @@ class _Tenant:
     kb: KnowledgeBase
     engine: kg_engine.KGQueryEngine
     fp: str
+    gen: int = 0                    # its number on every rank of a mesh
     ex_width: Optional[int] = None
 
 
@@ -196,8 +241,9 @@ class KGServer:
     ``max_batch`` caps a wave; ``max_wait_us`` bounds how long the oldest
     pending request waits for peers.  ``n_workers``/``backend``/``mesh``/
     ``table_sharding`` pick the engine every tenant uses
-    (``KnowledgeBase.engine``: one device; ``backend="shard_map"`` raises,
-    naming ROADMAP.md item 12d).  ``default_k``
+    (``KnowledgeBase.engine``; ``backend="shard_map"`` over ``mesh``:
+    every rank constructs the server, rank 0 serves, module docstring).
+    ``default_k``
     is the k ``submit`` uses when none is given *and* the k ``warmup``
     runs — traffic at other k values meets its own bucket shapes cold on
     first use.  ``warm=True`` warms every bucket at construction.
@@ -226,9 +272,6 @@ class KGServer:
     ):
         if kb is None and not tenants:
             raise ValueError("pass a KnowledgeBase (or tenants={name: kb})")
-        if backend == "shard_map":
-            raise not_ported("KGServer(backend='shard_map') (a live server "
-                             "over a mesh)", "12d")
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.max_batch = int(max_batch)
@@ -268,17 +311,189 @@ class KGServer:
         self._invalidations = 0
         self._latencies: collections.deque = collections.deque(maxlen=100_000)
 
+        # over a mesh of M > 1 ranks: the command channel (module docstring)
+        self._meshed = False
+        self._channel = None
+        self._leader = True
+        self._gens = 0
+        self._by_gen: Dict[int, _Tenant] = {}   # a follower's tenants
+        self._bound: Dict[int, int] = {}        # rank 0: waves per gen
+        self._retired: set = set()              # rank 0: swapped-out gens
+        self._to_drop: set = set()              # ... followers may free
+        self._closed = False
+        self._handoff: queue.Queue = queue.Queue()
+        #: a follower's error; on rank 0, the failure its followers reported
+        self.follower_error: Optional[BaseException] = None
+        if backend == "shard_map" and mesh is not None:
+            self._open_channel(mesh)
+
         named = dict(tenants or {})
         if kb is not None:
             named.setdefault("default", kb)
         for name, each in named.items():
             self._tenants[name] = self._make_tenant(each)
+            self._by_gen[self._tenants[name].gen] = self._tenants[name]
 
         self._thread = threading.Thread(
-            target=self._run, name="kg-server-batcher", daemon=True)
+            target=self._run if self._leader else self._follow,
+            name="kg-server-batcher" if self._leader
+            else "kg-server-follower", daemon=True)
         self._thread.start()
         if warm:
             self.warmup()
+
+    # -- the command channel over a mesh -----------------------------------
+
+    def _open_channel(self, mesh) -> None:
+        """A gloo group over the mesh's ranks for rank 0's commands (every
+        rank of the default group calls ``new_group``); none on one rank."""
+        import torch.distributed as dist
+
+        par.check_mesh(mesh)
+        if par.mesh_size(mesh) == 1:
+            return
+        ranks = dist.get_process_group_ranks(mesh.get_group(par.AXIS))
+        self._src = ranks[0]
+        self._leader = par.mesh_rank(mesh) == 0
+        self._meshed = True
+        self._timeout_s = CHANNEL_TIMEOUT_S
+        self._heartbeat_s = HEARTBEAT_S
+        self._channel = dist.new_group(
+            ranks, timeout=timedelta(seconds=CHANNEL_TIMEOUT_S),
+            backend="gloo")
+
+    def _send(self, *cmd) -> None:
+        """Rank 0: broadcast one command (with the generations the
+        followers may free) to the followers, and for a wave, warm-up or
+        swap take every rank's word that it is ready for it
+        (:meth:`_agree`); the caller holds ``_compile_lock``, so commands
+        go out in the order the engine calls run."""
+        if not self._meshed:
+            return
+        import torch.distributed as dist
+
+        if self._closed:
+            raise RuntimeError(
+                "KGServer's followers have stopped") from self.follower_error
+        with self._lock:
+            drop, self._to_drop = sorted(self._to_drop), set()
+        try:
+            dist.broadcast_object_list([(cmd, drop)], src=self._src,
+                                       group=self._channel)
+        except Exception as exc:
+            self._break(exc)
+            raise
+        if cmd[0] in _ACKED:
+            self._agree(None)
+
+    def _agree(self, exc: Optional[BaseException]) -> None:
+        """Every rank's word on the step of a command it has just taken
+        (``exc`` is None when it went well): a one-int all-reduce of the
+        failures over the command group.  If any rank failed, the ranks
+        all-gather the failures' text, the mesh server breaks
+        (:meth:`_break`) and this raises the failure on every rank."""
+        import torch.distributed as dist
+
+        try:
+            failed = torch.tensor([int(exc is not None)], dtype=torch.int32)
+            dist.all_reduce(failed, group=self._channel)
+            if not int(failed):
+                return
+            notes = [None] * par.mesh_size(self.mesh)
+            dist.all_gather_object(
+                notes, None if exc is None else
+                f"rank {par.mesh_rank(self.mesh)}: {exc!r}",
+                group=self._channel)
+            err = RuntimeError("KGServer over the mesh failed: "
+                               + "; ".join(n for n in notes if n))
+        except Exception as channel_exc:
+            self._break(channel_exc)
+            raise
+        self._break(err)
+        raise err from exc
+
+    def _agreed(self, fn, *args):
+        """``fn(*args)`` on this rank; over a mesh, followed by every
+        rank's word that its call went well (:meth:`_agree`)."""
+        if not self._meshed:
+            return fn(*args)
+        try:
+            out = fn(*args)
+        except Exception as exc:
+            self._agree(exc)
+            raise                           # not reached: _agree raises
+        self._agree(None)
+        return out
+
+    def _break(self, exc: BaseException) -> None:
+        """The mesh server is done after ``exc``: no command goes out or
+        is followed any more; rank 0 refuses new requests and fails the
+        queued ones."""
+        with self._cond:
+            self._closed = True
+            if self.follower_error is None:
+                self.follower_error = exc
+            if self._leader:
+                self._accepting = False
+                while self._pending:
+                    self._pending.popleft().future.set_exception(exc)
+                self._cond.notify_all()
+
+    def _close_channel(self) -> None:
+        """Destroy the command group (this rank's handle of it)."""
+        if self._channel is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group(self._channel)
+            self._channel = None
+
+    def _follow(self) -> None:
+        """A follower rank's loop: receive rank 0's commands and make
+        exactly its engine calls, acknowledging each (:meth:`_agree`),
+        until its stop, a failure on any rank, or a channel error (rank
+        0 lost, the timeout passed)."""
+        import torch.distributed as dist
+
+        while True:
+            box = [None]
+            try:
+                dist.broadcast_object_list(box, src=self._src,
+                                           group=self._channel)
+            except Exception as exc:            # noqa: BLE001 — kept
+                self._break(exc)
+                return
+            cmd, drop = box[0]
+            for gen in drop:
+                self._by_gen.pop(gen, None)
+            op, args = cmd[0], cmd[1:]
+            if op == "stop":
+                return
+            try:
+                if op == "swap":
+                    self._agreed(self._bind_handoff, *args)
+                elif op in ("wave", "warm"):
+                    tenant = self._agreed(self._by_gen.__getitem__, args[0])
+                    call = self._engine_call if op == "wave" else (
+                        self._warm_calls)
+                    self._agreed(call, tenant, *args[1:])
+            except Exception:                   # noqa: BLE001 — kept by
+                return                          # _break, raised by stop()
+
+    def _bind_handoff(self, name: str, gen: int, fp: str) -> None:
+        """A follower's side of rank 0's swap: the artifact this rank's
+        ``swap()`` handed in, checked against rank 0's fingerprint."""
+        try:
+            got, kb = self._handoff.get(timeout=self._timeout_s / 2)
+        except queue.Empty:
+            raise RuntimeError(
+                f"rank 0 swapped tenant {name!r} but this rank's swap() "
+                f"handed in no artifact within {self._timeout_s / 2} s"
+            ) from None
+        if got != name or kb.fingerprint() != fp:
+            raise RuntimeError(
+                f"swap of tenant {name!r} on rank 0 to fingerprint {fp} but "
+                f"this rank was handed {got!r} at {kb.fingerprint()}")
+        self._tenants[name] = self._by_gen[gen] = self._make_tenant(kb, gen)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -288,8 +503,24 @@ class KGServer:
     def __exit__(self, *exc) -> None:
         self.stop()
 
-    def stop(self, drain: bool = True) -> None:
-        """Stop accepting requests; by default drain what's queued first."""
+    def stop(self, drain: bool = True,
+             timeout: Optional[float] = None) -> None:
+        """Stop accepting requests; by default drain what's queued first.
+        Over a mesh rank 0 then stops its followers; on a follower this
+        waits for that stop (up to ``timeout`` seconds, by default without
+        a cap: a lost rank 0 ends the follower within the command group's
+        timeout) and raises the error the mesh server failed with, if it
+        failed.  Either way the command group is destroyed."""
+        if not self._leader:
+            self._thread.join(timeout=timeout)
+            if self._thread.is_alive():
+                raise TimeoutError(
+                    f"no stop from the mesh's rank 0 within {timeout} s")
+            self._close_channel()
+            if self.follower_error is not None:
+                raise RuntimeError("KGServer follower failed") from (
+                    self.follower_error)
+            return
         with self._cond:
             self._accepting = False
             self._paused = False
@@ -299,6 +530,14 @@ class KGServer:
                         RuntimeError("KGServer stopped"))
             self._cond.notify_all()
         self._thread.join(timeout=30)
+        if self._meshed:
+            with self._compile_lock:
+                try:
+                    if not self._closed:
+                        self._send("stop")
+                        self._closed = True
+                finally:
+                    self._close_channel()
 
     def pause(self) -> None:
         """Hold admission (requests queue up) — lets tests compose exact
@@ -331,11 +570,16 @@ class KGServer:
 
     # -- tenancy -----------------------------------------------------------
 
-    def _make_tenant(self, kb: KnowledgeBase) -> _Tenant:
+    def _make_tenant(self, kb: KnowledgeBase,
+                     gen: Optional[int] = None) -> _Tenant:
         engine = kb.engine(n_workers=self.n_workers, backend=self.backend,
                            mesh=self.mesh,
                            table_sharding=self.table_sharding)
-        return _Tenant(kb=kb, engine=engine, fp=kb.fingerprint())
+        with self._lock:
+            if gen is None:
+                gen = self._gens
+            self._gens = max(self._gens, gen + 1)
+        return _Tenant(kb=kb, engine=engine, fp=kb.fingerprint(), gen=gen)
 
     def tenant_fingerprint(self, tenant: str = "default") -> str:
         with self._lock:
@@ -363,8 +607,17 @@ class KGServer:
         flip drain against the old KB; everything admitted after sees the
         new one.  If the new fingerprint differs, the answer cache is
         invalidated (a cached answer must never outlive its artifact).
-        Returns the replaced KnowledgeBase (None for a fresh tenant)."""
+        Returns the replaced KnowledgeBase (None for a fresh tenant).
+
+        On a follower rank of a mesh: hands ``kb`` to the follower thread,
+        which binds it when rank 0's swap of ``tenant`` arrives, and
+        returns None."""
+        if not self._leader:
+            self._handoff.put((tenant, kb))
+            return None
         new = self._make_tenant(kb)
+        with self._compile_lock:
+            self._send("swap", tenant, new.gen, new.fp)
         if warm if warm is not None else self._warmed:
             self._warm_tenant(new)
         with self._cond:
@@ -374,7 +627,20 @@ class KGServer:
             if old is not None and old.fp != new.fp:
                 self._cache.clear()
                 self._invalidations += 1
+            if old is not None:
+                self._retired.add(old.gen)
+                self._free_retired_locked()
         return old.kb if old is not None else None
+
+    def _free_retired_locked(self) -> None:
+        """Rank 0, under ``_lock``: swapped-out generations no admitted
+        wave still holds go on the list the followers may free."""
+        if not self._meshed:
+            self._retired.clear()
+            return
+        for gen in [g for g in self._retired if not self._bound.get(g)]:
+            self._retired.discard(gen)
+            self._to_drop.add(gen)
 
     def add_tenant(self, name: str, kb: KnowledgeBase,
                    warm: Optional[bool] = None) -> None:
@@ -395,7 +661,10 @@ class KGServer:
         new to the engine (also recorded as
         ``ServerStats.warm_compiles``); after warmup, any further new
         shape observed around a wave counts as a steady-state
-        recompile."""
+        recompile.  On a follower rank of a mesh: returns 0 at once (rank
+        0's warm-up makes the calls there)."""
+        if not self._leader:
+            return 0
         total = 0
         with self._lock:
             tenants = list(self._tenants.values())
@@ -411,30 +680,36 @@ class KGServer:
         ks = tuple(ks) if ks else (self.default_k,)
         if filtered is None:
             filtered = tenant.kb.graph is not None
-        E = tenant.engine.n_entities
         # host work (the known index) stays outside the engine lock
         widths = [None, self._ex_width(tenant)] if filtered else [None]
         with self._compile_lock:
+            self._send("warm", tenant.gen, ks, tuple(kinds), widths)
             before = _engine_cache_size()
-            for k in ks:
-                for bucket in self.buckets:
-                    ids = np.zeros(bucket, np.int32)
-                    for width in widths:
-                        ex = (None if width is None else
-                              np.full((bucket, width), E, np.int32))
-                        if "tails" in kinds:
-                            tenant.engine.query_tails(
-                                ids, ids, k=k, exclude=ex, chunk=bucket)
-                        if "heads" in kinds:
-                            tenant.engine.query_heads(
-                                ids, ids, k=k, exclude=ex, chunk=bucket)
-                    if "relations" in kinds:
-                        tenant.engine.query_relations(
-                            ids, ids, k=k, chunk=bucket)
+            self._agreed(self._warm_calls, tenant, ks, kinds, widths)
             fresh = _engine_cache_size() - before
         with self._lock:
             self._warm_compiles += fresh
         return fresh
+
+    def _warm_calls(self, tenant: _Tenant, ks, kinds, widths) -> None:
+        """The engine calls of a warm-up, one per (k, bucket, width, kind),
+        in one order on every rank."""
+        E = tenant.engine.n_entities
+        for k in ks:
+            for bucket in self.buckets:
+                ids = np.zeros(bucket, np.int32)
+                for width in widths:
+                    ex = (None if width is None else
+                          np.full((bucket, width), E, np.int32))
+                    if "tails" in kinds:
+                        tenant.engine.query_tails(
+                            ids, ids, k=k, exclude=ex, chunk=bucket)
+                    if "heads" in kinds:
+                        tenant.engine.query_heads(
+                            ids, ids, k=k, exclude=ex, chunk=bucket)
+                if "relations" in kinds:
+                    tenant.engine.query_relations(
+                        ids, ids, k=k, chunk=bucket)
 
     def _ex_width(self, tenant: _Tenant) -> int:
         """Fixed filtered-exclusion width: pow2 of the graph's max known
@@ -457,7 +732,12 @@ class KGServer:
         'heads' answers (?, b=r, a=t), 'relations' answers (a=h, ?, b=t).
         ``filtered`` excludes the tenant graph's known neighbors;
         ``exclude`` is an explicit candidate-id blacklist (entity kinds
-        only — note off-bucket exclusion widths meet a fresh shape)."""
+        only — note off-bucket exclusion widths meet a fresh shape).  Over
+        a mesh only rank 0 admits requests."""
+        if not self._leader:
+            raise RuntimeError(
+                "submit on the mesh's rank 0: the other ranks follow its "
+                "engine calls")
         if kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
         if kind == "relations" and (filtered or exclude is not None):
@@ -534,26 +814,37 @@ class KGServer:
     def _run(self) -> None:
         while True:
             with self._cond:
-                while self._accepting and (self._paused
-                                           or not self._pending):
-                    self._cond.wait()
-                if not self._pending:
+                if self._idle_locked():
+                    wave = None
+                elif not self._pending:
                     return          # stopped and drained
-                head = self._pending[0]
-                gkey = head.group
-                deadline = head.t_submit + self.max_wait_s
-                wave = self._take_locked(gkey, self.max_batch)
-                while len(wave) < self.max_batch and self._accepting:
-                    now = time.monotonic()
-                    if now >= deadline:
-                        break
-                    self._cond.wait(timeout=deadline - now)
-                    wave.extend(self._take_locked(
-                        gkey, self.max_batch - len(wave)))
-                # bind the artifact: this wave is consistent with exactly
-                # this tenant object, whatever swap() does afterwards
-                tenant = self._tenants[gkey[0]]
-                self._inflight += 1
+                else:
+                    head = self._pending[0]
+                    gkey = head.group
+                    deadline = head.t_submit + self.max_wait_s
+                    wave = self._take_locked(gkey, self.max_batch)
+                    while len(wave) < self.max_batch and self._accepting:
+                        now = time.monotonic()
+                        if now >= deadline:
+                            break
+                        self._cond.wait(timeout=deadline - now)
+                        wave.extend(self._take_locked(
+                            gkey, self.max_batch - len(wave)))
+                    # bind the artifact: this wave is consistent with
+                    # exactly this tenant object, whatever swap() does
+                    # afterwards
+                    tenant = self._tenants[gkey[0]]
+                    self._inflight += 1
+                    self._bound[tenant.gen] = self._bound.get(
+                        tenant.gen, 0) + 1
+            if wave is None:        # idle over a mesh: a heartbeat
+                with self._compile_lock:
+                    if not self._closed:
+                        try:
+                            self._send("tick")
+                        except Exception:   # noqa: BLE001 — _break kept
+                            pass            # it; the loop then ends
+                continue
             try:
                 self._execute(wave, tenant)
             except Exception as exc:          # noqa: BLE001 — surface to
@@ -563,7 +854,20 @@ class KGServer:
             finally:
                 with self._cond:
                     self._inflight -= 1
+                    self._bound[tenant.gen] -= 1
+                    self._free_retired_locked()
                     self._cond.notify_all()
+
+    def _idle_locked(self) -> bool:
+        """Under ``_cond``: wait until a wave can be admitted or the
+        server stops (False); over a mesh, an idle wait of ``HEARTBEAT_S``
+        returns True instead, for a heartbeat to the followers."""
+        while self._accepting and (self._paused or not self._pending):
+            if not self._meshed:
+                self._cond.wait()
+            elif not self._cond.wait(timeout=self._heartbeat_s):
+                return True
+        return False
 
     def _bucket_of(self, n: int) -> int:
         for b in self.buckets:
@@ -615,15 +919,10 @@ class KGServer:
         if self.on_wave_start is not None:
             self.on_wave_start(kind, B, bucket, wave[0].tenant, tenant.fp)
         with self._compile_lock:
+            self._send("wave", tenant.gen, kind, a, b, k, ex, bucket)
             before = _engine_cache_size()
-            if kind == "relations":
-                res = tenant.engine.query_relations(a, b, k=k, chunk=bucket)
-            elif kind == "tails":
-                res = tenant.engine.query_tails(
-                    a, b, k=k, exclude=ex, chunk=bucket)
-            else:
-                res = tenant.engine.query_heads(
-                    a, b, k=k, exclude=ex, chunk=bucket)
+            res = self._agreed(self._engine_call, tenant, kind, a, b, k, ex,
+                               bucket)
             fresh = _engine_cache_size() - before
         t_done = time.monotonic()
         answers = []
@@ -648,6 +947,17 @@ class KGServer:
                                 (ans.ids.copy(), ans.energies.copy()))
         for req, ans in answers:
             req.future.set_result(ans)
+
+    @staticmethod
+    def _engine_call(tenant: _Tenant, kind: str, a, b, k: int, ex,
+                     bucket: int) -> kg_engine.QueryResult:
+        """A wave's one engine call (on every rank of a mesh)."""
+        if kind == "relations":
+            return tenant.engine.query_relations(a, b, k=k, chunk=bucket)
+        if kind == "tails":
+            return tenant.engine.query_tails(a, b, k=k, exclude=ex,
+                                             chunk=bucket)
+        return tenant.engine.query_heads(a, b, k=k, exclude=ex, chunk=bucket)
 
     # -- observability -----------------------------------------------------
 

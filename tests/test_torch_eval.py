@@ -87,9 +87,10 @@ def test_engine_options(setup, tmp_path):
     _, port_g, _, params = setup
     assert port_device._resolve_fused(
         port_device.get_model("transe"), None, params) is False
-    # sharded tables over a mesh are item 12d; replicated ones over a
-    # one-rank mesh give the vmap engine's metrics
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    # a mesh that is no DeviceMesh raises under sharded tables too;
+    # replicated and sharded tables over a one-rank mesh give the vmap
+    # engine's metrics
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_eval.evaluate_all(params, port_g, engine="device",
                                table_sharding="sharded", n_workers=3,
                                backend="shard_map", mesh=object())
@@ -98,6 +99,12 @@ def test_engine_options(setup, tmp_path):
             params, port_g, engine="device", n_workers=3,
             backend="shard_map", mesh=mesh) == port_eval.evaluate_all(
                 params, port_g, engine="device")
+        assert port_eval.evaluate_all(
+            params, port_g, engine="device", n_workers=3,
+            table_sharding="sharded", backend="shard_map",
+            mesh=mesh) == port_eval.evaluate_all(
+                params, port_g, engine="device", n_workers=3,
+                table_sharding="sharded")
     # the vmap backend's sharded scan gives the replicated metrics
     assert port_eval.evaluate_all(
         params, port_g, engine="device", table_sharding="sharded",

@@ -43,11 +43,12 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    assert len(_port_modules()) >= 35
+    assert len(_port_modules()) >= 40
     for name in ("repro_torch.serve.server", "repro_torch.core.transe",
                  "repro_torch.core.models.transh",
                  "repro_torch.core.models.distmult",
-                 "repro_torch.online.updater", "repro_torch.data.datasets"):
+                 "repro_torch.online.updater", "repro_torch.data.datasets",
+                 "repro_torch.parallel.sharding"):
         assert name in _port_modules()
 
 

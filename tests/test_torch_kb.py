@@ -367,10 +367,10 @@ def test_negative_k_raises_as_in_the_reference(kbs, call):
 def test_engine_takes_the_reference_keywords(kbs, tmp_path):
     """``KnowledgeBase.engine`` accepts the reference's keywords, caches
     under the reference's key (several workers and sharded tables on the
-    vmap backend included; a one-rank ``shard_map`` mesh, whose answers
-    are the vmap engine's bits) and refuses what it does not serve: a
-    mesh that is no ``DeviceMesh``, ``shard_map`` without a mesh, and
-    sharded tables over a mesh (item 12d)."""
+    vmap backend included; a one-rank ``shard_map`` mesh, replicated or
+    sharded, whose answers are the vmap engine's bits) and refuses what
+    it does not serve: a mesh that is no ``DeviceMesh``, with sharded
+    tables too, and ``shard_map`` without a mesh."""
     ref, port = kbs
     defaults = dict(n_workers=1, backend="vmap", mesh=None, chunk=None,
                     table_sharding="replicated")
@@ -394,7 +394,7 @@ def test_engine_takes_the_reference_keywords(kbs, tmp_path):
             ({"backend": "shard_map"}, ValueError, "needs a mesh"),
             ({"n_workers": 2, "table_sharding": "sharded",
               "backend": "shard_map", "mesh": object()},
-             NotImplementedError, "item 12d")):
+             TypeError, "DeviceMesh")):
         with pytest.raises(exc, match=match):
             port.engine(**kw)
         with pytest.raises(exc, match=match):
@@ -409,6 +409,10 @@ def test_engine_takes_the_reference_keywords(kbs, tmp_path):
                  port.query_tails(heads, rels, k=4)),
                 (port.query_relations(heads, heads, k=2, mesh=mesh,
                                       backend="shard_map"),
-                 port.query_relations(heads, heads, k=2))):
+                 port.query_relations(heads, heads, k=2)),
+                (port.query_tails(heads, rels, k=4, table_sharding="sharded",
+                                  **kw),
+                 port.query_tails(heads, rels, k=4, n_workers=2,
+                                  table_sharding="sharded"))):
             np.testing.assert_array_equal(got.ids, want.ids)
             assert got.energies.tobytes() == want.energies.tobytes()

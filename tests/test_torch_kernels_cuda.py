@@ -798,3 +798,58 @@ def test_shard_map_block_makes_no_host_sync(cuda, tmp_path, transport):
     for name in p_v:
         assert torch.equal(p_v[name].view(torch.int32),
                            p_s[name].view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_shard_map_stale_sharded_block_makes_no_host_sync(cuda, tmp_path):
+    """A bounded-staleness (S = 2) block of sparse SGD with sharded tables
+    over a one-rank NCCL mesh, its global view taken and returned at rest,
+    makes no host sync once the communicators exist, launches both
+    kernels once a step, and gives the CPU vmap block's bits."""
+    from repro_torch.parallel import sharding
+
+    graph = kg_data.synthetic_kg(0, n_entities=400, n_relations=8,
+                                 n_triplets=5000)
+    part = kg_data.PARTITIONERS["balanced"](0, graph.train, 4)
+    out = {}
+    with _nccl_mesh(tmp_path) as mesh:
+        for backend, dev in (("vmap", torch.device("cpu")),
+                             ("shard_map", cuda)):
+            kcfg, mcfg = kg.make_configs(
+                graph, "transe", "sgd", dim=32, batch_size=128,
+                pipeline="device", staleness=2, merge_every=2,
+                block_epochs=4, merge_transport="sparse",
+                table_sharding="sharded", backend=backend)
+            init = get_model("transe").init_params(
+                torch.Generator().manual_seed(0), kcfg, device=dev)
+            on_mesh = mesh if backend == "shard_map" else None
+            g = dict(init)
+            if on_mesh is not None:
+                layout = mapreduce.resting_layout(mcfg, kcfg,
+                                                  get_model("transe"))
+                assert layout == {"ent": "row", "rel": "whole"}
+                g = sharding.place(g, layout, 4, on_mesh)
+            block_fn = mapreduce.make_block_fn(
+                mcfg, kcfg, torch.as_tensor(part, device=dev), seed=3,
+                with_overflow=True, mesh=on_mesh)
+            state, *_ = block_fn((g, mapreduce._broadcast(init, 4)),
+                                 range(4))     # communicators, caches
+            if on_mesh is None:
+                out[backend] = block_fn(state, range(4, 8))
+                continue
+            torch.cuda.synchronize()
+            before = (transe_score.transe_score.launches,
+                      transe_score.transe_score_bwd.launches)
+            with _NoHostSync():
+                out[backend] = block_fn(state, range(4, 8))
+            steps = 4 * (part.shape[1] // 128)
+            assert (transe_score.transe_score.launches - before[0],
+                    transe_score.transe_score_bwd.launches - before[1]) == (
+                        steps, steps)
+    ((g_cpu, l_cpu), loss_cpu, _), ((g_card, l_card), loss_card, ovf) = (
+        out["vmap"], out["shard_map"])
+    assert int(ovf) == 0
+    assert torch.equal(loss_card.cpu(), loss_cpu)
+    for name in g_cpu:
+        assert torch.equal(g_card[name].cpu(), g_cpu[name]), name
+        assert torch.equal(l_card[name].cpu(), l_cpu[name]), name

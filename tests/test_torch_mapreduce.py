@@ -158,23 +158,23 @@ def test_epoch_draws_are_pure_in_seed_and_epoch():
 
 @pytest.mark.parametrize("option,exc,match", [
     (dict(merge_transport="sparse", staleness=1, pipeline="device",
-          backend="shard_map"), NotImplementedError, "item 12d"),
+          backend="shard_map"), ValueError, "shard_map backend needs a mesh"),
     (dict(merge_transport="sparse", backend="shard_map"), ValueError,
      "shard_map backend needs a mesh"),
     (dict(backend="shard_map"), ValueError, "shard_map backend needs a mesh"),
     (dict(table_sharding="sharded", merge_transport="sparse",
-          backend="shard_map"), NotImplementedError, "item 12d"),
+          backend="shard_map"), ValueError, "shard_map backend needs a mesh"),
     (dict(staleness=1, pipeline="device", backend="shard_map"),
-     NotImplementedError, "item 12d"),
+     ValueError, "shard_map backend needs a mesh"),
     (dict(negatives="joint", merge_transport="sparse", staleness=1,
           pipeline="device", mesh=object()), TypeError, "DeviceMesh"),
     (dict(mesh=object()), TypeError, "DeviceMesh"),
 ])
 def test_options_not_ported(graphs, option, exc, match):
-    """The shard_map backend runs (``test_torch_shard_map.py``); without a
-    mesh it raises the reference's ``ValueError``, a mesh that is no
-    ``DeviceMesh`` a ``TypeError``, and what is left of item 12 (its part
-    d: staleness and sharded tables over a mesh) names item 12d."""
+    """The shard_map backend runs (``test_torch_shard_map.py``), its
+    staleness and sharded tables too; without a mesh it raises the
+    reference's ``ValueError``, under every option, and a mesh that is no
+    ``DeviceMesh`` a ``TypeError``."""
     _, graph = graphs
     with pytest.raises(exc, match=match):
         port_kg.fit(graph, epochs=1, device="cpu", **dict(KW, **option))

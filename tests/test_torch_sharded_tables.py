@@ -1,8 +1,8 @@
 """Sharded tables (``table_sharding="sharded"``, sparse transport, vmap
 backend) in the port: bitwise the replicated layout across training,
-evaluation and serving (the reference's ``tests/test_sharded_tables.py``,
-minus its shard_map cells, which are item 12d), and against the
-reference.
+evaluation and serving (the reference's ``tests/test_sharded_tables.py``;
+its shard_map cells run over gloo ranks in ``test_torch_shard_map.py``,
+and here over a one-rank mesh), and against the reference.
 
 W = 3 shards over 200 entities keep the blocks ragged (67/67/66 and one
 pad row), so every cell also runs the padded tail's masking.
@@ -36,6 +36,7 @@ from repro_torch.serve.kg_engine import KGQueryEngine
 from test_torch_mapreduce import replay_draws
 from test_torch_parity_helpers import port_graph
 from test_torch_pipeline_device import replay_device_draws
+from test_torch_rank_worker import single_rank_mesh
 from test_torch_staleness import ref_stale_offsets
 
 pytestmark = pytest.mark.filterwarnings(
@@ -346,7 +347,10 @@ def test_sharded_entity_inference_metrics(graphs, masks):
         assert sh[group].row() == rep[group].row() == ref[group].row()
 
 
-def test_sharded_eval_rejects_fused_and_bad_value(graphs):
+def test_sharded_eval_rejects_fused_and_bad_value(graphs, tmp_path):
+    """Refusals: ``fused=True``, a bad layout, a mesh that is no
+    ``DeviceMesh``; over a real one-rank mesh the sharded scan gives the
+    vmap scan's ranks."""
     _, params = _tables(graphs[0], "transe")
     test = graphs[0].test[:4]
     with pytest.raises(ValueError, match="fused"):
@@ -355,10 +359,25 @@ def test_sharded_eval_rejects_fused_and_bad_value(graphs):
     with pytest.raises(ValueError, match="table_sharding"):
         eval_device.entity_ranks_device(params, test,
                                         table_sharding="diagonal")
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         eval_device.entity_ranks_device(params, test, n_workers=W,
                                         backend="shard_map", mesh=object(),
                                         table_sharding="sharded")
+    masks = graphs[1].eval_filter_candidates()
+    test = graphs[1].test
+    want = eval_device.entity_ranks_device(
+        params, test, cand_masks=masks, n_workers=W, relations=True,
+        table_sharding="sharded")
+    with single_rank_mesh(tmp_path) as mesh:
+        got = eval_device.entity_ranks_device(
+            params, test, cand_masks=masks, n_workers=W, relations=True,
+            backend="shard_map", mesh=mesh, table_sharding="sharded")
+    for group in ("raw_ranks", "filtered_ranks"):
+        for side in ("tail", "head"):
+            np.testing.assert_array_equal(got[group][side],
+                                          want[group][side])
+    np.testing.assert_array_equal(got["relation_ranks"],
+                                  want["relation_ranks"])
 
 
 def test_sharded_eval_picks_the_plain_scan(graphs, monkeypatch):
@@ -458,19 +477,39 @@ def test_sharded_rank_and_score_parity(graphs):
         sh.score(rows[:, 0], rows[:, 1], rows[:, 2]))
 
 
-def test_engine_rejects_bad_sharding_config(graphs):
+def test_engine_rejects_bad_sharding_config(graphs, tmp_path):
+    """Refusals: a bad layout, ``shard_map`` without a mesh, a mesh that
+    is no ``DeviceMesh``, no workers; over a real one-rank mesh the
+    sharded engine answers as the vmap one does, bitwise."""
     _, params = _tables(graphs[0], "transe")
     with pytest.raises(ValueError, match="table_sharding"):
         KGQueryEngine("transe", params, n_workers=W, table_sharding="nope")
     with pytest.raises(ValueError, match="mesh"):
         KGQueryEngine("transe", params, n_workers=2, backend="shard_map",
                       table_sharding="sharded")
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         KGQueryEngine("transe", params, n_workers=2, backend="shard_map",
                       mesh=object(), table_sharding="sharded")
     with pytest.raises(ValueError, match="n_workers"):
         KGQueryEngine("transe", params, n_workers=0,
                       table_sharding="sharded")
+    rows = graphs[1].test[:40]
+    ex = graphs[1].known_candidate_masks(rows[:, :2], "tail")
+    vm = KGQueryEngine("transe", params, n_workers=W,
+                       table_sharding="sharded")
+    with single_rank_mesh(tmp_path) as mesh:
+        sh = KGQueryEngine("transe", params, n_workers=W,
+                           backend="shard_map", mesh=mesh,
+                           table_sharding="sharded")
+        for k in (5, 80):           # 80 > R = 67: whole blocks kept
+            got = sh.query_tails(rows[:, 0], rows[:, 1], k=k, exclude=ex)
+            want = vm.query_tails(rows[:, 0], rows[:, 1], k=k, exclude=ex)
+            np.testing.assert_array_equal(got.ids, want.ids)
+            assert got.energies.tobytes() == want.energies.tobytes()
+            got = sh.query_heads(rows[:, 2], rows[:, 1], k=k)
+            want = vm.query_heads(rows[:, 2], rows[:, 1], k=k)
+            np.testing.assert_array_equal(got.ids, want.ids)
+            assert got.energies.tobytes() == want.energies.tobytes()
 
 
 # ---------------------------------------------------------------------------

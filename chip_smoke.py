@@ -310,6 +310,38 @@
    stale and sharded runs.  Reports their epoch seconds beside vmap's,
    the evaluation seconds and the server's p50/p99.
 
+14. LM serving (``lm_serving_path``) for the dense and vlm families,
+   through ``models.registry.make_task``, ``DecoderTask.init`` from
+   ``torch.Generator(device="cuda").manual_seed(0)``, ``prefill`` /
+   ``decode_step`` and ``serve.engine.Engine``, with the configs' dtypes
+   (bf16 activations over fp32 parameters): (a) qwen3-4b at full width
+   (36 layers, d_model 2,560, 32 heads over 8 KV heads, head_dim 128,
+   d_ff 9,728, vocab 151,936, qk-norm, theta 1e6): ``Engine.generate`` of
+   32 greedy tokens on 4 prompts of 128 tokens, twice (equal ids), the
+   same wave prefilled and decoded by hand (its logits' argmax is the
+   ids; prefill seconds, decode ms a step), profiled waves of 1 and 5
+   new tokens (launches a decode step, the device's idle share), then 1
+   prompt of 4,096 tokens (the flash path, once a layer) and 8 decode
+   steps; (b)
+   gemma2-2b at full width (26 layers, d_model 2,304, 8 heads over 4 KV
+   heads, head_dim 256, vocab 256,000, window 4,096, softcaps 50 / 30,
+   sandwich norms, ``embed_scale``): a 4,100-token prompt (past the
+   window, not a multiple of it) and 8 decode steps, each step's logits
+   against the teacher-forced forward over the 4,108 tokens (logits at
+   the last 9 positions only) within ``LM_BF16_TOL``, with equal greedy
+   ids wherever the forward's top-2 gap exceeds it; (c) qwen3-4b at full
+   width with fp32 activations (a 32-token prompt, 4 decode steps against
+   the forward), then smollm-135m, gemma2-9b and llava-next-mistral-7b at
+   reduced width, decode against the forward and the card against the
+   CPU, within ``LM_FP32_TOL``; (d) ``python -m repro_torch.launch.serve
+   --arch qwen3-4b --batch 4 --prompt-len 16 --max-new 32`` in a process
+   of its own, its two printed lines read back.  Each model is freed
+   before the next is built.  All three kernels' counters are zeroed just
+   before (a) and read after (c): no kernel lies on this path (0
+   expected).  Reports prefill seconds, decode ms a step, tokens/s and
+   peak memory for (a) and (b), and the phase's seconds by part, beside
+   the card's name and power limit.
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -3896,6 +3928,366 @@ def shard_map_path(torch, graph):
     return info, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: LM serving (the dense and vlm families)
+# ---------------------------------------------------------------------------
+
+# the published widths each full-width run must have
+LM_SHAPES = {
+    "qwen3-4b": dict(n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8,
+                     head_dim=128, d_ff=9728, vocab_size=151936,
+                     qk_norm=True, rope_theta=1e6),
+    "gemma2-2b": dict(n_layers=26, d_model=2304, n_heads=8, n_kv_heads=4,
+                      head_dim=256, d_ff=9216, vocab_size=256000,
+                      window=4096, attn_softcap=50.0, final_softcap=30.0,
+                      post_norms=True, embed_scale=True),
+}
+LM_A = dict(batch=4, prompt=128, new=32, long_prompt=4096, long_steps=8)
+LM_B = dict(prompt=4100, steps=8)        # past gemma2's 4,096 window
+LM_C = dict(batch=2, prompt=32, steps=4)
+LM_PROFILE_STEPS = 4                    # decode steps of the profiled wave
+LM_REDUCED = ("smollm-135m", "gemma2-9b", "llava-next-mistral-7b")
+LM_REDUCED_RUN = dict(batch=2, prompt=8, steps=6)
+LM_LAUNCHER = ["--arch", "qwen3-4b", "--batch", "4", "--prompt-len", "16",
+               "--max-new", "32"]
+LM_LAUNCHER_S = 180
+# bf16 decode against the teacher-forced forward, gemma2-2b at full width:
+# 2.5 times the 0.081 measured on an H100 (logits up to 7.4)
+LM_BF16_TOL = 0.2
+# fp32 decode against the teacher-forced forward, and the card against the
+# CPU (TF32 off): measured at most 1.3e-5 (qwen3-4b at full width, logits
+# up to 5.2) and 2.0e-6 (the CPU, reduced llava) on an H100
+LM_FP32_TOL = 1e-4
+
+
+def lm_config(arch, **overrides):
+    """``arch``'s config at full width, with ``overrides``."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch), **overrides)
+
+
+def lm_params(torch, arch, cfg):
+    """A seeded ``DecoderTask`` and its parameters on the card, and the
+    init seconds."""
+    from repro_torch.models import registry
+
+    task = registry.make_task(cfg, DEVICE)
+    params, init_s = wall(torch, lambda: task.init(
+        torch.Generator(device=DEVICE).manual_seed(0)))
+    want = LM_SHAPES.get(arch, {})
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        fail(f"{arch}: widths {got} are not the published {want}")
+    for name, p in params.named_parameters():
+        if p.device.type != torch.device(DEVICE).type or \
+                p.dtype != cfg.param_dtype:
+            fail(f"{arch}: {name} is {p.dtype} on {p.device}")
+    return task, params, init_s
+
+
+def lm_prompts(cfg, B, L, seed):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, L)).astype(np.int32)
+
+
+def lm_free(torch):
+    """Return a freed model's memory to the card; its host seconds."""
+    import gc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def lm_steps(torch, task, params, toks, Lp, steps, patch=None):
+    """Prefill ``toks[:, :Lp]``, then decode ``toks[:, Lp:Lp + steps]``
+    one by one: the logits of every call (B, steps + 1, V), the prefill's
+    seconds and the decode's ms a step."""
+    n_vis = 0 if patch is None else patch.shape[1]
+    batch = {"tokens": toks[:, :Lp]}
+    if patch is not None:
+        batch["patch_embeds"] = patch
+    (caches, logits), prefill_s = wall(torch,
+                                       lambda: task.prefill(params, batch))
+    out = [logits[:, 0]]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, caches = task.decode_step(params, {
+            "tokens": toks[:, Lp + t:Lp + t + 1], "pos": Lp + t + n_vis},
+            caches)
+        out.append(logits[:, 0])
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    return torch.stack(out, dim=1), prefill_s, decode_ms
+
+
+def lm_forward_logits(torch, params, toks, last, patch=None):
+    """The teacher-forced forward over ``toks``: logits at the last
+    ``last`` text positions only (B, last, V)."""
+    n_vis = 0 if patch is None else patch.shape[1]
+    B, L = toks.shape
+    positions = torch.arange(L + n_vis, device=params.device)[None].expand(
+        B, -1)
+    with torch.no_grad():
+        hidden, _, _ = params.forward(
+            torch.as_tensor(toks, device=params.device), positions,
+            patch_embeds=patch)
+        return params.logits(hidden[:, -last:])
+
+
+def lm_agreement(torch, got, want, tol):
+    """Max abs difference of two logit stacks, the largest logit, and the
+    positions whose ids differ although the reference's top-2 gap exceeds
+    ``tol``."""
+    top2 = torch.topk(want.float(), 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = (got.argmax(-1) != want.argmax(-1)) & (gap > tol)
+    return {"max_abs_err": float((got - want).abs().max()),
+            "max_abs_logit": float(want.abs().max()),
+            "min_top2_gap": float(gap.min()),
+            "ids_differ_past_tol": int(differ.sum())}
+
+
+def lm_serving_path(torch):
+    """LM serving (item 14 of the module docstring).  Returns the path's
+    info and its launches of each kernel (none lies on it: 0 expected)."""
+    import re
+
+    import numpy as np
+
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serve import engine as engine_lib
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    info = {"card": card, "part_s": {}, "free_s": []}
+    ok = {}
+
+    marks = [t_phase]
+
+    def part_done(label):
+        """Keep the seconds since the last part ended, freeing included."""
+        marks.append(time.perf_counter())
+        info["part_s"][label] = marks[-1] - marks[-2]
+
+    rank_topk.rank_counts.launches = 0             # --- LM serving path ---
+    ts.transe_score.launches = 0
+    ts.transe_score_bwd.launches = 0
+
+    # (a) qwen3-4b at full width, bf16 activations
+    arch = "qwen3-4b"
+    torch.cuda.reset_peak_memory_stats()
+    task, params, init_s = lm_params(torch, arch, lm_config(arch))
+    a = {"params": sum(p.numel() for p in params.parameters()),
+         "init_s": init_s}
+    eng = engine_lib.Engine(task, params)
+    B, Lp, n = LM_A["batch"], LM_A["prompt"], LM_A["new"]
+    prompts = lm_prompts(task.cfg, B, Lp, 0)
+    gcfg = engine_lib.GenerateConfig(max_new_tokens=n)
+    ids, a["generate_first_s"] = wall(torch, lambda: eng.generate(prompts,
+                                                                  gcfg))
+    again, a["generate_s"] = wall(torch, lambda: eng.generate(prompts, gcfg))
+    a["tokens_per_s"] = B * n / a["generate_s"]
+    ok["a_ids_shape"] = ids.shape == (B, n) and bool(
+        ((ids >= 0) & (ids < task.cfg.vocab_size)).all())
+    ok["a_generate_deterministic"] = bool((ids == again).all())
+    # where a decode step's time goes: launches and the device's idle share
+    # of a short wave, less its prefill (the profiler's own processing of a
+    # 32-token wave's ~130,000 launches took ~25 s)
+    profiled = {}
+    for label, new_tokens in (("prefill", 1), ("wave", 1 + LM_PROFILE_STEPS)):
+        prof = profile_busy(torch, lambda: eng.generate(
+            prompts, engine_lib.GenerateConfig(max_new_tokens=new_tokens)))
+        profiled[label] = {k: prof[k] for k in (
+            "wall_s", "device_busy_s", "idle_share", "launches")}
+    a["generate_profile"] = profiled
+    a["launches_a_token"] = (profiled["wave"]["launches"]
+                             - profiled["prefill"]["launches"]) \
+        / LM_PROFILE_STEPS
+    # the same wave by hand: prefill, then each greedy id decoded
+    toks = torch.as_tensor(np.concatenate([prompts, ids], 1), device=DEVICE)
+    logits, a["prefill_s"], a["decode_ms"] = lm_steps(
+        torch, task, params, toks, Lp, n - 1)
+    ok["a_ids_are_the_argmax"] = bool(
+        (logits.argmax(-1).cpu().numpy() == ids).all())
+    ok["a_finite"] = bool(torch.isfinite(logits).all())
+    a["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # B = 1, a prompt long enough for the flash path
+    flash_calls = []
+    real_flash = attention._sdpa_flash
+    attention._sdpa_flash = lambda *args: flash_calls.append(1) or \
+        real_flash(*args)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        long = torch.as_tensor(lm_prompts(
+            task.cfg, 1, LM_A["long_prompt"] + LM_A["long_steps"], 1),
+            device=DEVICE)
+        logits, a["long_prefill_s"], a["long_decode_ms"] = lm_steps(
+            torch, task, params, long, LM_A["long_prompt"],
+            LM_A["long_steps"])
+    finally:
+        attention._sdpa_flash = real_flash
+    a["long_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    a["long_flash_calls"] = len(flash_calls)
+    ok["a_long_took_the_flash_path"] = len(flash_calls) == \
+        task.cfg.n_layers
+    ok["a_long_finite"] = bool(torch.isfinite(logits).all())
+    info["a_qwen3_4b"] = a
+    print(f"lm_serving (a) {arch} on {card}: {a['params']:,} parameters, "
+          f"init {init_s:.2f} s; B={B} x {Lp} prompt: prefill "
+          f"{a['prefill_s']:.4f} s, decode {a['decode_ms']:.2f} ms a step, "
+          f"generate {n} tokens {a['generate_s']:.3f} s "
+          f"({a['tokens_per_s']:.1f} tok/s; profiled: idle share "
+          f"{a['generate_profile']['wave']['idle_share']:.3f}, "
+          f"{a['launches_a_token']:.0f} launches a decode step), peak "
+          f"{a['peak_gb']:.2f} GB; "
+          f"B=1 x {LM_A['long_prompt']}: prefill {a['long_prefill_s']:.3f} "
+          f"s, decode {a['long_decode_ms']:.2f} ms a step, peak "
+          f"{a['long_peak_gb']:.2f} GB", flush=True)
+    del task, params, eng, logits, toks, long
+    info["free_s"].append(lm_free(torch))
+    part_done("a")
+
+    # (b) gemma2-2b at full width: a prompt past the window, decode against
+    # the teacher-forced forward
+    arch = "gemma2-2b"
+    torch.cuda.reset_peak_memory_stats()
+    task, params, init_s = lm_params(torch, arch, lm_config(arch))
+    b = {"params": sum(p.numel() for p in params.parameters()),
+         "init_s": init_s}
+    Lp, steps = LM_B["prompt"], LM_B["steps"]
+    toks = torch.as_tensor(lm_prompts(task.cfg, 1, Lp + steps, 2),
+                           device=DEVICE)
+    got, b["prefill_s"], b["decode_ms"] = lm_steps(torch, task, params,
+                                                   toks, Lp, steps)
+    b["tokens_per_s"] = 1e3 / b["decode_ms"]
+    want, b["forward_s"] = wall(torch, lambda: lm_forward_logits(
+        torch, params, toks, steps + 1))
+    b["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    b.update(lm_agreement(torch, got, want, LM_BF16_TOL))
+    ok["b_decode_matches_forward"] = b["max_abs_err"] <= LM_BF16_TOL
+    ok["b_ids_agree_past_tol"] = b["ids_differ_past_tol"] == 0
+    ok["b_finite"] = bool(torch.isfinite(got).all())
+    info["b_gemma2_2b"] = b
+    print(f"lm_serving (b) {arch} on {card}: {b['params']:,} parameters; "
+          f"1 x {Lp} prompt: prefill {b['prefill_s']:.3f} s, decode "
+          f"{b['decode_ms']:.2f} ms a step ({b['tokens_per_s']:.1f} tok/s), "
+          f"forward over {Lp + steps} {b['forward_s']:.3f} s, peak "
+          f"{b['peak_gb']:.2f} GB; decode against the forward: max abs err "
+          f"{b['max_abs_err']:.4g} (tolerance {LM_BF16_TOL}) on logits up "
+          f"to {b['max_abs_logit']:.3g}, smallest top-2 gap "
+          f"{b['min_top2_gap']:.3g}", flush=True)
+    del task, params, got, want, toks
+    info["free_s"].append(lm_free(torch))
+    part_done("b")
+
+    # (c) qwen3-4b at full width in fp32; the other archs at reduced width,
+    # on the card and against the CPU
+    arch = "qwen3-4b"
+    task, params, init_s = lm_params(torch, arch,
+                                     lm_config(arch, dtype=torch.float32))
+    Lp, steps = LM_C["prompt"], LM_C["steps"]
+    toks = torch.as_tensor(lm_prompts(task.cfg, LM_C["batch"], Lp + steps, 3),
+                           device=DEVICE)
+    got, _, _ = lm_steps(torch, task, params, toks, Lp, steps)
+    want = lm_forward_logits(torch, params, toks, steps + 1)
+    c = {"qwen3-4b_fp32": lm_agreement(torch, got, want, LM_FP32_TOL)}
+    ok["c_qwen3_fp32_decode_matches_forward"] = \
+        c["qwen3-4b_fp32"]["max_abs_err"] <= LM_FP32_TOL
+    del task, params, got, want, toks
+    info["free_s"].append(lm_free(torch))
+    part_done("c_fp32")
+    R = LM_REDUCED_RUN
+    for arch in LM_REDUCED:
+        cfg = lm_config(arch).reduced()
+        task, params, _ = lm_params(torch, arch, cfg)
+        patch = None
+        if cfg.vision_tokens:
+            from repro_torch.models import vlm_stub
+            patch = vlm_stub.synthetic_patch_embeds(
+                torch.Generator(device=DEVICE).manual_seed(1), R["batch"],
+                cfg.vision_tokens, cfg.d_model, cfg.dtype)
+        toks = torch.as_tensor(lm_prompts(cfg, R["batch"],
+                                          R["prompt"] + R["steps"], 4),
+                               device=DEVICE)
+        got, _, _ = lm_steps(torch, task, params, toks, R["prompt"],
+                             R["steps"], patch)
+        want = lm_forward_logits(torch, params, toks, R["steps"] + 1, patch)
+        host = DecoderLM(cfg, "cpu")
+        host.load_state_dict({k: v.cpu() for k, v in
+                              params.state_dict().items()})
+        on_host, _, _ = lm_steps(torch, type(task)(cfg, "cpu"), host,
+                                 toks.cpu(), R["prompt"], R["steps"],
+                                 None if patch is None else patch.cpu())
+        c[arch] = {"forward": lm_agreement(torch, got, want, LM_FP32_TOL),
+                   "cpu": lm_agreement(torch, got.cpu(), on_host,
+                                       LM_FP32_TOL)}
+        ok[f"c_{arch}_decode_matches_forward"] = \
+            c[arch]["forward"]["max_abs_err"] <= LM_FP32_TOL
+        ok[f"c_{arch}_card_matches_cpu"] = \
+            c[arch]["cpu"]["max_abs_err"] <= LM_FP32_TOL
+        del task, params, host, got, want, on_host
+    info["c"] = c
+    print(f"lm_serving (c) on {card}: decode against the forward and the "
+          f"card against the CPU, max abs err (tolerance {LM_FP32_TOL}): "
+          + json.dumps({k: ({"forward": v["forward"]["max_abs_err"],
+                             "cpu": v["cpu"]["max_abs_err"]}
+                            if "cpu" in v else v["max_abs_err"])
+                        for k, v in c.items()}), flush=True)
+    info["free_s"].append(lm_free(torch))
+    part_done("c_reduced")
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+
+    # (d) the launcher, in a process of its own
+    with tempfile.TemporaryDirectory() as logdir:
+        started = _start([("serve", [sys.executable, "-m",
+                                     "repro_torch.launch.serve"]
+                           + LM_LAUNCHER)], logdir)
+        rc, out, seconds = _join(started, LM_LAUNCHER_S)["serve"]
+    lines = out.strip().splitlines()[-2:]
+    m1 = re.match(r"^generated (\d+) tokens in (\d+\.\d\d)s "
+                  r"\((\d+\.\d) tok/s incl\. compile\)$",
+                  lines[0] if lines else "")
+    m2 = re.match(r"^first sequence: \[(\d+(, \d+)*)\]$",
+                  lines[1] if len(lines) > 1 else "")
+    info["d_launcher"] = {"rc": rc, "seconds": seconds, "lines": lines}
+    ok["d_launcher_exit_0"] = rc == 0
+    ok["d_launcher_lines"] = bool(m1 and m2) and int(m1.group(1)) == 4 * 32 \
+        and len(m2.group(1).split(", ")) == 16
+    if rc != 0:
+        print(out[-4000:], flush=True)
+    print(f"lm_serving (d) python -m repro_torch.launch.serve "
+          f"{' '.join(LM_LAUNCHER)}: exit {rc} in {seconds:.1f} s: "
+          f"{lines}", flush=True)
+
+    part_done("d")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["ok"] = ok
+    print(f"lm_serving took {info['phase_s']:.1f} s on {smi_line()} (by "
+          f"part: {json.dumps(info['part_s'])})", flush=True)
+    print("lm_serving " + json.dumps(info), flush=True)
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        fail(f"lm_serving checks failed: {failed}")
+    for name, count in launches.items():
+        if count != 0:
+            fail(f"{name} launched {count} times on the LM serving path, "
+                 "where no kernel lies")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -3963,6 +4355,7 @@ def main():
                                        torch)
     shard_info, shard_launches = phase("shard_map", shard_map_path, torch,
                                        cut)
+    lm_info, lm_launches = phase("lm_serving", lm_serving_path, torch)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 phase_s=phase_s, depth_cut={
                     "divisor": DEPTH_CUT, "train": len(cut.train),
@@ -3973,7 +4366,8 @@ def main():
                 device_pipeline=device_info, serving_live=live_info,
                 model_family=family_info, sparse_transport=sparse_info,
                 stale_sharded=stale_info, online=online_info,
-                entry_points=entry_info, shard_map=shard_info)
+                entry_points=entry_info, shard_map=shard_info,
+                lm_serving=lm_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -3998,7 +4392,8 @@ def main():
         + device_launches["rank_counts"] + live_launches["rank_counts"]
         + family_launches["rank_counts"] + sparse_launches["rank_counts"]
         + stale_launches["rank_counts"] + online_launches["rank_counts"]
-        + entry_launches["rank_counts"] + shard_launches["rank_counts"],
+        + entry_launches["rank_counts"] + shard_launches["rank_counts"]
+        + lm_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -4011,7 +4406,8 @@ def main():
                              "stale_sharded": stale_launches["rank_counts"],
                              "online": online_launches["rank_counts"],
                              "entry_points": entry_launches["rank_counts"],
-                             "shard_map": shard_launches["rank_counts"]},
+                             "shard_map": shard_launches["rank_counts"],
+                             "lm_serving": lm_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -4042,7 +4438,7 @@ def main():
             + live_launches[kname] + family_launches[kname]
             + sparse_launches[kname] + stale_launches[kname]
             + online_launches[kname] + entry_launches[kname]
-            + shard_launches[kname],
+            + shard_launches[kname] + lm_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
@@ -4053,7 +4449,8 @@ def main():
                                  "stale_sharded": stale_launches[kname],
                                  "online": online_launches[kname],
                                  "entry_points": entry_launches[kname],
-                                 "shard_map": shard_launches[kname]},
+                                 "shard_map": shard_launches[kname],
+                                 "lm_serving": lm_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -4079,7 +4476,8 @@ def main():
                                    "eval_resume", "device_pipeline",
                                    "serving_live", "model_family",
                                    "sparse_transport", "stale_sharded",
-                                   "online", "entry_points", "shard_map")}),
+                                   "online", "entry_points", "shard_map",
+                                   "lm_serving")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

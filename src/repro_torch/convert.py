@@ -54,3 +54,39 @@ def kb_from_reference(
     return KnowledgeBase(
         model=model, params=params_from_reference(params, device, dtype),
         graph=port_graph, norm=norm, meta=dict(meta or {}))
+
+
+def lm_params_from_reference(params, cfg, device=None):
+    """A port ``DecoderLM`` holding the reference's LM parameters.
+
+    ``params`` is the reference ``DecoderLM.init``'s pytree with every leaf
+    turned into a numpy array: ``embed``, ``ln_f`` and one ``seg{s}`` per
+    segment, a tuple over the segment's pattern of dicts stacked over its
+    repeats.  Segment ``s``'s pattern entry ``i`` at repeat ``rep`` becomes
+    the port's layer ``offset_s + rep * len(pattern) + i``.  Values are
+    copied in ``cfg.param_dtype`` onto ``device`` (default: the GPU;
+    raises without one unless ``device`` is given)."""
+    from repro_torch.models.transformer import DecoderLM
+
+    model = DecoderLM(cfg, device)
+
+    def load(dst, src):
+        dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+
+    for name, arr in params["embed"].items():
+        load(model.embed[name], arr)
+    load(model.ln_f, params["ln_f"])
+    layer = 0
+    for s, (pattern, reps) in enumerate(cfg.segments):
+        seg = params[f"seg{s}"]
+        for rep in range(reps):
+            for i in range(len(pattern)):
+                block = model.layers[layer + rep * len(pattern) + i]
+                for key, val in seg[i].items():
+                    if isinstance(val, dict):
+                        for sub, arr in val.items():
+                            load(getattr(block, key)[sub], arr[rep])
+                    else:
+                        load(getattr(block, key), val[rep])
+        layer += reps * len(pattern)
+    return model

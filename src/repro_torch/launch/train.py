@@ -11,8 +11,8 @@ update (``--kg-update``) and open-loop traffic through the live server
 (``--kg-serve``).  Every ``--kg*`` flag keeps the reference launcher's
 default, choices and help.  ``--device`` (default ``cuda``) places the
 run; ``--device cpu`` runs it on the CPU, through the kernels' plain
-versions.  The LM path (``--arch`` and its flags) is ROADMAP.md item 16:
-its flags are accepted and refused.
+versions.  The LM training path (``--arch`` and its flags) is ROADMAP.md
+item 16e: its flags are accepted and refused.
 """
 from __future__ import annotations
 
@@ -403,7 +403,7 @@ def main(argv=None):
         return _run_kg(args)
     if not args.arch:
         ap.error("--arch is required unless --kg is given")
-    raise not_ported("the LM launcher", 16)
+    raise not_ported("the LM launcher (LM training)", "16e")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ the reference's ``kg_table_shardings`` replicates them.  The layout
 changes no bit of the training: a block all-gathers the resting blocks
 into whole tables before its Map runs.
 
-The LM half of the reference's file is ROADMAP.md item 16.
+The LM half of the reference's file is ROADMAP.md item 16f.
 """
 from __future__ import annotations
 

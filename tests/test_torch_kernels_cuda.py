@@ -853,3 +853,93 @@ def test_shard_map_stale_sharded_block_makes_no_host_sync(cuda, tmp_path):
     for name in g_cpu:
         assert torch.equal(g_card[name].cpu(), g_cpu[name]), name
         assert torch.equal(l_card[name].cpu(), l_cpu[name]), name
+
+
+# ---------------------------------------------------------------------------
+# LM serving (no kernel lies on it): the card against the port's own
+# teacher-forced forward, against the CPU, and rerun
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ["smollm-135m", "gemma2-2b", "gemma2-9b", "qwen3-4b",
+            "llava-next-mistral-7b"]
+
+
+def _lm_run(task, model, toks, Lp, steps, patch):
+    """Prefill ``toks[:, :Lp]`` then decode the rest of ``toks`` one by
+    one: every call's logits, (B, steps + 1, V) on the CPU."""
+    from repro_torch.models import registry   # noqa: F401 (the task's)
+
+    n_vis = 0 if patch is None else patch.shape[1]
+    batch = {"tokens": toks[:, :Lp]}
+    if patch is not None:
+        batch["patch_embeds"] = patch
+    caches, logits = task.prefill(model, batch)
+    out = [logits[:, 0]]
+    for t in range(steps):
+        logits, caches = task.decode_step(model, {
+            "tokens": toks[:, Lp + t:Lp + t + 1], "pos": Lp + t + n_vis},
+            caches)
+        out.append(logits[:, 0])
+    return torch.stack(out, 1).cpu()
+
+
+def _lm_pair(arch, device):
+    """The reduced arch's task and seeded model on the CPU, and the same
+    parameters in a task and model on ``device``."""
+    from repro_torch import configs
+    from repro_torch.models import registry, vlm_stub
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = configs.get_config(arch, reduced=True)
+    host_task = registry.make_task(cfg, "cpu")
+    host = host_task.init(torch.Generator().manual_seed(0))
+    task = registry.make_task(cfg, device)
+    model = DecoderLM(cfg, device)
+    model.load_state_dict(host.state_dict())
+    patch = None
+    if cfg.vision_tokens:
+        patch = vlm_stub.synthetic_patch_embeds(
+            torch.Generator().manual_seed(1), 2, cfg.vision_tokens,
+            cfg.d_model, cfg.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(2))
+    return cfg, (host_task, host), (task, model), patch, toks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,Lp", [(a, 8) for a in LM_ARCHS]
+                         + [("gemma2-2b", 17)])
+def test_lm_decode_on_the_card_matches_forward_and_cpu(cuda, arch, Lp):
+    """Reduced width, fp32, TF32 off: each decode step's logits equal the
+    card's teacher-forced forward and the CPU's decode within 1e-4 (at 17
+    prompt tokens gemma2's window-16 ring has wrapped)."""
+    cfg, (host_task, host), (task, model), patch, toks = _lm_pair(arch,
+                                                                   cuda)
+    steps = toks.shape[1] - Lp
+    on_card = _lm_run(task, model, toks.to(cuda), Lp, steps,
+                      None if patch is None else patch.to(cuda))
+    on_host = _lm_run(host_task, host, toks, Lp, steps, patch)
+    n_vis = cfg.vision_tokens
+    positions = torch.arange(toks.shape[1] + n_vis, device=cuda)[None]
+    with torch.no_grad():
+        hidden, _, _ = model.forward(
+            toks.to(cuda), positions.expand(2, -1),
+            patch_embeds=None if patch is None else patch.to(cuda))
+        forward = model.logits(hidden[:, n_vis + Lp - 1:]).cpu()
+    torch.testing.assert_close(on_card, forward, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(on_card, on_host, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 1.2])
+def test_lm_generate_is_deterministic_on_the_card(cuda, temperature):
+    from repro_torch.serve import engine
+
+    _, _, (task, model), _, toks = _lm_pair("gemma2-2b", cuda)
+    eng = engine.Engine(task, model)
+    gcfg = engine.GenerateConfig(max_new_tokens=24, temperature=temperature,
+                                 seed=3)
+    prompts = toks[:, :6].numpy().astype("int32")
+    first = eng.generate(prompts, gcfg)
+    assert first.shape == (2, 24)
+    assert (first == eng.generate(prompts, gcfg)).all()

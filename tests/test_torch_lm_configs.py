@@ -1,0 +1,51 @@
+"""The port's LM configs (``repro_torch.configs``) against the reference's:
+every field, ``segments`` and the derived widths of all ten archs, full
+and ``reduced()``, with the JAX dtypes mapped to torch's."""
+import dataclasses
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro_torch import configs as port_configs
+from repro_torch.models import common
+
+DTYPES = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
+          jnp.dtype(jnp.float32): torch.float32}
+
+
+def test_registry_matches():
+    assert port_configs.ARCH_IDS == ref_configs.ARCH_IDS
+    assert len(port_configs.ARCH_IDS) == 10
+    assert {f.name for f in dataclasses.fields(common.ModelConfig)} == {
+        f.name for f in dataclasses.fields(type(
+            ref_configs.get_config("smollm-135m")))}
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_config_matches_the_reference(arch, reduced):
+    want = ref_configs.get_config(arch, reduced=reduced)
+    got = port_configs.get_config(arch, reduced=reduced)
+    assert isinstance(got, common.ModelConfig)
+    for field in dataclasses.fields(want):
+        w, g = getattr(want, field.name), getattr(got, field.name)
+        if field.name in ("dtype", "param_dtype"):
+            assert g is DTYPES[jnp.dtype(w)], field.name
+        else:
+            assert g == w and type(g) is type(w), field.name
+    assert got.segments == want.segments
+    assert (got.head_dim_, got.d_rnn) == (want.head_dim_, want.d_rnn)
+    # the port's per-layer order is the reference's segments unrolled
+    assert len(got.layer_kinds) == got.n_layers
+    assert got.layer_kinds == tuple(
+        kind for pattern, reps in want.segments for _ in range(reps)
+        for kind in pattern)
+
+
+def test_reduced_takes_overrides():
+    got = port_configs.get_config("gemma2-2b", reduced=True).reduced(
+        dtype=torch.bfloat16, window=8)
+    assert got.dtype is torch.bfloat16 and got.window == 8
+    assert port_configs.get_config("qwen3-4b").dtype is torch.bfloat16

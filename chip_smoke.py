@@ -72,7 +72,7 @@
    and ``repartition_every=2``, 4 epochs, ``block_epochs=4`` and then
    ``block_epochs=2``; (b) BGD, 3 epochs in one block; (c) one merge
    round of (a)'s configuration (2 epochs) on the cut split (the first
-   quarter of the training split, ``DEPTH_CUT``) on the CPU and on the
+   eighth of the training split, ``DEPTH_CUT``) on the CPU and on the
    card, from fit's seed-0 init and the port's own draws, and the
    counter-based draws (``core/keys.py``) alone on 2**20 counters on
    both; (d) one block of (a) through ``mapreduce.make_block_fn`` under
@@ -152,8 +152,11 @@
    ``transe_score`` kernels, the packed-delta Reduce and sparse BGD, each
    run beside its dense twin.  (a) At phase 3's width and configuration
    (where the capacity clamps to the whole table, so only the compact
-   step differs from dense): SGD ``average`` on the host pipeline, 2
-   epochs on the whole split (its loss is checked); then on phase 6's
+   step differs from dense): SGD ``average`` on the host pipeline,
+   ``SGD_EPOCHS`` epochs on the whole split (phase 3's SGD run: its loss
+   history is held to phase 3's bits and checked to fall; over 2 epochs
+   it need not, as an epoch's mean loss can rise by more than 2 epochs
+   of training lower it); then on phase 6's
    cut split BGD, 1 epoch; the device pipeline's SGD ``merge_every=2``,
    ``repartition_every=2``, 4 epochs, dense in one block and sparse in
    blocks of 4 and 2; one sparse block under
@@ -253,9 +256,9 @@
    name and power limit.
 
 12. Entry points (``entry_points_path``): ``repro_torch.launch.train.main``
-   in this process at phase 3's entity and triplet counts (the
-   launcher's own synthetic graph: 15 relations, dim 48, batch 256, 4
-   workers), SGD on the device pipeline for 2 epochs with a checkpoint,
+   in this process at phase 3's entity count and 1/``DEPTH_CUT`` of its
+   triplets (the launcher's own synthetic graph: 15 relations, dim 48,
+   batch 256, 4 workers), SGD on the device pipeline for 2 epochs with a checkpoint,
    ``--kg-eval-engine device``, a 300-triple ``--kg-update`` (5 new
    entities) and ``--kg-serve --kg-requests 500``, alone on the host and
    the card.  All three kernels' counters are zeroed just before
@@ -342,6 +345,34 @@
    peak memory for (a) and (b), and the phase's seconds by part, beside
    the card's name and power limit.
 
+15. LM serving for the moe family (``lm_moe_path``: MLA latent attention
+   and the scatter MoE FFN), through the same entry points, bf16
+   activations over fp32 parameters: (a) qwen2-moe-a2.7b at its full
+   published width and depth (24 layers, d_model 2,048, 16 heads, 60
+   routed experts in 64 padded rows plus 4 shared, top-4, moe_d_ff
+   1,408, vocab 151,936, capacity factor 1.25; 15,146,059,776
+   parameters): ``Engine.generate`` of 32 greedy tokens on 4 prompts of
+   128, twice (equal ids), profiled waves of 1 and 5 new tokens, the wave
+   by hand (prefill s, decode ms a step), and its prefill again with the
+   MoE tapped for the share of (token, expert) pairs the capacity dropped
+   (42 slots an expert against a mean of 34.1 pairs); (b)
+   deepseek-v2-236b at its full published width cut to
+   ``MOE_DEEPSEEK_LAYERS`` = 3 layers (the dense first layer and 2 MoE
+   layers: d_model 5,120, 128 heads, MLA kv_lora 512 and q_lora 1,536,
+   160 routed experts plus 2 shared, top-6, moe_d_ff 1,536, routed
+   scaling 16, vocab 102,400; 9,330,795,520 parameters; its 60 layers
+   would not fit one card), the same wave, then 1 prompt of 2,100 tokens
+   (MLA's expanded path on the flash loop, once a layer) and 4 decode
+   steps; (c) each of those models again at capacity factor E / K
+   (dropless): decode against the teacher-forced forward with fp32
+   activations within ``LM_FP32_TOL``, and with bf16 activations within
+   ``LM_BF16_TOL`` where every layer's routed set agrees (the positions
+   whose set flips are counted and printed), then both archs at reduced
+   width against the CPU; (d) ``python -m repro_torch.launch.serve --arch
+   qwen2-moe-a2.7b --batch 4 --prompt-len 16 --max-new 16`` in a process
+   of its own.  The three kernels' counters are zeroed before (a) and
+   read after (c): no kernel lies on this path (0 expected).
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -360,7 +391,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 FB15K = dict(n_entities=14951, n_relations=1345, n_triplets=592213)
 DIM = 50
-GRAPH_BUDGET_S = 60.0        # host seconds the graph may take, else cut it
+# host seconds the graph may take, else cut it.  At 60 a host whose probe
+# took 6.1 s or more cut the graph, and the checked losses then trained
+# on other data than the runs that had checked them; the full size takes
+# 43-58 s on the hosts of an H100 80GB HBM3 at 700 W seen so far.
+GRAPH_BUDGET_S = 90.0
 PROBE_TRIPLETS = 60000
 N_QUERY_PAIRS = 1024
 HOST_CHECK_ROWS = 512
@@ -379,7 +414,9 @@ TRAIN = dict(n_workers=4, batch_size=256)   # kg.make_configs' defaults
 # of its training split (the cut split), each epoch 1/DEPTH_CUT of its
 # steps.  A loss checked to fall trains on the whole split: a cut epoch
 # ends in a Reduce before the loss settles, and the next can start higher.
-DEPTH_CUT = 4
+# An eighth since the moe serving phase joined: with a quarter the whole
+# script took 1,060 s of its 1,200 s limit on an H100 80GB HBM3 at 700 W.
+DEPTH_CUT = 8
 SGD_EPOCHS, BGD_EPOCHS = 4, 3
 # phase 6: the device pipeline's SGD configuration, and the counters its
 # draws are held on, CPU against card
@@ -458,10 +495,13 @@ ONLINE_SMALL = 300          # delta triples of the small updates
 # the query stream across the refresh: long enough that the refresh
 # (an update and the new graph's known index, ~6 s) ends inside it
 ONLINE_STREAM = dict(arrivals=16000, rate=1000.0, after=200)
-# phase 12: the launcher at phase 3's entity and triplet counts (its own
-# synthetic graph: 15 relations, dim 48, batch 256, 4 workers, as the
-# launcher fixes them), a small update delta and the examples' cut epochs
-ENTRY_GRAPH = dict(entities=14951, triplets=592213, epochs=2)
+# phase 12: the launcher at phase 3's entity count and 1/DEPTH_CUT of its
+# triplets (its own synthetic graph: 15 relations, dim 48, batch 256, 4
+# workers, as the launcher fixes them), a small update delta and the
+# examples' cut epochs.  Cut since the moe serving phase joined: at the
+# full count the launcher's graph build alone took 31-57 s of host time.
+ENTRY_GRAPH = dict(entities=FB15K["n_entities"],
+                   triplets=FB15K["n_triplets"] // DEPTH_CUT, epochs=2)
 ENTRY_REQUESTS = 500
 ENTRY_DELTA = dict(triples=300, new_entities=5, seed=11)
 ENTRY_EXAMPLE_EPOCHS = 4
@@ -2366,10 +2406,11 @@ def scale_bytes(torch, graph, kcfg, mcfg, part):
     return out
 
 
-def sparse_transport_path(torch, full, graph):
+def sparse_transport_path(torch, full, graph, sgd_history):
     """The sparse delta transport (item 9 of the module docstring), its
-    host SGD pair on ``full``, the rest on ``graph``.  Returns the path's
-    info and its launches of each kernel."""
+    host SGD pair on ``full`` (phase 3's SGD run, whose loss history was
+    ``sgd_history``), the rest on ``graph``.  Returns the path's info and
+    its launches of each kernel."""
     from repro_torch import kg
     from repro_torch.core import eval_device, mapreduce
     from repro_torch.core.models import get_model
@@ -2417,8 +2458,8 @@ def sparse_transport_path(torch, full, graph):
     ts.transe_score_bwd.launches = 0
     rank_topk.rank_counts.launches = 0
     # (a) phase 3's configuration (its loss checked: on the whole split)
-    runs["sgd"] = pair("sgd", "transe", "sgd", strategy="average", epochs=2,
-                       on=full, **base_kw)
+    runs["sgd"] = pair("sgd", "transe", "sgd", strategy="average",
+                       epochs=SGD_EPOCHS, on=full, **base_kw)
     runs["bgd"] = pair("bgd", "transe", "bgd", epochs=1, **base_kw)
     dense4 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
                     callback=timer("device_dense"), **dense_dev)
@@ -2426,7 +2467,7 @@ def sparse_transport_path(torch, full, graph):
                      callback=timer("device_sparse_block4"), **sparse_dev)
     sparse2 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=2,
                      callback=timer("device_sparse_block2"), **sparse_dev)
-    full_epochs, card_epochs = 2 * 2, 2 * 1 + 3 * 4
+    full_epochs, card_epochs = 2 * SGD_EPOCHS, 2 * 1 + 3 * 4
     block_fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
                                        donate=True, with_overflow=True)
     torch.cuda.synchronize()
@@ -2543,6 +2584,7 @@ def sparse_transport_path(torch, full, graph):
         "scale_reruns": same_run(scale_runs["sparse"][0][0],
                                  scale_runs["sparse"][1][0])
         and same_run(scale_runs["dense"][0][0], scale_runs["dense"][1][0]),
+        "sgd_vs_phase3": runs["sgd"][0].loss_history == sgd_history,
         "sparse_sgd_metrics_vs_dense_params": evals["sgd"] == kg.evaluate(
             runs["sgd"][0].kb, engine="device")}
     info["phase_s"] = time.perf_counter() - t_phase
@@ -3960,6 +4002,39 @@ LM_BF16_TOL = 0.2
 LM_FP32_TOL = 1e-4
 
 
+# ---------------------------------------------------------------------------
+# phase 15: LM serving for the moe family (MLA and the scatter MoE FFN)
+# ---------------------------------------------------------------------------
+
+LM_SHAPES.update({
+    "qwen2-moe-a2.7b": dict(n_layers=24, d_model=2048, n_heads=16,
+                            n_kv_heads=16, head_dim=128, vocab_size=151936,
+                            n_experts=60, n_shared_experts=4, top_k=4,
+                            moe_d_ff=1408, capacity_factor=1.25),
+    # cut in depth (MOE_DEEPSEEK_LAYERS): every width as published
+    "deepseek-v2-236b": dict(d_model=5120, n_heads=128, d_ff=12288,
+                             vocab_size=102400, use_mla=True,
+                             kv_lora_rank=512, q_lora_rank=1536,
+                             qk_nope_head_dim=128, qk_rope_head_dim=64,
+                             v_head_dim=128, n_experts=160,
+                             n_shared_experts=2, top_k=6, moe_d_ff=1536,
+                             first_k_dense=1, routed_scaling=16.0,
+                             capacity_factor=1.25),
+})
+# deepseek-v2-236b's 60 layers hold 236 B parameters: one MoE layer's
+# experts are 3.77 B (15.1 GB in fp32), so the card holds the dense first
+# layer and 2 MoE layers (9.33 B parameters, 37.3 GB)
+MOE_DEEPSEEK_LAYERS = 3
+MOE_PARAMS = {"qwen2-moe-a2.7b": 15_146_059_776,
+              "deepseek-v2-236b": 9_330_795_520}
+MOE_A = dict(batch=4, prompt=128, new=32)
+MOE_LONG = dict(prompt=2100, steps=4)   # past _DENSE_MAX: the flash loop
+MOE_C = dict(batch=2, prompt=32, steps=4)
+MOE_REDUCED = ("qwen2-moe-a2.7b", "deepseek-v2-236b")
+MOE_LAUNCHER = ["--arch", "qwen2-moe-a2.7b", "--batch", "4", "--prompt-len",
+                "16", "--max-new", "16"]
+
+
 def lm_config(arch, **overrides):
     """``arch``'s config at full width, with ``overrides``."""
     import dataclasses
@@ -3969,15 +4044,16 @@ def lm_config(arch, **overrides):
     return dataclasses.replace(configs.get_config(arch), **overrides)
 
 
-def lm_params(torch, arch, cfg):
+def lm_params(torch, arch, cfg, published=True):
     """A seeded ``DecoderTask`` and its parameters on the card, and the
-    init seconds."""
+    init seconds; ``published``: check the config's widths against
+    ``LM_SHAPES``."""
     from repro_torch.models import registry
 
     task = registry.make_task(cfg, DEVICE)
     params, init_s = wall(torch, lambda: task.init(
         torch.Generator(device=DEVICE).manual_seed(0)))
-    want = LM_SHAPES.get(arch, {})
+    want = LM_SHAPES.get(arch, {}) if published else {}
     got = {k: getattr(cfg, k) for k in want}
     if got != want:
         fail(f"{arch}: widths {got} are not the published {want}")
@@ -4055,16 +4131,72 @@ def lm_agreement(torch, got, want, tol):
             "ids_differ_past_tol": int(differ.sum())}
 
 
+def lm_card_against_cpu(torch, arch):
+    """``arch`` at reduced width on the card: decode against its
+    teacher-forced forward, and against the same parameters' decode on
+    the CPU (``LM_REDUCED_RUN``'s wave)."""
+    from repro_torch.models.transformer import DecoderLM
+
+    R = LM_REDUCED_RUN
+    cfg = lm_config(arch).reduced()
+    task, params, _ = lm_params(torch, arch, cfg, published=False)
+    patch = None
+    if cfg.vision_tokens:
+        from repro_torch.models import vlm_stub
+        patch = vlm_stub.synthetic_patch_embeds(
+            torch.Generator(device=DEVICE).manual_seed(1), R["batch"],
+            cfg.vision_tokens, cfg.d_model, cfg.dtype)
+    toks = torch.as_tensor(lm_prompts(cfg, R["batch"],
+                                      R["prompt"] + R["steps"], 4),
+                           device=DEVICE)
+    got, _, _ = lm_steps(torch, task, params, toks, R["prompt"],
+                         R["steps"], patch)
+    want = lm_forward_logits(torch, params, toks, R["steps"] + 1, patch)
+    host = DecoderLM(cfg, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in
+                          params.state_dict().items()})
+    on_host, _, _ = lm_steps(torch, type(task)(cfg, "cpu"), host,
+                             toks.cpu(), R["prompt"], R["steps"],
+                             None if patch is None else patch.cpu())
+    return {"forward": lm_agreement(torch, got, want, LM_FP32_TOL),
+            "cpu": lm_agreement(torch, got.cpu(), on_host, LM_FP32_TOL)}
+
+
+def lm_launcher(argv, n_tokens, ok, label):
+    """``python -m repro_torch.launch.serve argv`` in a process of its
+    own: its exit code, seconds and two printed lines, checked into
+    ``ok`` (``n_tokens`` generated, 16 ids shown)."""
+    import re
+
+    with tempfile.TemporaryDirectory() as logdir:
+        started = _start([("serve", [sys.executable, "-m",
+                                     "repro_torch.launch.serve"] + argv)],
+                         logdir)
+        rc, out, seconds = _join(started, LM_LAUNCHER_S)["serve"]
+    lines = out.strip().splitlines()[-2:]
+    m1 = re.match(r"^generated (\d+) tokens in (\d+\.\d\d)s "
+                  r"\((\d+\.\d) tok/s incl\. compile\)$",
+                  lines[0] if lines else "")
+    m2 = re.match(r"^first sequence: \[(\d+(, \d+)*)\]$",
+                  lines[1] if len(lines) > 1 else "")
+    ok["d_launcher_exit_0"] = rc == 0
+    ok["d_launcher_lines"] = bool(m1 and m2) and \
+        int(m1.group(1)) == n_tokens and len(m2.group(1).split(", ")) == 16
+    if rc != 0:
+        print(out[-4000:], flush=True)
+    print(f"{label} (d) python -m repro_torch.launch.serve "
+          f"{' '.join(argv)}: exit {rc} in {seconds:.1f} s: {lines}",
+          flush=True)
+    return {"rc": rc, "seconds": seconds, "lines": lines}
+
+
 def lm_serving_path(torch):
     """LM serving (item 14 of the module docstring).  Returns the path's
     info and its launches of each kernel (none lies on it: 0 expected)."""
-    import re
-
     import numpy as np
 
     from repro_torch.kernels import rank_topk, transe_score as ts
     from repro_torch.models import attention
-    from repro_torch.models.transformer import DecoderLM
     from repro_torch.serve import engine as engine_lib
 
     t_phase = time.perf_counter()
@@ -4206,36 +4338,12 @@ def lm_serving_path(torch):
     del task, params, got, want, toks
     info["free_s"].append(lm_free(torch))
     part_done("c_fp32")
-    R = LM_REDUCED_RUN
     for arch in LM_REDUCED:
-        cfg = lm_config(arch).reduced()
-        task, params, _ = lm_params(torch, arch, cfg)
-        patch = None
-        if cfg.vision_tokens:
-            from repro_torch.models import vlm_stub
-            patch = vlm_stub.synthetic_patch_embeds(
-                torch.Generator(device=DEVICE).manual_seed(1), R["batch"],
-                cfg.vision_tokens, cfg.d_model, cfg.dtype)
-        toks = torch.as_tensor(lm_prompts(cfg, R["batch"],
-                                          R["prompt"] + R["steps"], 4),
-                               device=DEVICE)
-        got, _, _ = lm_steps(torch, task, params, toks, R["prompt"],
-                             R["steps"], patch)
-        want = lm_forward_logits(torch, params, toks, R["steps"] + 1, patch)
-        host = DecoderLM(cfg, "cpu")
-        host.load_state_dict({k: v.cpu() for k, v in
-                              params.state_dict().items()})
-        on_host, _, _ = lm_steps(torch, type(task)(cfg, "cpu"), host,
-                                 toks.cpu(), R["prompt"], R["steps"],
-                                 None if patch is None else patch.cpu())
-        c[arch] = {"forward": lm_agreement(torch, got, want, LM_FP32_TOL),
-                   "cpu": lm_agreement(torch, got.cpu(), on_host,
-                                       LM_FP32_TOL)}
+        c[arch] = lm_card_against_cpu(torch, arch)
         ok[f"c_{arch}_decode_matches_forward"] = \
             c[arch]["forward"]["max_abs_err"] <= LM_FP32_TOL
         ok[f"c_{arch}_card_matches_cpu"] = \
             c[arch]["cpu"]["max_abs_err"] <= LM_FP32_TOL
-        del task, params, host, got, want, on_host
     info["c"] = c
     print(f"lm_serving (c) on {card}: decode against the forward and the "
           f"card against the CPU, max abs err (tolerance {LM_FP32_TOL}): "
@@ -4251,26 +4359,7 @@ def lm_serving_path(torch):
     # --- end ---
 
     # (d) the launcher, in a process of its own
-    with tempfile.TemporaryDirectory() as logdir:
-        started = _start([("serve", [sys.executable, "-m",
-                                     "repro_torch.launch.serve"]
-                           + LM_LAUNCHER)], logdir)
-        rc, out, seconds = _join(started, LM_LAUNCHER_S)["serve"]
-    lines = out.strip().splitlines()[-2:]
-    m1 = re.match(r"^generated (\d+) tokens in (\d+\.\d\d)s "
-                  r"\((\d+\.\d) tok/s incl\. compile\)$",
-                  lines[0] if lines else "")
-    m2 = re.match(r"^first sequence: \[(\d+(, \d+)*)\]$",
-                  lines[1] if len(lines) > 1 else "")
-    info["d_launcher"] = {"rc": rc, "seconds": seconds, "lines": lines}
-    ok["d_launcher_exit_0"] = rc == 0
-    ok["d_launcher_lines"] = bool(m1 and m2) and int(m1.group(1)) == 4 * 32 \
-        and len(m2.group(1).split(", ")) == 16
-    if rc != 0:
-        print(out[-4000:], flush=True)
-    print(f"lm_serving (d) python -m repro_torch.launch.serve "
-          f"{' '.join(LM_LAUNCHER)}: exit {rc} in {seconds:.1f} s: "
-          f"{lines}", flush=True)
+    info["d_launcher"] = lm_launcher(LM_LAUNCHER, 4 * 32, ok, "lm_serving")
 
     part_done("d")
     info["phase_s"] = time.perf_counter() - t_phase
@@ -4285,6 +4374,274 @@ def lm_serving_path(torch):
         if count != 0:
             fail(f"{name} launched {count} times on the LM serving path, "
                  "where no kernel lies")
+    return info, launches
+
+
+class MoeTap:
+    """While entered, keeps every ``apply_moe`` call's routed experts
+    (T, K) and keep mask (T·K,), by wrapping ``moe._route`` and
+    ``moe._slots`` (looked up at call time); keeping a tensor makes no
+    host sync."""
+
+    def __init__(self, moe):
+        self.moe, self.experts, self.keeps = moe, [], []
+
+    def __enter__(self):
+        route, slots = self.route, self.slots = \
+            self.moe._route, self.moe._slots
+
+        def tapped_route(*args):
+            out = route(*args)
+            self.experts.append(out[1])
+            return out
+
+        def tapped_slots(*args):
+            out = slots(*args)
+            self.keeps.append(out[2])
+            return out
+
+        self.moe._route, self.moe._slots = tapped_route, tapped_slots
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._slots = self.route, self.slots
+
+
+def moe_routed_sets(torch, experts, B, n_moe):
+    """Each MoE layer's routed set at every position, (n_moe, B, L, K)
+    sorted along K, from a tap's experts over one prefill and its decode
+    steps (each call's (B·L_call, K) in call order, layer by layer)."""
+    calls = [e.reshape(B, -1, e.shape[-1]) for e in experts]
+    layers = [torch.cat(calls[i::n_moe], dim=1) for i in range(n_moe)]
+    return torch.sort(torch.stack(layers), dim=-1).values
+
+
+def moe_decode_against_forward(torch, moe, task, params, toks, Lp, steps,
+                               tol):
+    """Decode against the teacher-forced forward at a dropless capacity:
+    the agreement, the positions (of all, prompt included) where some
+    layer's routed set differs, and the compared positions' error where
+    every layer's set agrees."""
+    B = toks.shape[0]
+    n_moe = sum(1 for b in params.layers if not b.kind.endswith(":dense"))
+    with MoeTap(moe) as dec:
+        got, _, _ = lm_steps(torch, task, params, toks, Lp, steps)
+    with MoeTap(moe) as fwd:
+        want = lm_forward_logits(torch, params, toks, steps + 1)
+    dec_sets = moe_routed_sets(torch, dec.experts, B, n_moe)
+    fwd_sets = moe_routed_sets(torch, fwd.experts, B, n_moe)
+    flips = (dec_sets != fwd_sets).any(dim=-1).any(dim=0)      # (B, L)
+    out = lm_agreement(torch, got, want, tol)
+    agree = ~flips[:, Lp - 1:]                                  # compared
+    err = (got - want).abs().amax(dim=-1)
+    out["flipped_positions"] = int(flips.sum())
+    out["positions"] = int(flips.numel())
+    out["dropped_pairs"] = int(sum(int((~k).sum()) for k in
+                                   dec.keeps + fwd.keeps))
+    out["max_abs_err_where_routing_agrees"] = float(
+        err[agree].max()) if bool(agree.any()) else None
+    out["compared_positions_agreeing"] = int(agree.sum())
+    # stricter: no flip at the position or before it
+    before = ~torch.cummax(flips.int(), dim=1).values.bool()[:, Lp - 1:]
+    out["max_abs_err_where_no_flip_up_to_it"] = float(
+        err[before].max()) if bool(before.any()) else None
+    return out
+
+
+def lm_moe_path(torch):
+    """LM serving for the moe family (item 15 of the module docstring).
+    Returns the path's info and its launches of each kernel (none lies on
+    it: 0 expected)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.models import attention, moe
+    from repro_torch.serve import engine as engine_lib
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    info = {"card": card, "part_s": {}, "free_s": []}
+    ok = {}
+    marks = [t_phase]
+
+    def part_done(label):
+        """Keep the seconds since the last part ended, freeing included."""
+        marks.append(time.perf_counter())
+        info["part_s"][label] = marks[-1] - marks[-2]
+
+    rank_topk.rank_counts.launches = 0          # --- LM moe serving path ---
+    ts.transe_score.launches = 0
+    ts.transe_score_bwd.launches = 0
+
+    c = {}
+    for part, arch, overrides in (
+            ("a", "qwen2-moe-a2.7b", {}),
+            ("b", "deepseek-v2-236b", {"n_layers": MOE_DEEPSEEK_LAYERS})):
+        torch.cuda.reset_peak_memory_stats()
+        task, params, init_s = lm_params(torch, arch,
+                                         lm_config(arch, **overrides))
+        cfg = task.cfg
+        r = {"params": sum(p.numel() for p in params.parameters()),
+             "init_s": init_s, "layers": [b.kind for b in params.layers]}
+        ok[f"{part}_params"] = r["params"] == MOE_PARAMS[arch]
+        if part == "b":
+            ok["b_depth_cut"] = r["layers"] == ["global:dense"] + [
+                "global"] * (MOE_DEEPSEEK_LAYERS - 1)
+        # the serving wave, twice
+        eng = engine_lib.Engine(task, params)
+        B, Lp, n = MOE_A["batch"], MOE_A["prompt"], MOE_A["new"]
+        prompts = lm_prompts(cfg, B, Lp, 0)
+        gcfg = engine_lib.GenerateConfig(max_new_tokens=n)
+        ids, r["generate_first_s"] = wall(torch, lambda: eng.generate(
+            prompts, gcfg))
+        again, r["generate_s"] = wall(torch, lambda: eng.generate(prompts,
+                                                                  gcfg))
+        r["tokens_per_s"] = B * n / r["generate_s"]
+        ok[f"{part}_ids_shape"] = ids.shape == (B, n) and bool(
+            ((ids >= 0) & (ids < cfg.vocab_size)).all())
+        ok[f"{part}_generate_deterministic"] = bool((ids == again).all())
+        profiled = {}
+        for label, new_tokens in (("prefill", 1),
+                                  ("wave", 1 + LM_PROFILE_STEPS)):
+            prof = profile_busy(torch, lambda: eng.generate(
+                prompts, engine_lib.GenerateConfig(max_new_tokens=new_tokens)))
+            profiled[label] = {k: prof[k] for k in (
+                "wall_s", "device_busy_s", "idle_share", "launches")}
+        r["generate_profile"] = profiled
+        r["launches_a_token"] = (profiled["wave"]["launches"]
+                                 - profiled["prefill"]["launches"]) \
+            / LM_PROFILE_STEPS
+        # the same wave by hand; then its prefill again, tapped, for the
+        # share of (token, expert) pairs the capacity dropped
+        toks = torch.as_tensor(np.concatenate([prompts, ids], 1),
+                               device=DEVICE)
+        logits, r["prefill_s"], r["decode_ms"] = lm_steps(
+            torch, task, params, toks, Lp, n - 1)
+        ok[f"{part}_ids_are_the_argmax"] = bool(
+            (logits.argmax(-1).cpu().numpy() == ids).all())
+        ok[f"{part}_finite"] = bool(torch.isfinite(logits).all())
+        with MoeTap(moe) as tap:
+            task.prefill(params, {"tokens": toks[:, :Lp]})
+        dropped = sum(int((~k).sum()) for k in tap.keeps)
+        pairs = sum(k.numel() for k in tap.keeps)
+        r["prefill_capacity"] = moe.capacity_of(B * Lp, cfg)
+        r["prefill_mean_pairs_an_expert"] = B * Lp * cfg.top_k / \
+            cfg.n_experts
+        r["prefill_dropped_share"] = dropped / pairs
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del eng, logits, toks
+        if part == "b":
+            # B = 1, a prompt long enough for MLA's expanded path to take
+            # the flash loop (once a layer)
+            flash_calls = []
+            real_flash = attention._sdpa_flash
+            attention._sdpa_flash = lambda *args: flash_calls.append(1) or \
+                real_flash(*args)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                long = torch.as_tensor(lm_prompts(
+                    cfg, 1, MOE_LONG["prompt"] + MOE_LONG["steps"], 1),
+                    device=DEVICE)
+                logits, r["long_prefill_s"], r["long_decode_ms"] = lm_steps(
+                    torch, task, params, long, MOE_LONG["prompt"],
+                    MOE_LONG["steps"])
+            finally:
+                attention._sdpa_flash = real_flash
+            r["long_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            r["long_flash_calls"] = len(flash_calls)
+            ok["b_long_took_the_flash_path"] = len(flash_calls) == \
+                cfg.n_layers
+            ok["b_long_finite"] = bool(torch.isfinite(logits).all())
+            del logits, long
+        info[part] = r
+        long_text = (f"; B=1 x {MOE_LONG['prompt']}: prefill "
+                     f"{r['long_prefill_s']:.3f} s ({r['long_flash_calls']} "
+                     f"flash calls), decode {r['long_decode_ms']:.2f} ms a "
+                     f"step, peak {r['long_peak_gb']:.2f} GB"
+                     if part == "b" else "")
+        print(f"lm_moe ({part}) {arch} ({cfg.n_layers} layers) on {card}: "
+              f"{r['params']:,} parameters, init {init_s:.2f} s; B={B} x "
+              f"{Lp} prompt: prefill {r['prefill_s']:.4f} s, decode "
+              f"{r['decode_ms']:.2f} ms a step, generate {n} tokens "
+              f"{r['generate_s']:.3f} s ({r['tokens_per_s']:.1f} tok/s; "
+              f"profiled: idle share "
+              f"{profiled['wave']['idle_share']:.3f}, "
+              f"{r['launches_a_token']:.0f} launches a decode step), peak "
+              f"{r['peak_gb']:.2f} GB; the prefill dropped "
+              f"{r['prefill_dropped_share']:.4f} of its (token, expert) "
+              f"pairs (capacity {r['prefill_capacity']} an expert, mean "
+              f"{r['prefill_mean_pairs_an_expert']:.1f})" + long_text,
+              flush=True)
+        part_done(part)
+
+        # (c) the same parameters at cf = E / K (dropless): decode against
+        # the teacher-forced forward in fp32, and in the config's bf16
+        # where every layer's routed set agrees
+        dropless = cfg.n_experts / cfg.top_k
+        toks = torch.as_tensor(lm_prompts(cfg, MOE_C["batch"],
+                                          MOE_C["prompt"] + MOE_C["steps"],
+                                          3), device=DEVICE)
+        for label, dtype, tol in (("fp32", torch.float32, LM_FP32_TOL),
+                                  ("bf16", cfg.dtype, LM_BF16_TOL)):
+            params.cfg = dataclasses.replace(cfg, dtype=dtype,
+                                             capacity_factor=dropless)
+            res = moe_decode_against_forward(
+                torch, moe, task, params, toks, MOE_C["prompt"],
+                MOE_C["steps"], tol)
+            c[f"{arch}_{label}"] = res
+            if label == "fp32":
+                ok[f"c_{arch}_fp32_decode_matches_forward"] = \
+                    res["max_abs_err"] <= tol
+            else:
+                ok[f"c_{arch}_bf16_decode_matches_forward"] = \
+                    res["compared_positions_agreeing"] > 0 and \
+                    res["max_abs_err_where_routing_agrees"] <= tol
+            ok[f"c_{arch}_{label}_dropless"] = res["dropped_pairs"] == 0
+        params.cfg = cfg
+        del task, params, toks
+        info["free_s"].append(lm_free(torch))
+        part_done(f"c_{part}")
+    for arch in MOE_REDUCED:
+        c[f"{arch}_reduced"] = lm_card_against_cpu(torch, arch)
+        ok[f"c_{arch}_reduced_decode_matches_forward"] = \
+            c[f"{arch}_reduced"]["forward"]["max_abs_err"] <= LM_FP32_TOL
+        ok[f"c_{arch}_reduced_card_matches_cpu"] = \
+            c[f"{arch}_reduced"]["cpu"]["max_abs_err"] <= LM_FP32_TOL
+    info["c"] = c
+    print(f"lm_moe (c) on {card}: decode against the forward at cf = E / K "
+          f"(fp32 tolerance {LM_FP32_TOL}, bf16 {LM_BF16_TOL} where the "
+          "routing agrees) and the reduced card against the CPU: "
+          + json.dumps({k: {f: v[f] for f in (
+              "max_abs_err", "max_abs_err_where_routing_agrees",
+              "flipped_positions", "positions") if f in v}
+              if "cpu" not in v else {"forward": v["forward"]["max_abs_err"],
+                                      "cpu": v["cpu"]["max_abs_err"]}
+              for k, v in c.items()}), flush=True)
+    info["free_s"].append(lm_free(torch))
+    part_done("c_reduced")
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+
+    # (d) the launcher at qwen2-moe-a2.7b's full width, in a process of its
+    # own (after every model of this process is freed)
+    info["d_launcher"] = lm_launcher(MOE_LAUNCHER, 4 * 16, ok, "lm_moe")
+    part_done("d")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["ok"] = ok
+    print(f"lm_moe took {info['phase_s']:.1f} s on {smi_line()} (by part: "
+          f"{json.dumps(info['part_s'])})", flush=True)
+    print("lm_moe " + json.dumps(info), flush=True)
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        fail(f"lm_moe checks failed: {failed}")
+    for name, count in launches.items():
+        if count != 0:
+            fail(f"{name} launched {count} times on the LM moe serving "
+                 "path, where no kernel lies")
     return info, launches
 
 
@@ -4346,7 +4703,8 @@ def main():
     family_info, family_launches = phase("model_family", model_family_path,
                                          torch, cut, graph)
     sparse_info, sparse_launches = phase(
-        "sparse_transport", sparse_transport_path, torch, graph, cut)
+        "sparse_transport", sparse_transport_path, torch, graph, cut,
+        sgd.loss_history)
     stale_info, stale_launches = phase("stale_sharded", stale_sharded_path,
                                        torch, graph, cut)
     online_info, online_launches = phase("online", online_path, torch,
@@ -4356,6 +4714,7 @@ def main():
     shard_info, shard_launches = phase("shard_map", shard_map_path, torch,
                                        cut)
     lm_info, lm_launches = phase("lm_serving", lm_serving_path, torch)
+    moe_info, moe_launches = phase("lm_moe", lm_moe_path, torch)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 phase_s=phase_s, depth_cut={
                     "divisor": DEPTH_CUT, "train": len(cut.train),
@@ -4367,7 +4726,7 @@ def main():
                 model_family=family_info, sparse_transport=sparse_info,
                 stale_sharded=stale_info, online=online_info,
                 entry_points=entry_info, shard_map=shard_info,
-                lm_serving=lm_info)
+                lm_serving=lm_info, lm_moe=moe_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -4393,7 +4752,7 @@ def main():
         + family_launches["rank_counts"] + sparse_launches["rank_counts"]
         + stale_launches["rank_counts"] + online_launches["rank_counts"]
         + entry_launches["rank_counts"] + shard_launches["rank_counts"]
-        + lm_launches["rank_counts"],
+        + lm_launches["rank_counts"] + moe_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -4407,7 +4766,8 @@ def main():
                              "online": online_launches["rank_counts"],
                              "entry_points": entry_launches["rank_counts"],
                              "shard_map": shard_launches["rank_counts"],
-                             "lm_serving": lm_launches["rank_counts"]},
+                             "lm_serving": lm_launches["rank_counts"],
+                             "lm_moe": moe_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -4438,7 +4798,8 @@ def main():
             + live_launches[kname] + family_launches[kname]
             + sparse_launches[kname] + stale_launches[kname]
             + online_launches[kname] + entry_launches[kname]
-            + shard_launches[kname] + lm_launches[kname],
+            + shard_launches[kname] + lm_launches[kname]
+            + moe_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
@@ -4450,7 +4811,8 @@ def main():
                                  "online": online_launches[kname],
                                  "entry_points": entry_launches[kname],
                                  "shard_map": shard_launches[kname],
-                                 "lm_serving": lm_launches[kname]},
+                                 "lm_serving": lm_launches[kname],
+                                 "lm_moe": moe_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -4477,7 +4839,7 @@ def main():
                                    "serving_live", "model_family",
                                    "sparse_transport", "stale_sharded",
                                    "online", "entry_points", "shard_map",
-                                   "lm_serving")}),
+                                   "lm_serving", "lm_moe")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,9 +30,10 @@ server); the ``--kg`` launcher (``python -m repro_torch.launch.train``);
 and the ``shard_map`` backend over ``torch.distributed``
 (``kg.fit(backend="shard_map", mesh=...)``: the workers split over the
 ranks of a ``DeviceMesh``, the Reduce a collective,
-``parallel/util.py``); and LM serving for the zoo's dense and vlm
+``parallel/util.py``); and LM serving for the zoo's dense, moe and vlm
 families (``models``, ``configs``, ``serve.engine``: prefill and KV-cache
-decode; ``python -m repro_torch.launch.serve``).  The
+or MLA latent-cache decode, the scatter MoE FFN; ``python -m
+repro_torch.launch.serve``).  The
 reference's two Pallas kernels are hand-written CUDA kernels for Hopper:
 the entity-ranking sweep (``kernels/rank_topk.py``) and TransE's
 training step, forward and backward (``kernels/transe_score.py``).  What

@@ -63,7 +63,8 @@ def lm_params_from_reference(params, cfg, device=None):
     turned into a numpy array: ``embed``, ``ln_f`` and one ``seg{s}`` per
     segment, a tuple over the segment's pattern of dicts stacked over its
     repeats.  Segment ``s``'s pattern entry ``i`` at repeat ``rep`` becomes
-    the port's layer ``offset_s + rep * len(pattern) + i``.  Values are
+    the port's layer ``offset_s + rep * len(pattern) + i``; a MoE FFN's
+    padded expert rows are copied as they are.  Values are
     copied in ``cfg.param_dtype`` onto ``device`` (default: the GPU;
     raises without one unless ``device`` is given)."""
     from repro_torch.models.transformer import DecoderLM
@@ -73,6 +74,15 @@ def lm_params_from_reference(params, cfg, device=None):
     def load(dst, src):
         dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
+    def load_layer(dst, src, rep):
+        """Copy repeat ``rep`` of a segment's stacked dict into ``dst``,
+        descending into nested dicts (a MoE FFN's ``shared`` MLP)."""
+        for key, val in src.items():
+            if isinstance(val, dict):
+                load_layer(getattr(dst, key), val, rep)
+            else:
+                load(getattr(dst, key), val[rep])
+
     for name, arr in params["embed"].items():
         load(model.embed[name], arr)
     load(model.ln_f, params["ln_f"])
@@ -81,12 +91,7 @@ def lm_params_from_reference(params, cfg, device=None):
         seg = params[f"seg{s}"]
         for rep in range(reps):
             for i in range(len(pattern)):
-                block = model.layers[layer + rep * len(pattern) + i]
-                for key, val in seg[i].items():
-                    if isinstance(val, dict):
-                        for sub, arr in val.items():
-                            load(getattr(block, key)[sub], arr[rep])
-                    else:
-                        load(getattr(block, key), val[rep])
+                load_layer(model.layers[layer + rep * len(pattern) + i],
+                           seg[i], rep)
         layer += reps * len(pattern)
     return model

@@ -1,7 +1,8 @@
 """Attention layers: GQA/MQA with rotary, sliding-window (local) masks,
-attention-logit softcap (gemma2), per-head qk-norm (qwen3), and cross
-attention (whisper), each with a KV cache for serving.  A port of the GQA
-half of ``repro.models.attention``; MLA (deepseek-v2) is ROADMAP item 16b.
+attention-logit softcap (gemma2), per-head qk-norm (qwen3), MLA latent
+attention (deepseek-v2) with both the expanded and the absorbed decode,
+and cross attention (whisper), each with a cache for serving.  A port of
+``repro.models.attention``.
 
 The arithmetic is the reference's in plain torch: einsum, an additive fp32
 mask computed from positions, the softcap, then a softmax (short keys and
@@ -15,7 +16,9 @@ each slot (-1 empty).  A local layer keeps a ring buffer of
 at prefill and at decode alike.  (The reference's prefill keeps the
 trailing window in slots 0..S-1 instead, which its decode's ``p % S``
 agrees with only when the prompt length is at most S or a multiple of it;
-ROADMAP.md queue 3.)  Caches are written in place and returned.
+ROADMAP.md queue 3.)  MLA caches the latent (B, S, kv_lora) and the
+shared rope key (B, S, rope_hd) instead of per-head k/v.  Caches are
+written in place and returned.
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ from torch import nn
 
 from repro_torch.models.common import (
     ModelConfig, dense_init, rms_norm, rope, softcap, zeros_init)
-from repro_torch.util import not_ported
 
 NEG_INF = -2.0e38
 
@@ -39,7 +41,7 @@ NEG_INF = -2.0e38
 def init_attention(generator, cfg: ModelConfig, cross: bool = False,
                    device=None) -> nn.ParameterDict:
     if cfg.use_mla and not cross:
-        return _init_mla(generator, cfg)
+        return _init_mla(generator, cfg, device)
     hd, d, pd = cfg.head_dim_, cfg.d_model, cfg.param_dtype
     p = nn.ParameterDict({
         "wq": dense_init(generator, (d, cfg.n_heads, hd), d, pd, device),
@@ -55,8 +57,26 @@ def init_attention(generator, cfg: ModelConfig, cross: bool = False,
     return p
 
 
-def _init_mla(generator, cfg: ModelConfig):
-    raise not_ported("MLA latent attention", "16b")
+def _init_mla(generator, cfg: ModelConfig, device=None):
+    device = generator.device if device is None else device
+    nope, rh, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    H, d, r, pd = cfg.n_heads, cfg.d_model, cfg.kv_lora_rank, cfg.param_dtype
+    p = nn.ParameterDict({
+        "w_dkv": dense_init(generator, (d, r), d, pd, device),
+        "w_krope": dense_init(generator, (d, rh), d, pd, device),
+        "kv_norm": zeros_init((r,), pd, device),
+        "w_uk": dense_init(generator, (r, H, nope), r, pd, device),
+        "w_uv": dense_init(generator, (r, H, vh), r, pd, device),
+        "wo": dense_init(generator, (H, vh, d), H * vh, pd, device),
+    })
+    if cfg.q_lora_rank:
+        qr = cfg.q_lora_rank
+        p["w_dq"] = dense_init(generator, (d, qr), d, pd, device)
+        p["q_norm"] = zeros_init((qr,), pd, device)
+        p["w_uq"] = dense_init(generator, (qr, H, nope + rh), qr, pd, device)
+    else:
+        p["w_uq"] = dense_init(generator, (d, H, nope + rh), d, pd, device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -310,21 +330,112 @@ def _proj_out(p, out, cfg):
 
 
 # ---------------------------------------------------------------------------
-# MLA (deepseek-v2): ROADMAP item 16b
+# MLA (deepseek-v2)
 # ---------------------------------------------------------------------------
 
-class MLACache:
-    """The latent cache (c_kv (B, S, kv_lora), k_rope (B, S, rope_hd), pos
-    (B, S)): not ported yet."""
-
-    def __new__(cls, *args, **kwargs):
-        raise not_ported("the MLA latent cache", "16b")
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor         # (B, S, kv_lora)
+    k_rope: torch.Tensor       # (B, S, rope_hd)
+    pos: torch.Tensor          # (B, S) position of each slot; -1 empty
 
 
-def init_mla_cache(cfg: ModelConfig, batch: int, length: int, device=None):
-    raise not_ported("the MLA latent cache", "16b")
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int,
+                   device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, length, cfg.kv_lora_rank), dtype=cfg.dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, length, cfg.qk_rope_head_dim),
+                           dtype=cfg.dtype, device=device),
+        pos=torch.full((batch, length), -1, dtype=torch.int32,
+                       device=device),
+    )
 
 
-def apply_mla(p, x, positions, cfg: ModelConfig, cache=None,
-              cache_index=None):
-    raise not_ported("MLA latent attention", "16b")
+def _write_mla(cache: MLACache, c_kv, k_rope, positions, slot: int,
+               decode: bool) -> MLACache:
+    """Write ``L`` steps' latents at slots ``slot..slot+L-1`` (the prompt
+    at 0, a decode step at its position).  A slot past the cache raises:
+    the reference's ``dynamic_update_slice`` clamps it onto the last
+    slots, overwriting live latents."""
+    S, L = cache.c_kv.shape[1], c_kv.shape[1]
+    if slot + L > S:
+        if decode:
+            raise ValueError(
+                f"decode position {slot} falls past the MLA cache's {S} "
+                "slots: prefill leaves DecoderTask.GEN_MARGIN free slots "
+                "for decode, so generate at most GEN_MARGIN + 1 tokens")
+        raise ValueError(f"a prompt of {L} positions exceeds the MLA "
+                         f"cache's {S} slots")
+    cache.c_kv[:, slot:slot + L] = c_kv
+    cache.k_rope[:, slot:slot + L] = k_rope
+    cache.pos[:, slot:slot + L] = positions.to(torch.int32)
+    return cache
+
+
+def _mla_q(p, x, cfg: ModelConfig):
+    if cfg.q_lora_rank:
+        cq = torch.einsum("bld,dr->blr", x, p["w_dq"].to(cfg.dtype))
+        cq = rms_norm(cq, p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("blr,rnh->blnh", cq, p["w_uq"].to(cfg.dtype))
+    else:
+        q = torch.einsum("bld,dnh->blnh", x, p["w_uq"].to(cfg.dtype))
+    q_nope = q[..., :cfg.qk_nope_head_dim]
+    q_rope = q[..., cfg.qk_nope_head_dim:]
+    return q_nope, q_rope
+
+
+def apply_mla(p, x, positions, cfg: ModelConfig,
+              cache: Optional[MLACache] = None, cache_index=None):
+    """DeepSeek-V2 multi-head latent attention.  Returns (out, new_cache).
+
+    Prefill and the teacher-forced forward expand the latent to per-head
+    keys and values (the standard path): the shared rope key is
+    concatenated onto every head's key, so the q/k head dim (nope + rope)
+    is not v's, and the dense or flash core reads v's.  Decode with
+    ``cfg.mla_absorb`` folds ``w_uk`` into the queries and ``w_uv`` into
+    the output, attending against the (B, S, r) latent cache directly."""
+    nope, rh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(nope + rh)
+
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = torch.einsum("bld,dr->blr", x, p["w_dkv"].to(cfg.dtype))
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = torch.einsum("bld,dh->blh", x, p["w_krope"].to(cfg.dtype))
+    k_rope = rope(k_rope, positions, cfg.rope_theta)
+
+    new_cache = None
+    kpos = positions
+    if cache is not None:
+        decode = cache_index is not None
+        new_cache = _write_mla(cache, c_kv, k_rope, positions,
+                               int(cache_index) if decode else 0, decode)
+        if decode:       # attend over the whole cache after the write
+            c_kv, k_rope, kpos = new_cache
+
+    if cfg.mla_absorb and cache_index is not None:
+        mask = make_mask(positions, kpos, "global", cfg.window, causal=True)
+        q_lat = torch.einsum("blnh,rnh->blnr", q_nope,
+                             p["w_uk"].to(cfg.dtype))            # (B,L,H,r)
+        logits = (
+            torch.einsum("blnr,bsr->bnls", q_lat.float(), c_kv.float())
+            + torch.einsum("blnh,bsh->bnls", q_rope.float(), k_rope.float())
+        ) * scale
+        logits = softcap(logits, cfg.attn_softcap) + mask
+        w = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bnls,bsr->blnr", w, c_kv.float())
+        out = torch.einsum("blnr,rnh->blnh", ctx.to(cfg.dtype),
+                           p["w_uv"].to(cfg.dtype))
+    else:
+        k_nope = torch.einsum("bsr,rnh->bsnh", c_kv, p["w_uk"].to(cfg.dtype))
+        v = torch.einsum("bsr,rnh->bsnh", c_kv, p["w_uv"].to(cfg.dtype))
+        k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            -1, -1, cfg.n_heads, -1)], dim=-1)
+        q_cat = torch.cat([q_nope, q_rope], dim=-1)
+        out = _sdpa_positions(q_cat, k_cat, v, positions, kpos, "global",
+                              True, cfg, scale)
+
+    out = torch.einsum("blnh,nhd->bld", out.to(cfg.dtype),
+                       p["wo"].to(cfg.dtype))
+    return out, new_cache

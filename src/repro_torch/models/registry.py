@@ -49,7 +49,7 @@ def cell_is_applicable(arch: str, shape_name: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# decoder-only task (dense / vlm)
+# decoder-only task (dense / moe / vlm)
 # ---------------------------------------------------------------------------
 
 class DecoderTask:

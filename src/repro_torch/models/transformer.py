@@ -1,11 +1,13 @@
-"""Decoder-only LM assembled from ModelConfig: the dense and vlm families.
-A port of ``repro.models.transformer``.
+"""Decoder-only LM assembled from ModelConfig: the dense, moe and vlm
+families.  A port of ``repro.models.transformer``.
 
 The reference stacks each segment's repeats and scans over them; the port
 holds one ``Block`` module per layer, in the reference's layer order
-(``ModelConfig.layer_kinds``), and runs them in a Python loop.  The
-``ssm`` and ``rec`` mixers are ROADMAP item 16c, the MoE FFN and MLA item
-16b.
+(``ModelConfig.layer_kinds``), and runs them in a Python loop.  A MoE
+config's FFN is ``moe.apply_moe`` except on a ``:dense`` layer
+(deepseek-v2's ``first_k_dense``); its auxiliary loss is summed over the
+layers, as the reference's scan sums it.  The ``ssm`` and ``rec`` mixers
+are ROADMAP item 16c.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe as moe_lib
 from repro_torch.models.common import ModelConfig, rms_norm, zeros_init
 from repro_torch.util import not_ported
 
@@ -28,8 +30,6 @@ def constrain_batch(x: torch.Tensor, profile: str) -> torch.Tensor:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise, naming its ROADMAP item, for a config whose layers the port
     does not have yet."""
-    if cfg.use_mla or cfg.moe:
-        raise not_ported(f"{cfg.name}: MLA and MoE layers", "16b")
     mixers = {_split_kind(kind)[0] for kind in cfg.pattern}
     if mixers & {"ssm", "rec"}:
         raise not_ported(f"{cfg.name}: the SSM and RG-LRU mixers", "16c")
@@ -71,8 +71,10 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None) -> Block:
     if has_ffn:
         p.ln2 = zeros_init((d,), pd, device)
         if cfg.moe and ffn_override != "dense":
-            raise not_ported("the MoE FFN", "16b")
-        p.ffn = common.init_mlp(generator, d, cfg.d_ff, cfg, device=device)
+            p.ffn = moe_lib.init_moe(generator, cfg, device)
+        else:
+            p.ffn = common.init_mlp(generator, d, cfg.d_ff, cfg,
+                                    device=device)
     if cfg.post_norms:
         p.ln1_post = zeros_init((d,), pd, device)
         if has_ffn:
@@ -94,8 +96,9 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
 
 def apply_block(p, x, positions, cfg: ModelConfig, kind: str,
                 cache=None, cache_index=None, decode: bool = False):
-    """Returns (x, new_cache, aux_loss); aux_loss is 0.0 without MoE."""
-    mixer, _ = _split_kind(kind)
+    """Returns (x, new_cache, aux_loss); aux_loss is 0.0 on a layer
+    without a MoE FFN."""
+    mixer, ffn_override = _split_kind(kind)
     aux = 0.0
 
     h = rms_norm(x, p.ln1, cfg.norm_eps)
@@ -110,7 +113,10 @@ def apply_block(p, x, positions, cfg: ModelConfig, kind: str,
 
     if hasattr(p, "ffn"):
         h = rms_norm(x, p.ln2, cfg.norm_eps)
-        out = common.apply_mlp(p.ffn, h, cfg)
+        if cfg.moe and ffn_override != "dense":
+            out, aux = moe_lib.apply_moe(p.ffn, h, cfg)
+        else:
+            out = common.apply_mlp(p.ffn, h, cfg)
         if cfg.post_norms:
             out = rms_norm(out, p.ln2_post, cfg.norm_eps)
         x = x + out

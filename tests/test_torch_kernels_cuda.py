@@ -23,10 +23,13 @@ from repro_torch.kernels import ref, rank_topk, transe_score
 
 @pytest.fixture
 def cuda():
+    """The card, with TF32 matmuls off for the test (restored after)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 @pytest.mark.cuda
@@ -943,3 +946,62 @@ def test_lm_generate_is_deterministic_on_the_card(cuda, temperature):
     first = eng.generate(prompts, gcfg)
     assert first.shape == (2, 24)
     assert (first == eng.generate(prompts, gcfg)).all()
+
+
+# ---------------------------------------------------------------------------
+# LM serving for the moe family (MLA and the scatter MoE FFN): no kernel
+# lies on it either
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["deepseek-v2-236b", "qwen2-moe-a2.7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_on_the_card_matches_forward_and_cpu(cuda, arch):
+    """Reduced width (dropless), fp32, TF32 off: each decode step's logits
+    equal the card's teacher-forced forward and the CPU's decode within
+    1e-4."""
+    cfg, (host_task, host), (task, model), _, toks = _lm_pair(arch, cuda)
+    Lp = 8
+    steps = toks.shape[1] - Lp
+    on_card = _lm_run(task, model, toks.to(cuda), Lp, steps, None)
+    on_host = _lm_run(host_task, host, toks, Lp, steps, None)
+    positions = torch.arange(toks.shape[1], device=cuda)[None]
+    with torch.no_grad():
+        hidden, _, aux = model.forward(toks.to(cuda),
+                                       positions.expand(2, -1))
+        forward = model.logits(hidden[:, Lp - 1:]).cpu()
+    assert aux.device.type == "cuda"
+    torch.testing.assert_close(on_card, forward, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(on_card, on_host, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_dispatch_on_the_card_matches_cpu(cuda, arch):
+    """cf = 1.0 over 64 tokens drops pairs: the card routes and drops the
+    CPU's pairs, its output agrees within 1e-5, and a rerun gives the same
+    bits (the dispatch writes each row once, with no float atomics)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                              capacity_factor=1.0)
+    host = moe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = moe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu").to(cuda)
+    x = torch.randn(4, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.apply_moe(host, x, cfg)
+    got, got_aux = moe.apply_moe(card, x.to(cuda), cfg)
+    again, _ = moe.apply_moe(card, x.to(cuda), cfg)
+    assert torch.equal(got, again)
+    _, e_host, _ = moe._route(host, x.reshape(64, -1), cfg)
+    _, e_card, _ = moe._route(card, x.reshape(64, -1).to(cuda), cfg)
+    assert torch.equal(e_card.cpu(), e_host)
+    keep = moe._slots(e_card, cfg)[2]
+    assert not bool(keep.all())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-6, atol=1e-6)

@@ -49,3 +49,36 @@ def test_reduced_takes_overrides():
         dtype=torch.bfloat16, window=8)
     assert got.dtype is torch.bfloat16 and got.window == 8
     assert port_configs.get_config("qwen3-4b").dtype is torch.bfloat16
+
+
+@pytest.mark.parametrize("arch,n_params", [
+    ("qwen2-moe-a2.7b", 15_146_059_776),
+    ("deepseek-v2-236b", 235_741_434_880)])
+def test_moe_archs_hold_the_reference_parameters_at_full_width(arch,
+                                                                n_params):
+    """The port's full-width model, built on the meta device (no memory),
+    holds the reference's parameter shapes, padded expert rows included
+    (qwen2-moe's 60 experts in 64 rows): one tensor a layer for each of
+    the reference's stacked ones."""
+    import collections
+
+    import jax
+
+    from repro.models import registry as ref_registry
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = port_configs.get_config(arch)
+    model = DecoderLM(cfg, "meta")
+    got = collections.Counter(tuple(p.shape) for p in model.parameters())
+    ref_cfg = ref_configs.get_config(arch)
+    shapes = jax.eval_shape(ref_registry.make_task(ref_cfg).init,
+                            jax.random.PRNGKey(0))
+    want = collections.Counter()
+    for name, tree in shapes.items():
+        for leaf in jax.tree_util.tree_leaves(tree):
+            if name.startswith("seg"):          # stacked over the repeats
+                want[tuple(leaf.shape[1:])] += leaf.shape[0]
+            else:
+                want[tuple(leaf.shape)] += 1
+    assert got == want
+    assert sum(p.numel() for p in model.parameters()) == n_params

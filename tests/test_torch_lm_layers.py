@@ -4,7 +4,8 @@ norms, activations (gelu is the tanh approximation), rope, sinusoids, the
 MLP, embedding and unembedding; masks, dense attention, the flash path
 with shrunk blocks against both packages' dense paths, and
 ``apply_attention`` without a cache, at prefill, at decode, on a local
-ring, with qk-norm and with cross-attention memory."""
+ring, with qk-norm and with cross-attention memory, and MLA through it
+(``tests/test_torch_lm_moe.py`` holds MLA's paths one by one)."""
 import math
 
 import jax
@@ -408,13 +409,33 @@ def test_cross_attention(qk_norm):
 
 
 def test_mla_is_item_16b():
-    _, port_cfg = cfgs(use_mla=True)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        port_attn.init_attention(torch.Generator(), port_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        port_attn.init_mla_cache(port_cfg, 1, 4)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        port_attn.MLACache(None, None, None)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        port_attn.apply_attention({}, torch.zeros(1, 1, 32),
-                                  torch.zeros(1, 1), port_cfg)
+    """Item 16b's MLA, ported: it builds the reference's parameters,
+    caches the latent in the reference's layout, and applies as the
+    reference does through ``apply_attention``."""
+    ref_cfg, port_cfg = cfgs(use_mla=True, kv_lora_rank=16, q_lora_rank=24,
+                             qk_nope_head_dim=8, qk_rope_head_dim=8,
+                             v_head_dim=12)
+    want = ref_attn.init_attention(jax.random.PRNGKey(16), ref_cfg)
+    got = port_attn.init_attention(torch.Generator().manual_seed(0),
+                                   port_cfg, device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert tuple(got[k].shape) == want[k].shape
+    ref_cache = ref_attn.init_mla_cache(ref_cfg, 2, 12)
+    cache = port_attn.init_mla_cache(port_cfg, 2, 12)
+    assert isinstance(cache, port_attn.MLACache)
+    assert cache._fields == ref_cache._fields == ("c_kv", "k_rope", "pos")
+    for g, w in zip(cache, ref_cache):
+        assert tuple(g.shape) == w.shape
+        close(g, w)
+    x = normal(rng(16), 2, 9, 32)
+    pos = np.broadcast_to(np.arange(9), (2, 9)).astype(np.int32)
+    pp = to_port(want)
+    out, cache = port_attn.apply_attention(
+        pp, torch.from_numpy(x), torch.from_numpy(pos), port_cfg,
+        cache=cache)
+    ref_out, ref_cache = ref_apply_attention(
+        want, jnp.asarray(x), jnp.asarray(pos), ref_cfg, cache=ref_cache)
+    close(out, ref_out)
+    for g, w in zip(cache, ref_cache):
+        close(g, w)

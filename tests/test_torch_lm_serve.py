@@ -1,6 +1,6 @@
 """The port's LM serving path (``repro_torch.models``, ``serve.engine``,
-``launch.serve``) against the reference's, at ``reduced()`` width on the
-CPU, the reference's parameters carried across by
+``launch.serve``) against the reference's for the dense, vlm and moe
+families, at ``reduced()`` width on the CPU, the reference's parameters carried across by
 ``convert.lm_params_from_reference``.
 
 Prefill and decode logits agree with the reference's at rtol/atol 1e-4
@@ -29,10 +29,13 @@ from repro_torch.models import registry as port_registry
 from repro_torch.serve import engine as port_engine
 
 PORTED = ["smollm-135m", "gemma2-2b", "gemma2-9b", "qwen3-4b",
-          "llava-next-mistral-7b"]
-NOT_PORTED = {"deepseek-v2-236b": "16b", "qwen2-moe-a2.7b": "16b",
-              "mamba2-130m": "16c", "recurrentgemma-9b": "16c",
-              "whisper-base": "16d"}
+          "llava-next-mistral-7b", "deepseek-v2-236b", "qwen2-moe-a2.7b"]
+# the ROADMAP item of each arch outside item 16a; 16b's are ported
+ITEM = {"deepseek-v2-236b": "16b", "qwen2-moe-a2.7b": "16b",
+        "mamba2-130m": "16c", "recurrentgemma-9b": "16c",
+        "whisper-base": "16d"}
+NOT_PORTED = {arch: item for arch, item in ITEM.items()
+              if arch not in PORTED}
 TOL = dict(rtol=1e-4, atol=1e-4)
 # bf16 activations: XLA and torch round some bf16 products differently.
 # Measured on these reduced configs (prompt 8, 6 decode steps, seeds 3-5):
@@ -273,13 +276,28 @@ def test_temperature_sampling_is_seeded():
     assert not np.array_equal(a, _port_generate(pp, prompts, 12))
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_other_archs_name_their_item(arch):
+@pytest.mark.parametrize("arch", sorted(ITEM))
+def test_other_archs_name_their_item(arch, capsys):
+    """Archs outside item 16a: a ported one (16b's MoE and MLA archs)
+    builds its task and serves from the reduced launcher; the others raise,
+    naming their item."""
     cfg = port_configs.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match=f"item {NOT_PORTED[arch]}"):
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len",
+            "6", "--max-new", "10", "--device", "cpu"]
+    if arch in PORTED:
+        task = port_registry.make_task(cfg, "cpu")
+        assert isinstance(task, port_registry.DecoderTask)
+        assert task.cfg.moe and task.cfg.family == "moe"
+        out = port_serve.main(argv)
+        n, ids = _lines(capsys.readouterr().out)
+        assert (n, len(ids)) == (20, 10) and out.shape == (2, 10)
+        assert ids == out[0].tolist()
+        assert ((out >= 0) & (out < cfg.vocab_size)).all()
+        return
+    with pytest.raises(NotImplementedError, match=f"item {ITEM[arch]}"):
         port_registry.make_task(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match=f"item {NOT_PORTED[arch]}"):
-        port_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=f"item {ITEM[arch]}"):
+        port_serve.main(argv)
 
 
 def test_task_training_and_specs_name_their_items():
@@ -306,7 +324,8 @@ def _lines(out):
     return int(m1.group(1)), [int(t) for t in m2.group(1).split(", ")]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "llava-next-mistral-7b",
+                                  "deepseek-v2-236b", "qwen2-moe-a2.7b"])
 def test_launcher_prints_the_reference_lines(arch, capsys):
     argv = ["--arch", arch, "--reduced", "--batch", "3", "--prompt-len", "6",
             "--max-new", "20"]

@@ -72,7 +72,7 @@
    and ``repartition_every=2``, 4 epochs, ``block_epochs=4`` and then
    ``block_epochs=2``; (b) BGD, 3 epochs in one block; (c) one merge
    round of (a)'s configuration (2 epochs) on the cut split (the first
-   eighth of the training split, ``DEPTH_CUT``) on the CPU and on the
+   sixteenth of the training split, ``DEPTH_CUT``) on the CPU and on the
    card, from fit's seed-0 init and the port's own draws, and the
    counter-based draws (``core/keys.py``) alone on 2**20 counters on
    both; (d) one block of (a) through ``mapreduce.make_block_fn`` under
@@ -110,8 +110,9 @@
    of 1–64 (every bucket), each answer bitwise equal to the engine on the
    same single query at ``chunk=1``, and again from the cache.  (c)
    Capacity: 2,048 distinct ``tails`` queries submitted at once, per
-   config.  (d) An open loop per config: 2,000 seeded Poisson arrivals at
-   half of (c)'s capacity over 500 distinct pairs (repeats hit the
+   config (512 on ``unbatched``, ``LIVE_LOAD``).  (d) An open loop per
+   config: 2,000 seeded Poisson arrivals (500 on ``unbatched``) at half
+   of (c)'s capacity over 500 distinct pairs (repeats hit the
    cache): offered and sustained QPS, p50/p99 over all answers and over
    misses, hit rate, waves by bucket, the allocator's device allocations
    (``num_device_alloc``) across the stream, and no steady-state
@@ -373,6 +374,34 @@
    of its own.  The three kernels' counters are zeroed before (a) and
    read after (c): no kernel lies on this path (0 expected).
 
+16. LM serving for the ssm and hybrid families (``lm_recurrent_path``:
+   Mamba-2's SSD mixer and Griffin's RG-LRU block), through the same
+   entry points, bf16 activations over fp32 parameters, each model at
+   its full published width and depth: (a) recurrentgemma-9b (38 layers,
+   12 x (rec, rec, local) + (rec, rec); d_model 4,096, RG-LRU width
+   4,096 in 16 gate blocks, 16 heads over 1 KV head, head_dim 256,
+   window 2,048, gelu MLP 12,288, vocab 256,000; 8,578,519,040
+   parameters): ``Engine.generate`` of 32 greedy tokens on 4 prompts of
+   128, twice (equal ids), profiled waves of 1 and 5 new tokens, the wave
+   by hand, then 1 prompt of 4,100 tokens (past the window and not a
+   multiple of it; the RG-LRU scan over all of it) and 8 decode steps
+   against the teacher-forced forward over the 4,108 tokens within
+   ``REC_BF16_TOL`` (``LM_BF16_TOL`` here); (b) mamba2-130m (24 SSD
+   layers, d_model 768, state 128, 24 heads of 64, chunk 256, vocab
+   50,280; 128,983,488 parameters): the same wave, then 1 x 4,100 (17
+   chunks, the last one padded) and ``REC_SSM_STEPS`` = 96 decode steps,
+   past ``GEN_MARGIN``, each timed (steps 1-8 against 89-96: a
+   fixed-size state), the last 8 against the forward within its own
+   ``REC_BF16_TOL``; (c) each model
+   again with fp32 activations, the wave's prefill and 8 decode steps and
+   the long prompt's last 8 steps against the forward within
+   ``REC_FP32_TOL`` (``LM_FP32_TOL`` but for mamba2's own), then both
+   archs at reduced width against the CPU within ``LM_FP32_TOL``;
+   (d) ``python -m repro_torch.launch.serve --arch mamba2-130m --batch 4
+   --prompt-len 16 --max-new 16`` in a process of its own.  The three
+   kernels' counters are zeroed before (a) and read after (c): no kernel
+   lies on this path (0 expected).
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -416,7 +445,9 @@ TRAIN = dict(n_workers=4, batch_size=256)   # kg.make_configs' defaults
 # ends in a Reduce before the loss settles, and the next can start higher.
 # An eighth since the moe serving phase joined: with a quarter the whole
 # script took 1,060 s of its 1,200 s limit on an H100 80GB HBM3 at 700 W.
-DEPTH_CUT = 8
+# A sixteenth since the recurrent LM serving phase joined: with an eighth
+# it took 884 s there on a slow host.
+DEPTH_CUT = 16
 SGD_EPOCHS, BGD_EPOCHS = 4, 3
 # phase 6: the device pipeline's SGD configuration, and the counters its
 # draws are held on, CPU against card
@@ -439,6 +470,11 @@ LIVE_CONFIGS = (("unbatched", 1, 0), ("batch16_wait1ms", 16, 1000),
                 ("batch64_wait2ms", 64, 2000))
 LIVE_K = 10
 LIVE_BURST, LIVE_ARRIVALS, LIVE_UNIQUE = 2048, 2000, 500
+# (burst, arrivals) of a config that serves one query a wave: at ~120
+# completions/s its full burst and open loop took 51 s of a 884 s script
+# on an H100 80GB HBM3 at 700 W, so it runs a quarter of each since the
+# recurrent LM serving phase joined
+LIVE_LOAD = {"unbatched": (512, 500)}
 LIVE_SWAP_ARRIVALS = 1000
 LIVE_TIMEOUT_S = 60         # every future's wait
 # wave sizes that fill every bucket of 64, most of them partly
@@ -1957,20 +1993,21 @@ def serving_live_path(torch, sgd, bgd):
             on_card(srv, "default")
             srv.clear_cache()
             before = srv.stats()
+            burst, arrivals = LIVE_LOAD.get(label,
+                                            (LIVE_BURST, LIVE_ARRIVALS))
             t0 = time.perf_counter()
             futs = [srv.submit("tails", h, r)
-                    for h, r in pairs[:LIVE_BURST, :2]]
+                    for h, r in pairs[:burst, :2]]
             for f in futs:
                 f.result(timeout=LIVE_TIMEOUT_S)
             burst_s = time.perf_counter() - t0
-            cap = {"completions_per_s": LIVE_BURST / burst_s,
+            cap = {"completions_per_s": burst / burst_s, "queries": burst,
                    "span_s": burst_s, **live_delta(before, srv.stats())}
             srv.clear_cache()
             before = srv.stats()
             allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
             _, answers, rates = live_stream(
-                srv, hot, 0.5 * cap["completions_per_s"], LIVE_ARRIVALS,
-                seed=1)
+                srv, hot, 0.5 * cap["completions_per_s"], arrivals, seed=1)
             allocs = torch.cuda.memory_stats().get(
                 "num_device_alloc", 0) - allocs
             after = srv.stats()
@@ -4645,6 +4682,256 @@ def lm_moe_path(torch):
     return info, launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: LM serving for the ssm and hybrid families (SSD and RG-LRU)
+# ---------------------------------------------------------------------------
+
+LM_SHAPES.update({
+    "mamba2-130m": dict(n_layers=24, d_model=768, d_ff=0, vocab_size=50280,
+                        pattern=("ssm",), ssm_state=128, ssm_expand=2,
+                        ssm_head_dim=64, ssm_chunk=256, conv_kernel=4),
+    "recurrentgemma-9b": dict(n_layers=38, d_model=4096, n_heads=16,
+                              n_kv_heads=1, head_dim=256, d_ff=12288,
+                              vocab_size=256000,
+                              pattern=("rec", "rec", "local"), window=2048,
+                              rglru_width=4096, rglru_blocks=16,
+                              conv_kernel=4, embed_scale=True, act="gelu"),
+})
+REC_PARAMS = {"mamba2-130m": 128_983_488,
+              "recurrentgemma-9b": 8_578_519_040}
+REC_A = dict(batch=4, prompt=128, new=32)
+# past recurrentgemma's 2,048 window and not a multiple of it; mamba2's 17
+# chunks of 256, the last one padded
+REC_LONG = dict(prompt=4100, steps=8)
+REC_SSM_STEPS = 96          # mamba2's decode past GEN_MARGIN
+REC_COMPARED = 8            # decode steps held against the forward, and
+                            # timed at each end of mamba2's 96
+REC_REDUCED = ("mamba2-130m", "recurrentgemma-9b")
+REC_LAUNCHER = ["--arch", "mamba2-130m", "--batch", "4", "--prompt-len",
+                "16", "--max-new", "16"]
+# decode against the teacher-forced forward.  bf16: recurrentgemma-9b at
+# LM_BF16_TOL (measured 0.1698 on logits up to 26.2, 1 x 4,100, on an
+# H100); mamba2-130m at its own bound, as the reference's own bf16 decode
+# differs from its forward by up to 0.47 there (full width, a 300-token
+# prompt, 12 steps, on the CPU; the port's 0.467), which the SSD's
+# exp(dt * A) of A down to -16 amplifies from bf16's rounding of dt
+# (measured 0.5565 on logits up to 2.57, 1 x 4,100 + 96 steps, on an
+# H100).  fp32: mamba2-130m at its own bound, under the reference's
+# decode-against-forward bound of 2e-3 (tests/test_serve_consistency.py),
+# as the SSD's cumsum-difference segment sums (the reference's form) lose
+# ~1e-4 of the exponent over a 256-position chunk (measured 1.9e-4 on
+# logits up to 2.69, B = 4 x 128, on an H100; the reference's own 7.6e-5
+# at 300 tokens on the CPU)
+REC_BF16_TOL = {"recurrentgemma-9b": LM_BF16_TOL, "mamba2-130m": 1.0}
+REC_FP32_TOL = {"recurrentgemma-9b": LM_FP32_TOL, "mamba2-130m": 1e-3}
+
+
+def rec_long(torch, task, params, toks, Lp, tol):
+    """Prefill ``toks[:, :Lp]`` (B = 1), then decode the rest of ``toks``
+    teacher-forced, synchronizing after each step; the last
+    ``REC_COMPARED`` steps' logits against the forward over all of
+    ``toks`` within ``tol``.  Returns the agreement, the prefill's
+    seconds, each decode step's ms and the forward's seconds."""
+    (caches, logits), prefill_s = wall(
+        torch, lambda: task.prefill(params, {"tokens": toks[:, :Lp]}))
+    out, step_ms = [], []
+    for t in range(toks.shape[1] - Lp):
+        t0 = time.perf_counter()
+        logits, caches = task.decode_step(params, {
+            "tokens": toks[:, Lp + t:Lp + t + 1], "pos": Lp + t}, caches)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0])
+    got = torch.stack(out[-REC_COMPARED:], dim=1)
+    want, forward_s = wall(torch, lambda: lm_forward_logits(
+        torch, params, toks, REC_COMPARED))
+    agree = lm_agreement(torch, got, want, tol)
+    agree["finite"] = bool(torch.isfinite(got).all())
+    return agree, prefill_s, step_ms, forward_s
+
+
+def lm_recurrent_path(torch):
+    """LM serving for the ssm and hybrid families (item 16 of the module
+    docstring).  Returns the path's info and its launches of each kernel
+    (none lies on it: 0 expected)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.serve import engine as engine_lib
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    info = {"card": card, "part_s": {}, "free_s": []}
+    ok = {}
+    marks = [t_phase]
+
+    def part_done(label):
+        """Keep the seconds since the last part ended, freeing included."""
+        marks.append(time.perf_counter())
+        info["part_s"][label] = marks[-1] - marks[-2]
+
+    rank_topk.rank_counts.launches = 0     # --- LM recurrent serving path ---
+    ts.transe_score.launches = 0
+    ts.transe_score_bwd.launches = 0
+
+    c = {}
+    for part, arch in (("a", "recurrentgemma-9b"), ("b", "mamba2-130m")):
+        torch.cuda.reset_peak_memory_stats()
+        task, params, init_s = lm_params(torch, arch, lm_config(arch))
+        cfg = task.cfg
+        r = {"params": sum(p.numel() for p in params.parameters()),
+             "init_s": init_s, "layers": [b.kind for b in params.layers]}
+        ok[f"{part}_params"] = r["params"] == REC_PARAMS[arch]
+        ok[f"{part}_layers"] = r["layers"] == list(cfg.layer_kinds) and \
+            len(r["layers"]) == cfg.n_layers
+        # the serving wave, twice
+        eng = engine_lib.Engine(task, params)
+        B, Lp, n = REC_A["batch"], REC_A["prompt"], REC_A["new"]
+        prompts = lm_prompts(cfg, B, Lp, 0)
+        gcfg = engine_lib.GenerateConfig(max_new_tokens=n)
+        ids, r["generate_first_s"] = wall(torch, lambda: eng.generate(
+            prompts, gcfg))
+        again, r["generate_s"] = wall(torch, lambda: eng.generate(prompts,
+                                                                  gcfg))
+        r["tokens_per_s"] = B * n / r["generate_s"]
+        ok[f"{part}_ids_shape"] = ids.shape == (B, n) and bool(
+            ((ids >= 0) & (ids < cfg.vocab_size)).all())
+        ok[f"{part}_generate_deterministic"] = bool((ids == again).all())
+        profiled = {}
+        for label, new_tokens in (("prefill", 1),
+                                  ("wave", 1 + LM_PROFILE_STEPS)):
+            prof = profile_busy(torch, lambda: eng.generate(
+                prompts, engine_lib.GenerateConfig(max_new_tokens=new_tokens)))
+            profiled[label] = {k: prof[k] for k in (
+                "wall_s", "device_busy_s", "idle_share", "launches", "top")}
+        r["generate_profile"] = profiled
+        r["launches_a_token"] = (profiled["wave"]["launches"]
+                                 - profiled["prefill"]["launches"]) \
+            / LM_PROFILE_STEPS
+        # the same wave by hand
+        toks = torch.as_tensor(np.concatenate([prompts, ids], 1),
+                               device=DEVICE)
+        logits, r["prefill_s"], r["decode_ms"] = lm_steps(
+            torch, task, params, toks, Lp, n - 1)
+        ok[f"{part}_ids_are_the_argmax"] = bool(
+            (logits.argmax(-1).cpu().numpy() == ids).all())
+        ok[f"{part}_finite"] = bool(torch.isfinite(logits).all())
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del eng, logits
+        # B = 1, a prompt past the window (the RG-LRU scan over all of
+        # it; mamba2's last chunk padded), then decode against the
+        # teacher-forced forward; mamba2 decodes past GEN_MARGIN
+        torch.cuda.reset_peak_memory_stats()
+        Ll = REC_LONG["prompt"]
+        steps = REC_SSM_STEPS if part == "b" else REC_LONG["steps"]
+        long = torch.as_tensor(lm_prompts(cfg, 1, Ll + steps, 1),
+                               device=DEVICE)
+        r["long"], r["long_prefill_s"], step_ms, r["forward_s"] = rec_long(
+            torch, task, params, long, Ll, REC_BF16_TOL[arch])
+        r["long_decode_ms"] = sum(step_ms) / len(step_ms)
+        r["long_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        ok[f"{part}_long_decode_matches_forward"] = \
+            r["long"]["max_abs_err"] <= REC_BF16_TOL[arch]
+        ok[f"{part}_long_ids_agree_past_tol"] = \
+            r["long"]["ids_differ_past_tol"] == 0
+        ok[f"{part}_long_finite"] = r["long"]["finite"]
+        tail = ""
+        if part == "b":
+            first = step_ms[:REC_COMPARED]
+            last = step_ms[-REC_COMPARED:]
+            r["decode_ms_first"] = sum(first) / len(first)
+            r["decode_ms_last"] = sum(last) / len(last)
+            r["decode_last_over_first"] = r["decode_ms_last"] / \
+                r["decode_ms_first"]
+            r["long_step_ms"] = step_ms
+            ok["b_decoded_past_gen_margin"] = steps > task.GEN_MARGIN + 1
+            tail = (f"; {steps} decode steps: steps 1-{REC_COMPARED} "
+                    f"{r['decode_ms_first']:.2f} ms, steps "
+                    f"{steps - REC_COMPARED + 1}-{steps} "
+                    f"{r['decode_ms_last']:.2f} ms a step (ratio "
+                    f"{r['decode_last_over_first']:.3f})")
+        info[part] = r
+        print(f"lm_recurrent ({part}) {arch} on {card}: {r['params']:,} "
+              f"parameters ({cfg.n_layers} layers), init {init_s:.2f} s; "
+              f"B={B} x {Lp} prompt: prefill {r['prefill_s']:.4f} s, decode "
+              f"{r['decode_ms']:.2f} ms a step, generate {n} tokens "
+              f"{r['generate_s']:.3f} s ({r['tokens_per_s']:.1f} tok/s; "
+              f"profiled: idle share {profiled['wave']['idle_share']:.3f}, "
+              f"{r['launches_a_token']:.0f} launches a decode step), peak "
+              f"{r['peak_gb']:.2f} GB; 1 x {Ll}: prefill "
+              f"{r['long_prefill_s']:.3f} s, decode "
+              f"{r['long_decode_ms']:.2f} ms a step, forward over "
+              f"{Ll + steps} {r['forward_s']:.3f} s, peak "
+              f"{r['long_peak_gb']:.2f} GB; the last {REC_COMPARED} steps "
+              f"against the forward: max abs err "
+              f"{r['long']['max_abs_err']:.4g} (tolerance "
+              f"{REC_BF16_TOL[arch]}) on logits up to "
+              f"{r['long']['max_abs_logit']:.3g}" + tail, flush=True)
+        part_done(part)
+
+        # (c) the same parameters with fp32 activations: the wave's
+        # prefill and decode steps, and the long prompt's last steps,
+        # against the teacher-forced forward
+        tol = REC_FP32_TOL[arch]
+        params.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        wave = toks[:, :Lp + REC_COMPARED]
+        got, _, _ = lm_steps(torch, task, params, wave, Lp, REC_COMPARED)
+        want = lm_forward_logits(torch, params, wave, REC_COMPARED + 1)
+        c[f"{arch}_fp32"] = lm_agreement(torch, got, want, tol)
+        c[f"{arch}_fp32_long"] = rec_long(torch, task, params, long, Ll,
+                                          tol)[0]
+        for key in ("fp32", "fp32_long"):
+            ok[f"c_{arch}_{key}_decode_matches_forward"] = \
+                c[f"{arch}_{key}"]["max_abs_err"] <= tol
+        params.cfg = cfg
+        del task, params, toks, wave, long, got, want
+        info["free_s"].append(lm_free(torch))
+        part_done(f"c_{part}")
+    for arch in REC_REDUCED:
+        c[f"{arch}_reduced"] = lm_card_against_cpu(torch, arch)
+        ok[f"c_{arch}_reduced_decode_matches_forward"] = \
+            c[f"{arch}_reduced"]["forward"]["max_abs_err"] <= LM_FP32_TOL
+        ok[f"c_{arch}_reduced_card_matches_cpu"] = \
+            c[f"{arch}_reduced"]["cpu"]["max_abs_err"] <= LM_FP32_TOL
+    info["c"] = c
+    print(f"lm_recurrent (c) on {card}: fp32 decode against the forward "
+          f"(B={REC_A['batch']} x {REC_A['prompt']} and 1 x {Ll}, the last "
+          f"{REC_COMPARED} steps; tolerance {json.dumps(REC_FP32_TOL)}) and "
+          f"the reduced card against the CPU ({LM_FP32_TOL}), max abs err: "
+          + json.dumps({k: ({"forward": v["forward"]["max_abs_err"],
+                             "cpu": v["cpu"]["max_abs_err"]}
+                            if "cpu" in v else
+                            {"max_abs_err": v["max_abs_err"],
+                             "max_abs_logit": v["max_abs_logit"]})
+                        for k, v in c.items()}), flush=True)
+    info["free_s"].append(lm_free(torch))
+    part_done("c_reduced")
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+
+    # (d) the launcher at mamba2-130m's full width, in a process of its own
+    info["d_launcher"] = lm_launcher(REC_LAUNCHER, 4 * 16, ok,
+                                     "lm_recurrent")
+    part_done("d")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["ok"] = ok
+    print(f"lm_recurrent took {info['phase_s']:.1f} s on {smi_line()} (by "
+          f"part: {json.dumps(info['part_s'])})", flush=True)
+    print("lm_recurrent " + json.dumps(info), flush=True)
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        fail(f"lm_recurrent checks failed: {failed}")
+    for name, count in launches.items():
+        if count != 0:
+            fail(f"{name} launched {count} times on the LM recurrent "
+                 "serving path, where no kernel lies")
+    return info, launches
+
 def main():
     import torch
 
@@ -4715,6 +5002,7 @@ def main():
                                        cut)
     lm_info, lm_launches = phase("lm_serving", lm_serving_path, torch)
     moe_info, moe_launches = phase("lm_moe", lm_moe_path, torch)
+    rec_info, rec_launches = phase("lm_recurrent", lm_recurrent_path, torch)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 phase_s=phase_s, depth_cut={
                     "divisor": DEPTH_CUT, "train": len(cut.train),
@@ -4726,7 +5014,7 @@ def main():
                 model_family=family_info, sparse_transport=sparse_info,
                 stale_sharded=stale_info, online=online_info,
                 entry_points=entry_info, shard_map=shard_info,
-                lm_serving=lm_info, lm_moe=moe_info)
+                lm_serving=lm_info, lm_moe=moe_info, lm_recurrent=rec_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -4752,7 +5040,8 @@ def main():
         + family_launches["rank_counts"] + sparse_launches["rank_counts"]
         + stale_launches["rank_counts"] + online_launches["rank_counts"]
         + entry_launches["rank_counts"] + shard_launches["rank_counts"]
-        + lm_launches["rank_counts"] + moe_launches["rank_counts"],
+        + lm_launches["rank_counts"] + moe_launches["rank_counts"]
+        + rec_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -4767,7 +5056,8 @@ def main():
                              "entry_points": entry_launches["rank_counts"],
                              "shard_map": shard_launches["rank_counts"],
                              "lm_serving": lm_launches["rank_counts"],
-                             "lm_moe": moe_launches["rank_counts"]},
+                             "lm_moe": moe_launches["rank_counts"],
+                             "lm_recurrent": rec_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -4799,7 +5089,7 @@ def main():
             + sparse_launches[kname] + stale_launches[kname]
             + online_launches[kname] + entry_launches[kname]
             + shard_launches[kname] + lm_launches[kname]
-            + moe_launches[kname],
+            + moe_launches[kname] + rec_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
@@ -4812,7 +5102,8 @@ def main():
                                  "entry_points": entry_launches[kname],
                                  "shard_map": shard_launches[kname],
                                  "lm_serving": lm_launches[kname],
-                                 "lm_moe": moe_launches[kname]},
+                                 "lm_moe": moe_launches[kname],
+                                 "lm_recurrent": rec_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -4839,7 +5130,8 @@ def main():
                                    "serving_live", "model_family",
                                    "sparse_transport", "stale_sharded",
                                    "online", "entry_points", "shard_map",
-                                   "lm_serving", "lm_moe")}),
+                                   "lm_serving", "lm_moe",
+                                   "lm_recurrent")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -63,8 +63,11 @@ def lm_params_from_reference(params, cfg, device=None):
     turned into a numpy array: ``embed``, ``ln_f`` and one ``seg{s}`` per
     segment, a tuple over the segment's pattern of dicts stacked over its
     repeats.  Segment ``s``'s pattern entry ``i`` at repeat ``rep`` becomes
-    the port's layer ``offset_s + rep * len(pattern) + i``; a MoE FFN's
-    padded expert rows are copied as they are.  Values are
+    the port's layer ``offset_s + rep * len(pattern) + i``
+    (recurrentgemma-9b's trailing (rec, rec) segment: layers 36 and 37);
+    a MoE FFN's padded expert rows, and an SSM or RG-LRU mixer's leaves
+    (the block-diagonal (nb, drb, drb) gates included), are copied as
+    they are.  Values are
     copied in ``cfg.param_dtype`` onto ``device`` (default: the GPU;
     raises without one unless ``device`` is given)."""
     from repro_torch.models.transformer import DecoderLM

@@ -13,7 +13,9 @@ position-computed masks, so it is not used.
 Cache layout (global layers): k/v (B, S_cache, KV, hd) and the position of
 each slot (-1 empty).  A local layer keeps a ring buffer of
 ``S = min(length, window)`` slots and every key at slot ``position % S``,
-at prefill and at decode alike.  (The reference's prefill keeps the
+at prefill and at decode alike; one shorter than the window grows into
+the full ring when decode reaches its end, so a local layer sets no limit
+on decode.  (The reference's prefill keeps the
 trailing window in slots 0..S-1 instead, which its decode's ``p % S``
 agrees with only when the prompt length is at most S or a multiple of it;
 ROADMAP.md queue 3.)  MLA caches the latent (B, S, kv_lora) and the
@@ -223,16 +225,35 @@ def project_cross_kv(p, kv: torch.Tensor, kv_pos: torch.Tensor,
     return KVCache(k=k, v=v, pos=kv_pos.to(torch.int32))
 
 
+def _grow_ring(cache: KVCache, window: int) -> KVCache:
+    """A local layer's cache of ``S < window`` slots, each key at slot =
+    its position (as prefill and decode fill it: a prompt plus
+    ``GEN_MARGIN`` shorter than the window), padded with empty slots to a
+    full ring of ``window``: the same keys at ``position % window``."""
+    B, S = cache.pos.shape
+    pad = (B, window - S)
+    return KVCache(
+        k=torch.cat([cache.k, cache.k.new_zeros(pad + cache.k.shape[2:])], 1),
+        v=torch.cat([cache.v, cache.v.new_zeros(pad + cache.v.shape[2:])], 1),
+        pos=torch.cat([cache.pos, cache.pos.new_full(pad, -1)], 1))
+
+
 def _write_decode(cache: KVCache, k, v, positions, kind, cache_index,
                   window):
     """Write one decode step's keys at slot ``cache_index``, or
-    ``cache_index % S`` in a local layer's full ring (S = window).  A slot
-    past the cache raises: the reference's ``dynamic_update_slice`` clamps
-    it onto the last slot, overwriting a live key."""
+    ``cache_index % S`` in a local layer's full ring (S = window).  A
+    local layer's cache shorter than the window grows into the full ring
+    when decode reaches its end (the reference's ``p % S`` wraps it onto
+    keys still inside the window; ROADMAP.md queue 3).  A slot past a
+    global layer's cache raises: the reference's ``dynamic_update_slice``
+    clamps it onto the last slot, overwriting a live key."""
     S = cache.k.shape[1]
     index = int(cache_index)
-    slot = index % S if kind == "local" and S >= window else index
     L = k.shape[1]
+    if kind == "local" and S < window and index + L > S:
+        cache = _grow_ring(cache, window)
+        S = window
+    slot = index % S if kind == "local" and S >= window else index
     if slot + L > S:
         raise ValueError(
             f"decode position {index} falls past the KV cache's {S} slots: "

@@ -1,5 +1,6 @@
 """Shared building blocks of the LM zoo: the ModelConfig schema, norms,
-rotary embeddings, MLPs, embeddings, initializers.
+rotary embeddings, MLPs, embeddings, initializers, and the causal conv and
+linear-recurrence scan of the SSM and RG-LRU layers.
 
 A port of ``repro.models.common``.  Parameters live in ``nn.Module``s
 (``nn.ParameterDict`` for a layer's weights, keyed by the reference's
@@ -243,6 +244,45 @@ def _gelu_tanh(x):
 
 def act_fn(name: str):
     return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# Causal convolution and linear recurrences (the SSM and RG-LRU layers)
+# ---------------------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d without bias: x (B, L, C), w (K, C); the K
+    shifted products summed in order, in x's dtype (the reference's
+    ``sum`` over shifts)."""
+    K, L = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = pad[:, 0:L] * w[0]
+    for i in range(1, K):
+        out = out + pad[:, i:i + L] * w[i]
+    return out
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1):
+    """The inclusive scan of ``h_t = a_t · h_{t-1} + b_t`` along ``dim``:
+    ``(aa, bb)`` with ``aa_t = a_1 ⋯ a_t`` and ``bb_t`` the state at ``t``
+    from a zero start, so the state from ``h_0`` is ``aa_t · h_0 + bb_t``.
+    The pairs combine as ``jax.lax.associative_scan``'s do in the
+    reference's SSD and RG-LRU layers, ``(al·ar, bl·ar + br)``, but in a
+    log-depth doubling (Hillis–Steele) order: ⌈log₂ L⌉ rounds, each one
+    shifted multiply-add over the whole tensor, so the sums round in
+    another order than XLA's.  ``a`` broadcasts against ``b`` (same
+    rank; trailing axes of size 1 allowed)."""
+    L = b.shape[dim]
+    shift = 1
+    while shift < L:
+        n = L - shift
+        a_cur, b_cur = a.narrow(dim, shift, n), b.narrow(dim, shift, n)
+        b = torch.cat([b.narrow(dim, 0, shift),
+                       b.narrow(dim, 0, n) * a_cur + b_cur], dim)
+        a = torch.cat([a.narrow(dim, 0, shift),
+                       a.narrow(dim, 0, n) * a_cur], dim)
+        shift *= 2
+    return a, b
 
 
 # ---------------------------------------------------------------------------

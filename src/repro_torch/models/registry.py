@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import DecoderLM, check_ported
+from repro_torch.models.transformer import DecoderLM
 from repro_torch.util import not_ported
 
 
@@ -49,7 +49,7 @@ def cell_is_applicable(arch: str, shape_name: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# decoder-only task (dense / moe / vlm)
+# decoder-only task (dense / moe / ssm / hybrid / vlm)
 # ---------------------------------------------------------------------------
 
 class DecoderTask:
@@ -60,7 +60,6 @@ class DecoderTask:
     GEN_MARGIN = 64
 
     def __init__(self, cfg: ModelConfig, device=None):
-        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = None
@@ -80,8 +79,10 @@ class DecoderTask:
 
     @torch.no_grad()
     def prefill(self, params: DecoderLM, batch):
-        """Run the prompt, returning caches (with GEN_MARGIN free slots)
-        and the last position's logits (B, 1, V)."""
+        """Run the prompt, returning caches (an attention layer's with
+        GEN_MARGIN free slots; an ``ssm`` or ``rec`` layer's fixed-size
+        state has no slot limit) and the last position's logits
+        (B, 1, V)."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         patch = batch.get("patch_embeds")
         B, Lt = tokens.shape
@@ -99,7 +100,8 @@ class DecoderTask:
     def decode_step(self, params: DecoderLM, batch, caches):
         """One token with an existing cache.  batch: tokens (B, 1), pos (a
         Python int: the slot index, checked on the host).  Raises
-        ``ValueError`` where ``pos`` falls past the cache."""
+        ``ValueError`` where ``pos`` falls past a global attention
+        layer's cache."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         pos = int(batch["pos"])
         B = tokens.shape[0]

@@ -1,13 +1,15 @@
-"""Decoder-only LM assembled from ModelConfig: the dense, moe and vlm
-families.  A port of ``repro.models.transformer``.
+"""Decoder-only LM assembled from ModelConfig: the dense, moe, ssm,
+hybrid and vlm families.  A port of ``repro.models.transformer``.
 
 The reference stacks each segment's repeats and scans over them; the port
 holds one ``Block`` module per layer, in the reference's layer order
 (``ModelConfig.layer_kinds``), and runs them in a Python loop.  A MoE
 config's FFN is ``moe.apply_moe`` except on a ``:dense`` layer
 (deepseek-v2's ``first_k_dense``); its auxiliary loss is summed over the
-layers, as the reference's scan sums it.  The ``ssm`` and ``rec`` mixers
-are ROADMAP item 16c.
+layers, as the reference's scan sums it.  An ``ssm`` layer (mamba2's SSD
+mixer, no FFN) or a ``rec`` layer (recurrentgemma's RG-LRU block) keeps
+a recurrent state in place of a KV cache (``ssm.SSMCache``,
+``rglru.RGLRUCache``).
 """
 from __future__ import annotations
 
@@ -17,22 +19,13 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, common, moe as moe_lib
+from repro_torch.models import attention, common, moe as moe_lib, rglru, ssm
 from repro_torch.models.common import ModelConfig, rms_norm, zeros_init
-from repro_torch.util import not_ported
 
 
 def constrain_batch(x: torch.Tensor, profile: str) -> torch.Tensor:
     """The identity on one device (the LM mesh is ROADMAP item 16f)."""
     return x
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise, naming its ROADMAP item, for a config whose layers the port
-    does not have yet."""
-    mixers = {_split_kind(kind)[0] for kind in cfg.pattern}
-    if mixers & {"ssm", "rec"}:
-        raise not_ported(f"{cfg.name}: the SSM and RG-LRU mixers", "16c")
 
 
 # ---------------------------------------------------------------------------
@@ -62,8 +55,10 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None) -> Block:
     p.ln1 = zeros_init((d,), pd, device)
     if mixer in ("global", "local"):
         p.mixer = attention.init_attention(generator, cfg, device=device)
-    elif mixer in ("ssm", "rec"):
-        raise not_ported(f"the {mixer!r} mixer", "16c")
+    elif mixer == "ssm":
+        p.mixer = ssm.init_ssm(generator, cfg, device)
+    elif mixer == "rec":
+        p.mixer = rglru.init_rglru(generator, cfg, device)
     else:
         raise ValueError(f"unknown mixer kind {mixer!r}")
 
@@ -89,8 +84,10 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
         if cfg.use_mla:
             return attention.init_mla_cache(cfg, batch, length, device)
         return attention.init_kv_cache(cfg, batch, length, mixer, device)
-    if mixer in ("ssm", "rec"):
-        raise not_ported(f"the {mixer!r} cache", "16c")
+    if mixer == "ssm":
+        return ssm.init_ssm_cache(cfg, batch, device)
+    if mixer == "rec":
+        return rglru.init_rglru_cache(cfg, batch, device)
     raise ValueError(mixer)
 
 
@@ -102,11 +99,16 @@ def apply_block(p, x, positions, cfg: ModelConfig, kind: str,
     aux = 0.0
 
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    if mixer not in ("global", "local"):
-        raise not_ported(f"the {mixer!r} mixer", "16c")
-    out, new_cache = attention.apply_attention(
-        p.mixer, h, positions, cfg, kind=mixer, cache=cache,
-        cache_index=cache_index)
+    if mixer in ("global", "local"):
+        out, new_cache = attention.apply_attention(
+            p.mixer, h, positions, cfg, kind=mixer, cache=cache,
+            cache_index=cache_index)
+    elif mixer == "ssm":
+        out, new_cache = ssm.apply_ssm(p.mixer, h, cfg, cache=cache,
+                                       decode=decode)
+    else:
+        out, new_cache = rglru.apply_rglru(p.mixer, h, cfg, cache=cache,
+                                           decode=decode)
     if cfg.post_norms:
         out = rms_norm(out, p.ln1_post, cfg.norm_eps)
     x = x + out
@@ -136,7 +138,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self._build(None)
@@ -159,8 +160,9 @@ class DecoderLM(nn.Module):
         return self
 
     def init_caches(self, batch: int, length: int):
-        """One cache per layer, ``length`` slots (a local layer's at most
-        ``window``)."""
+        """One cache per layer: ``length`` slots for attention (a local
+        layer's at most ``window``), a fixed-size state for ``ssm`` and
+        ``rec``."""
         return [init_block_cache(self.cfg, kind, batch, length, self.device)
                 for kind in self.cfg.layer_kinds]
 

@@ -6,9 +6,10 @@ decoding pad tokens until the wave drains).  A port of
 Tokens stay on the task's device until the wave ends, so a greedy wave
 without ``eos_id`` makes no host sync a step.  The decode step after the
 last token, whose logits the reference computes and never reads, is not
-run: ``max_new_tokens`` up to ``DecoderTask.GEN_MARGIN + 1`` gives the
-reference's ids, and more raises ``ValueError`` where the reference
-overwrites its cache's last slot (ROADMAP.md queue 3).
+run: on a config with a global attention layer, ``max_new_tokens`` up to
+``DecoderTask.GEN_MARGIN + 1`` gives the reference's ids, and more raises
+``ValueError`` where the reference overwrites its cache's last slot
+(ROADMAP.md queue 3); the ``ssm``, ``rec`` and local layers set no limit.
 """
 from __future__ import annotations
 

@@ -1005,3 +1005,102 @@ def test_moe_dispatch_on_the_card_matches_cpu(cuda, arch):
     assert not bool(keep.all())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# LM serving for the ssm and hybrid families (the SSD and RG-LRU mixers):
+# no kernel lies on it either
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,Lp", [(a, 8) for a in RECURRENT_ARCHS]
+                         + [("mamba2-130m", 13), ("recurrentgemma-9b", 17)])
+def test_recurrent_decode_on_the_card_matches_forward_and_cpu(cuda, arch,
+                                                              Lp):
+    """Reduced width, fp32, TF32 off: each decode step's logits equal the
+    card's teacher-forced forward and the CPU's decode within 1e-4 (13
+    tokens: mamba2's last chunk of 8 padded; 17: recurrentgemma's window-16
+    ring wrapped)."""
+    cfg, (host_task, host), (task, model), _, toks = _lm_pair(arch, cuda)
+    steps = toks.shape[1] - Lp
+    on_card = _lm_run(task, model, toks.to(cuda), Lp, steps, None)
+    on_host = _lm_run(host_task, host, toks, Lp, steps, None)
+    positions = torch.arange(toks.shape[1], device=cuda)[None]
+    with torch.no_grad():
+        hidden, _, _ = model.forward(toks.to(cuda), positions.expand(2, -1))
+        forward = model.logits(hidden[:, Lp - 1:]).cpu()
+    torch.testing.assert_close(on_card, forward, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(on_card, on_host, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_mixer_on_the_card_matches_cpu(cuda, arch):
+    """One SSD or RG-LRU mixer at reduced width from a nonzero state: a
+    13-position prefill, then 4 decode steps; every output, state and
+    conv row on the card within 1e-5 of the CPU's, and a rerun the same
+    bits."""
+    from repro_torch import configs
+    from repro_torch.models import rglru, ssm
+
+    cfg = configs.get_config(arch, reduced=True)
+    if arch == "mamba2-130m":
+        init, init_cache, apply = ssm.init_ssm, ssm.init_ssm_cache, \
+            ssm.apply_ssm
+    else:
+        init, init_cache, apply = rglru.init_rglru, rglru.init_rglru_cache, \
+            rglru.apply_rglru
+    host = init(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = init(torch.Generator().manual_seed(0), cfg, "cpu").to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 17, cfg.d_model, generator=gen)
+    cache = type(init_cache(cfg, 2))(*(torch.randn(a.shape, generator=gen)
+                                       for a in init_cache(cfg, 2)))
+
+    def run(p, x, cache):
+        outs = []
+        with torch.no_grad():
+            out, cache = apply(p, x[:, :13], cfg, cache=cache)
+            outs.append(out)
+            for t in range(13, 17):
+                out, cache = apply(p, x[:, t:t + 1], cfg, cache=cache,
+                                   decode=True)
+                outs.append(out)
+        return [o.cpu() for o in outs] + [c.cpu() for c in cache]
+
+    want = run(host, x, cache)
+    got = run(card, x.to(cuda), type(cache)(*(c.to(cuda) for c in cache)))
+    again = run(card, x.to(cuda), type(cache)(*(c.to(cuda) for c in cache)))
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_short_local_cache_grows_on_the_card(cuda):
+    """recurrentgemma at window 96: a 5-token prompt's local caches hold
+    69 slots and grow into the 96-slot ring at decode; 100 steps on the
+    card equal the card's teacher-forced forward within 1e-4."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = dataclasses.replace(
+        configs.get_config("recurrentgemma-9b", reduced=True), window=96)
+    task = registry.make_task(cfg, cuda)
+    model = DecoderLM(cfg, cuda)
+    model.load_state_dict(DecoderLM(cfg, "cpu").init(
+        torch.Generator().manual_seed(0)).state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 105),
+                         generator=torch.Generator().manual_seed(3)).to(cuda)
+    on_card = _lm_run(task, model, toks, 5, 100, None)
+    with torch.no_grad():
+        hidden, _, _ = model.forward(toks, torch.arange(105, device=cuda)[
+            None].expand(2, -1))
+        forward = model.logits(hidden[:, 4:]).cpu()
+    torch.testing.assert_close(on_card, forward, rtol=1e-4, atol=1e-4)

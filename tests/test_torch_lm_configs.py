@@ -60,6 +60,26 @@ def test_moe_archs_hold_the_reference_parameters_at_full_width(arch,
     holds the reference's parameter shapes, padded expert rows included
     (qwen2-moe's 60 experts in 64 rows): one tensor a layer for each of
     the reference's stacked ones."""
+    _holds_the_reference_parameters(arch, n_params)
+
+
+@pytest.mark.parametrize("arch,n_params", [
+    ("mamba2-130m", 128_983_488),
+    ("recurrentgemma-9b", 8_578_519_040)])
+def test_recurrent_archs_hold_the_reference_parameters_at_full_width(
+        arch, n_params):
+    """As above for the SSM and RG-LRU archs: mamba2's 24 SSD layers (no
+    FFN) and recurrentgemma's 38 layers in two segments, the trailing
+    (rec, rec) included, with the block-diagonal (16, 256, 256) gates."""
+    model = _holds_the_reference_parameters(arch, n_params)
+    if arch == "recurrentgemma-9b":
+        assert [b.kind for b in model.layers[-3:]] == ["local", "rec", "rec"]
+        assert tuple(model.layers[-1].mixer["w_a"].shape) == (16, 256, 256)
+    else:
+        assert not any(hasattr(b, "ffn") for b in model.layers)
+
+
+def _holds_the_reference_parameters(arch, n_params):
     import collections
 
     import jax
@@ -82,3 +102,4 @@ def test_moe_archs_hold_the_reference_parameters_at_full_width(arch,
                 want[tuple(leaf.shape)] += 1
     assert got == want
     assert sum(p.numel() for p in model.parameters()) == n_params
+    return model

@@ -1,14 +1,15 @@
 """The port's LM serving path (``repro_torch.models``, ``serve.engine``,
-``launch.serve``) against the reference's for the dense, vlm and moe
-families, at ``reduced()`` width on the CPU, the reference's parameters carried across by
-``convert.lm_params_from_reference``.
+``launch.serve``) against the reference's for the dense, vlm, moe, ssm
+and hybrid families, at ``reduced()`` width on the CPU, the reference's
+parameters carried across by ``convert.lm_params_from_reference``.
 
 Prefill and decode logits agree with the reference's at rtol/atol 1e-4
 (fp32); greedy ids agree exactly.  The port's decode also equals its own
 teacher-forced forward, including a local layer whose prompt passes the
 window (where the reference's ring does not: ROADMAP.md queue 3), and
 decode past the cache's headroom raises where the reference overwrites
-its last slot."""
+its last slot; the recurrent archs (mamba2's SSD state, recurrentgemma's
+RG-LRU state and local rings) have no such limit in either package."""
 import re
 
 import jax
@@ -29,11 +30,19 @@ from repro_torch.models import registry as port_registry
 from repro_torch.serve import engine as port_engine
 
 PORTED = ["smollm-135m", "gemma2-2b", "gemma2-9b", "qwen3-4b",
-          "llava-next-mistral-7b", "deepseek-v2-236b", "qwen2-moe-a2.7b"]
-# the ROADMAP item of each arch outside item 16a; 16b's are ported
+          "llava-next-mistral-7b", "deepseek-v2-236b", "qwen2-moe-a2.7b",
+          "mamba2-130m", "recurrentgemma-9b"]
+RECURRENT = ["mamba2-130m", "recurrentgemma-9b"]
+# the ROADMAP item of each arch outside item 16a; 16b's and 16c's are
+# ported
 ITEM = {"deepseek-v2-236b": "16b", "qwen2-moe-a2.7b": "16b",
         "mamba2-130m": "16c", "recurrentgemma-9b": "16c",
         "whisper-base": "16d"}
+# the family and the mixers of each ported arch outside item 16a
+FAMILY = {"deepseek-v2-236b": ("moe", {"global"}),
+          "qwen2-moe-a2.7b": ("moe", {"global"}),
+          "mamba2-130m": ("ssm", {"ssm"}),
+          "recurrentgemma-9b": ("hybrid", {"rec", "local"})}
 NOT_PORTED = {arch: item for arch, item in ITEM.items()
               if arch not in PORTED}
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -41,6 +50,12 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 # Measured on these reduced configs (prompt 8, 6 decode steps, seeds 3-5):
 # at most 7.7e-3 (gemma2-2b) and 6.3e-3 (qwen3-4b) on logits up to 0.67.
 BF16_TOL = dict(rtol=0, atol=2e-2)
+# the recurrent archs, where XLA also keeps the conv's and the gates'
+# fused bf16 chains in fp32: measured on these reduced configs (prompts 8,
+# 13 and 16, 6 decode steps, seeds 3-5) at most 1.6e-2 (mamba2-130m) and
+# 2.9e-2 (recurrentgemma-9b, prompt 13) on logits up to 0.58; the
+# reference's own bf16 decode against its forward reaches 1.4e-2
+RECURRENT_BF16_TOL = dict(rtol=0, atol=4e-2)
 TIE_GAP = 1e-4      # a reference top-2 gap under this is a tie for ids
 
 _PAIRS = {}
@@ -143,13 +158,36 @@ def test_a_trailing_partial_segment_maps_to_the_last_layers():
         np.testing.assert_allclose(logits_np(pl), logits_np(rl), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+def test_a_trailing_rec_segment_maps_to_the_last_layers():
+    """recurrentgemma's 8 layers are two segments in the reference (2
+    repeats of (rec, rec, local), then (rec, rec)), as its 38 are (12
+    repeats, then the port's layers 36 and 37): the converter unstacks
+    both in order, block-diagonal gates included."""
+    pp = pair("recurrentgemma-9b", n_layers=8)
+    assert pp.ref_cfg.segments == ((("rec", "rec", "local"), 2),
+                                   (("rec", "rec"), 1))
+    assert [b.kind for b in pp.model.layers] == ["rec", "rec", "local"] * 2 \
+        + ["rec", "rec"]
+    for i, layer in enumerate(pp.model.layers[6:]):
+        want = jax.tree_util.tree_map(np.asarray, pp.params["seg1"][i])
+        for key, val in want["mixer"].items():
+            np.testing.assert_array_equal(layer.mixer[key].numpy(), val[0])
+        np.testing.assert_array_equal(layer.ffn["wi"].numpy(),
+                                      want["ffn"]["wi"][0])
+    assert tuple(pp.model.layers[7].mixer["w_a"].shape) == (16, 2, 2)
+    toks = tokens(pp.port_cfg, 2, 13 + 6, seed=6)
+    for rl, pl in step_both(pp, toks, 13, 6, None):
+        np.testing.assert_allclose(logits_np(pl), logits_np(rl), **TOL)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"] + RECURRENT)
 def test_bf16_activations_match_the_reference(arch):
     pp = pair(arch, dtype=torch.bfloat16)
     assert pp.model.embed["table"].dtype is torch.float32     # param_dtype
+    tol = RECURRENT_BF16_TOL if arch in RECURRENT else BF16_TOL
     toks = tokens(pp.port_cfg, 2, 8 + 6, seed=3)
     for rl, pl in step_both(pp, toks, 8, 6, None):
-        np.testing.assert_allclose(logits_np(pl), logits_np(rl), **BF16_TOL)
+        np.testing.assert_allclose(logits_np(pl), logits_np(rl), **tol)
 
 
 def _teacher_forced(pp, full, patch):
@@ -166,11 +204,14 @@ def _teacher_forced(pp, full, patch):
 
 
 @pytest.mark.parametrize("arch,Lp", [(a, 8) for a in PORTED] + [
-    ("gemma2-2b", 20), ("gemma2-2b", 37)])
+    ("gemma2-2b", 20), ("gemma2-2b", 37), ("recurrentgemma-9b", 20),
+    ("recurrentgemma-9b", 37), ("mamba2-130m", 37)])
 def test_decode_matches_its_teacher_forced_forward(arch, Lp):
     """Prefill + decode equals the full forward at every step; at 20 and
-    37 prompt tokens gemma2's local layers (window 16) hold a ring that
-    has wrapped (the reference's decode is off by 0.1–0.5 there)."""
+    37 prompt tokens gemma2's and recurrentgemma's local layers (window
+    16) hold a ring that has wrapped (the reference's decode is off by
+    0.1–0.5 there), and mamba2's 37 tokens fill 5 chunks of 8, the last
+    one padded."""
     pp = pair(arch)
     steps = 6
     toks = tokens(pp.port_cfg, 2, Lp + steps, seed=Lp)
@@ -222,12 +263,19 @@ def test_greedy_generate_matches_the_reference(arch):
     want = _ref_generate(pp, prompts, 10, patch)
     got = _port_generate(pp, prompts, 10, patch)
     assert got.dtype == np.int32 and got.shape == want.shape == (2, 10)
+    _assert_the_reference_ids(pp, prompts, got, want, patch)
+
+
+def _assert_the_reference_ids(pp, prompts, got, want, patch=None):
+    """``got`` equals the reference's greedy ``want``; where the
+    reference's top-2 gap falls under ``TIE_GAP``, up to that step, and
+    the port's logits at it within ``TOL``."""
     tie, ref_logits = _first_tie(pp, prompts, want, patch)
     if tie is None:
         np.testing.assert_array_equal(got, want)
         return
-    print(f"{arch}: the reference's top-2 gap is under {TIE_GAP} at step "
-          f"{tie}: ids compared before it, logits at it")
+    print(f"{pp.port_cfg.name}: the reference's top-2 gap is under "
+          f"{TIE_GAP} at step {tie}: ids compared before it, logits at it")
     np.testing.assert_array_equal(got[:, :tie], want[:, :tie])
     port_logits = _teacher_forced(pp, np.concatenate([prompts, want], 1),
                                   patch)
@@ -248,6 +296,47 @@ def test_generate_up_to_the_cache_margin():
     np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="GEN_MARGIN"):
         _port_generate(pp, prompts, margin + 2)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_archs_generate_past_the_cache_margin(arch):
+    """100 new tokens, past ``GEN_MARGIN``: the recurrent state has no
+    slots and recurrentgemma's local layers are full rings (a 5-token
+    prompt, inside the window), so neither package has a limit here and
+    the ids are the reference's."""
+    pp = pair(arch)
+    prompts = tokens(pp.port_cfg, 2, 5, seed=14)
+    n = 100
+    assert n > port_registry.DecoderTask.GEN_MARGIN + 1
+    want = _ref_generate(pp, prompts, n)
+    got = _port_generate(pp, prompts, n)
+    assert got.shape == want.shape == (2, n)
+    _assert_the_reference_ids(pp, prompts, got, want)
+
+
+def test_recurrentgemma_decodes_past_a_short_local_cache():
+    """At a window of 96 a 5-token prompt's local caches hold 5 +
+    ``GEN_MARGIN`` = 69 slots (recurrentgemma at full width: any prompt
+    under 1,984 tokens): 100 decode steps grow them into the 96-slot
+    ring and wrap it, each step equal to the port's teacher-forced
+    forward."""
+    cfg = port_configs.get_config("recurrentgemma-9b",
+                                  reduced=True).reduced(window=96)
+    task = port_registry.make_task(cfg, "cpu")
+    model = task.init(torch.Generator().manual_seed(0))
+    toks = tokens(cfg, 2, 5 + 100, seed=15)
+    with torch.no_grad():
+        hidden, _, _ = model.forward(torch.from_numpy(toks),
+                                     torch.arange(105)[None].expand(2, -1))
+        want = model.logits(hidden).numpy()
+    caches, logits = task.prefill(model, {"tokens": toks[:, :5]})
+    assert caches[2].k.shape[1] == 69
+    for t in range(100):
+        np.testing.assert_allclose(logits_np(logits)[:, 0], want[:, 4 + t],
+                                   rtol=1e-5, atol=1e-5)
+        logits, caches = task.decode_step(model, {
+            "tokens": toks[:, 5 + t:6 + t], "pos": 5 + t}, caches)
+    assert caches[2].k.shape[1] == 96
 
 
 def test_eos_pads_as_the_reference_does():
@@ -278,16 +367,19 @@ def test_temperature_sampling_is_seeded():
 
 @pytest.mark.parametrize("arch", sorted(ITEM))
 def test_other_archs_name_their_item(arch, capsys):
-    """Archs outside item 16a: a ported one (16b's MoE and MLA archs)
-    builds its task and serves from the reduced launcher; the others raise,
-    naming their item."""
+    """Archs outside item 16a: a ported one (16b's MoE and MLA archs,
+    16c's SSM and RG-LRU archs) builds its task, of its own family, and
+    serves from the reduced launcher; the others raise, naming their
+    item."""
     cfg = port_configs.get_config(arch, reduced=True)
     argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len",
             "6", "--max-new", "10", "--device", "cpu"]
     if arch in PORTED:
         task = port_registry.make_task(cfg, "cpu")
         assert isinstance(task, port_registry.DecoderTask)
-        assert task.cfg.moe and task.cfg.family == "moe"
+        family, mixers = FAMILY[arch]
+        assert task.cfg.family == family and set(cfg.pattern) == mixers
+        assert task.cfg.moe == (family == "moe")
         out = port_serve.main(argv)
         n, ids = _lines(capsys.readouterr().out)
         assert (n, len(ids)) == (20, 10) and out.shape == (2, 10)
@@ -325,7 +417,8 @@ def _lines(out):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "llava-next-mistral-7b",
-                                  "deepseek-v2-236b", "qwen2-moe-a2.7b"])
+                                  "deepseek-v2-236b", "qwen2-moe-a2.7b"]
+                         + RECURRENT)
 def test_launcher_prints_the_reference_lines(arch, capsys):
     argv = ["--arch", arch, "--reduced", "--batch", "3", "--prompt-len", "6",
             "--max-new", "20"]

@@ -69,8 +69,9 @@
 
 6. The device pipeline (``pipeline="device"``), at the training path's
    width, through ``kg.fit``: (a) SGD ``average`` with ``merge_every=2``
-   and ``repartition_every=2``, 4 epochs, ``block_epochs=4`` and then
-   ``block_epochs=2``; (b) BGD, 3 epochs in one block; (c) one merge
+   and ``repartition_every=2``, 4 epochs, ``block_epochs=4`` on the whole
+   split (its loss checked), and on the cut split (below) in blocks of 4
+   and of 2; (b) BGD, 3 epochs in one block; (c) one merge
    round of (a)'s configuration (2 epochs) on the cut split (the first
    sixteenth of the training split, ``DEPTH_CUT``) on the CPU and on the
    card, from fit's seed-0 init and the port's own draws, and the
@@ -79,10 +80,11 @@
    ``torch.cuda.set_sync_debug_mode("error")`` (its losses read after),
    the peak memory of a block with ``donate_params`` on and off
    (``torch.cuda.max_memory_allocated``), and a block under
-   ``torch.profiler``; (e) (a) with ``eval_every=2`` and checkpoints every
-   2 epochs, and a run of 2 epochs resumed to 4.  All three kernels'
-   counters are zeroed just before and read just after.  Checks: (a)'s two
-   block sizes, (e)'s traced run and its resumed run give the same bits,
+   ``torch.profiler``; (e) (a)'s cut-split run with ``eval_every=2`` (over
+   the whole test split) and checkpoints every 2 epochs, and a run of 2
+   epochs resumed to 4.  All three kernels' counters are zeroed just
+   before and read just after.  Checks: (a)'s two block sizes, (e)'s
+   traced run and its resumed run give (a)'s cut-split bits,
    as do (c)'s CPU and card rounds (params and losses) and draws; the
    block under the sync check raises nothing and gives (a)'s first two
    losses; (e)'s trace entries lie at merge rounds [1, 2] and its last
@@ -129,9 +131,10 @@
    TransH, SGD ``average`` 1 epoch and BGD 1, host pipeline; (b)
    DistMult, the same; (c) TransE with ``negatives="joint"``:
    bench_async's joint-48 (SGD, L2, ``neg_candidates=48``,
-   ``merge_every=2``) on the device pipeline, 4 epochs in blocks of 4
-   and of 2 on the whole split (its loss is checked, and on the cut split
-   it does not fall in 4 epochs), and the full pool (C = 256) under BGD,
+   ``merge_every=2``) on the device pipeline, 4 epochs in blocks of 4 on
+   the whole split (its loss is checked, and on the cut split it does not
+   fall in 4 epochs), and in blocks of 4 and of 2 on the cut split (the
+   same bits), and the full pool (C = 256) under BGD,
    L1, 1 epoch, host pipeline; (d) each of the three SGD artifacts saved,
    loaded, queried (filtered tails and heads, relations, scores on 1,024
    pairs), ranked (``rank()``) and evaluated (``kg.evaluate(kb,
@@ -187,9 +190,11 @@
 
 10. Bounded staleness and sharded tables (``stale_sharded_path``). (a)
    At phase 3's width, SGD ``average`` on the device pipeline with a
-   Reduce every epoch, 3 epochs: the synchronous run, ``staleness=0``,
-   ``staleness=1`` in one block and in blocks of 2, ``staleness=2``, and
-   ``staleness=1`` on the sparse transport; one stale block per transport
+   Reduce every epoch, 3 epochs: ``staleness=1`` and ``staleness=2`` on
+   the whole split (their losses checked), then on phase 6's cut split
+   the synchronous run, ``staleness=0``, ``staleness=1`` in one block and
+   in blocks of 2, and ``staleness=1`` on the sparse transport; one stale
+   block per transport
    under ``torch.cuda.set_sync_debug_mode("error")``; a stale block's and
    a synchronous block's peak memory and profile.  (b)
    ``benchmarks/bench_async.py``'s ``sync``, ``stale-1`` and ``stale-2``
@@ -203,8 +208,8 @@
    replicated twin: SGD on the
    sparse transport, host pipeline, 2 epochs, ``average`` and
    ``random``; phase 6's device configuration on the sparse transport;
-   BGD sparse, 1 epoch; and on the whole split ``staleness=1`` sharded
-   against (a)'s sparse run.  Then on the sharded SGD artifact
+   BGD sparse, 1 epoch; and ``staleness=1`` sharded against (a)'s sparse
+   run.  Then on the sharded SGD artifact
    ``kg.evaluate(kb, engine="device", table_sharding="sharded",
    n_workers=4)`` against the
    replicated evaluation with ``fused=False`` and the fused one, sharded
@@ -401,6 +406,51 @@
    --prompt-len 16 --max-new 16`` in a process of its own.  The three
    kernels' counters are zeroed before (a) and read after (c): no kernel
    lies on this path (0 expected).
+
+17. LM serving for the encoder-decoder (``lm_encdec_path``), through the
+   same entry points, bf16 activations over fp32 parameters, at
+   whisper-base's full published width and depth (6 encoder and 6
+   decoder layers, d_model 512, 8 heads, d_ff 2,048, LayerNorm and GELU,
+   vocab 51,865; 70,627,840 parameters), over 1,500 post-conv frames (the
+   30 s window; the conv frontend is a stub, as in the reference): (a)
+   the encoder alone, then ``Engine.generate`` of 32 greedy tokens on 4
+   prompts of 16, twice (equal ids), profiled waves of 1 and 5 new
+   tokens, the wave by hand (prefill s, decode ms a step) against the
+   teacher-forced forward within ``LM_BF16_TOL``; (b) 1 prompt of 384
+   tokens and 64 decode steps, which fill ``decoder_len`` 448 (the
+   self-KV cache's L + GEN_MARGIN slots) exactly: a 65th step must raise,
+   and the last 8 steps agree with the forward; (c) fp32 activations,
+   the wave's and the long prompt's prefill and 8 decode steps against
+   the forward within ``LM_FP32_TOL``, then reduced width on the card
+   against the CPU; (d) ``python -m repro_torch.launch.serve --arch
+   whisper-base --batch 4 --prompt-len 16 --max-new 16`` in a process of
+   its own.  The kernels' counters are zeroed before (a) and read after
+   (c): none lies on this path (0 expected).
+
+18. LM training (``lm_train_path``), bf16 activations over fp32
+   parameters: (a) smollm-135m at its full width and depth (30 layers,
+   d_model 576, 9 heads over 3 KV heads, vocab 49,152) through
+   ``train.loop.Trainer`` on the token pipeline, B = 8 x 512 tokens,
+   adamw at the launcher's defaults but ``--lr 1e-3`` (``TRAIN_LR``), 16
+   steps: the mean loss of the last 4 steps below that of the first 4;
+   one more step profiled and two timed; a forward and backward's peak
+   memory with the chunked cross entropy against the full one; 8 steps
+   uninterrupted against ``ft.run_with_recovery`` over 4 steps and a
+   checkpoint, a failure injected at step 4 and a fresh ``Trainer``
+   resumed from that checkpoint to 8 (one restart; the resumed steps'
+   losses equal, the parameters bitwise or within the reference's own
+   rtol 1e-6 / atol 1e-7); (b)
+   whisper-base at full width, ``make_train_step`` on
+   ``EncDecTask.loss`` with 1,500 frames and 448 tokens, B = 4, at its
+   ``train_microbatches`` (2), timed and profiled, then in fp32 the
+   gradients of microbatches 2 against 1 on the same batch within
+   ``TRAIN_MB_TOL``, every parameter's finite and nonzero; (c) ``python
+   -m repro_torch.launch.train --arch smollm-135m --steps 4`` in a
+   process of its own, its last line in the reference's form.  The two
+   launcher processes (phase 17's and this one) start with phase 17 and
+   run beside both phases' in-process parts.  The
+   kernels' counters are zeroed before (a) and read after (b): none lies
+   on this path (0 expected).
 
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -1571,16 +1621,19 @@ def device_pipeline_path(torch, graph, cut):
     init = get_model("transe").init_params(
         torch.Generator().manual_seed(0), kcfg, device=DEVICE)
     dirs = {name: tempfile.TemporaryDirectory() for name in "DE"}
-    card_epochs, n_evals = 0, 0
+    card_epochs, cut_epochs, n_evals = 0, 0, 0
     t_phase = time.perf_counter()
     try:
         ts.transe_score.launches = 0          # --- device pipeline path ---
         ts.transe_score_bwd.launches = 0
         rank_topk.rank_counts.launches = 0
-        # (a) block invariance on the card
+        # (a) the loss over the whole split, and block invariance on the
+        # cut split, against a4's twin there
         a4 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
                     callback=timer("a4"), **sgd_kw)
-        a2 = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=2,
+        a4_cut = kg.fit(cut, "transe", "sgd", epochs=4, block_epochs=4,
+                        **sgd_kw)
+        a2 = kg.fit(cut, "transe", "sgd", epochs=4, block_epochs=2,
                     callback=timer("a2"), **sgd_kw)
         # (b) BGD
         b = kg.fit(graph, "transe", "bgd", epochs=3, block_epochs=3,
@@ -1588,7 +1641,8 @@ def device_pipeline_path(torch, graph, cut):
         # (c) one merge round on the card (the CPU's below)
         c_card = kg.fit(cut, "transe", "sgd", epochs=2, block_epochs=2,
                         **sgd_kw)
-        card_epochs += 4 + 4 + 3
+        card_epochs += 4 + 3
+        cut_epochs += 4 + 4 + 2
         # (d) one block with any host sync an error
         block_fn = mapreduce.make_block_fn(mcfg, kcfg, part, seed=0,
                                            donate=True)
@@ -1623,15 +1677,16 @@ def device_pipeline_path(torch, graph, cut):
                     dtoh_copies_per_step=prof["dtoh_copies"] / (2 * steps))
         info["block_profile"] = prof
         card_epochs += 2 + 2 + 2 + 2
-        # (e) evaluation, checkpoints and resume
-        e_traced = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
+        # (e) evaluation, checkpoints and resume, on the cut split (the
+        # evaluations over the whole test split), against a4's twin
+        e_traced = kg.fit(cut, "transe", "sgd", epochs=4, block_epochs=4,
                           eval_every=2, ckpt_dir=dirs["D"].name,
                           checkpoint_every=2, **sgd_kw)
-        kg.fit(graph, "transe", "sgd", epochs=2, block_epochs=4,
+        kg.fit(cut, "transe", "sgd", epochs=2, block_epochs=4,
                ckpt_dir=dirs["E"].name, checkpoint_every=2, **sgd_kw)
-        e_resumed = kg.fit(graph, "transe", "sgd", epochs=4, block_epochs=4,
+        e_resumed = kg.fit(cut, "transe", "sgd", epochs=4, block_epochs=4,
                            ckpt_dir=dirs["E"].name, resume=True, **sgd_kw)
-        card_epochs += 4 + 2 + 2
+        cut_epochs += 4 + 2 + 2
         n_evals += 2
         launches = {"rank_counts": rank_topk.rank_counts.launches,
                     "transe_score": ts.transe_score.launches,
@@ -1685,22 +1740,24 @@ def device_pipeline_path(torch, graph, cut):
     info.update(
         steps_per_epoch=steps, launches=launches,
         epoch_s={"sgd_block4": per_epoch("a4", 2),
-                 "sgd_block2": per_epoch("a2", 2),
+                 "sgd_block2_cut": per_epoch("a2", 2),
                  "bgd_block3": per_epoch("b", 3)},
         callback_epochs={k: [e for e, _ in v[1:]] for k, v in marks.items()},
         loss_history={"a": a4.loss_history, "b": b.loss_history},
         steps_on_disk=on_disk,
         trace_epochs=e_traced.trace.epochs(),
         merge_rounds=[e.merge_round for e in e_traced.trace.entries],
-        bitwise={"block4_vs_block2": same_run(a4, a2),
-                 "traced_vs_untraced": same_run(e_traced, a4),
-                 "resumed_vs_unbroken": same_run(e_resumed, a4),
+        bitwise={"block4_vs_block2": same_run(a4_cut, a2),
+                 "traced_vs_untraced": same_run(e_traced, a4_cut),
+                 "resumed_vs_unbroken": same_run(e_resumed, a4_cut),
                  "sync_checked_block_vs_fit": info[
                      "sync_checked_block_losses"] == a4.loss_history[:2]})
     predicted = {"rank_counts": n_evals * 2 * eval_device.shard_layout(
                      len(graph.test), eval_device.DEFAULT_CHUNK, 1)[0],
-                 "transe_score": steps * card_epochs + cut_steps * 2,
-                 "transe_score_bwd": steps * card_epochs + cut_steps * 2}
+                 "transe_score": steps * card_epochs
+                 + cut_steps * cut_epochs,
+                 "transe_score_bwd": steps * card_epochs
+                 + cut_steps * cut_epochs}
     info["launches_predicted"] = predicted
     print("device pipeline " + json.dumps(info), flush=True)
     if not all(info["bitwise"].values()):
@@ -2232,7 +2289,8 @@ def family_server_parity(torch, kb):
 
 def model_family_path(torch, graph, joint_graph):
     """The model family and joint negatives (item 8 of the module
-    docstring), joint-48's SGD runs on ``joint_graph``.  Returns the
+    docstring), joint-48's SGD run whose loss is checked on
+    ``joint_graph``, its block-invariance pair on ``graph``.  Returns the
     path's info and its launches of each kernel."""
     from repro_torch import kg
     from repro_torch.core import eval_device, mapreduce
@@ -2262,13 +2320,17 @@ def model_family_path(torch, graph, joint_graph):
         runs[f"{model}_bgd"] = kg.fit(
             graph, model, "bgd", epochs=FAMILY_BGD_EPOCHS,
             callback=timer(f"{model}_bgd"), **base_kw)
-    # (c) TransE with joint negatives: joint-48 on the device pipeline in
-    # blocks of 4 and of 2, the full pool under BGD on the host pipeline
-    for blocks in (4, 2):
-        runs[f"joint_sgd_block{blocks}"] = kg.fit(
-            joint_graph, "transe", "sgd", epochs=JOINT_EPOCHS,
-            block_epochs=blocks, callback=timer(f"joint_sgd_block{blocks}"),
-            **base_kw, **JOINT_SGD)
+    # (c) TransE with joint negatives: joint-48 on the device pipeline,
+    # its loss over the whole split in blocks of 4, and block invariance
+    # (blocks of 4 and of 2) on the cut split; the full pool under BGD on
+    # the host pipeline
+    runs["joint_sgd_block4"] = kg.fit(
+        joint_graph, "transe", "sgd", epochs=JOINT_EPOCHS, block_epochs=4,
+        callback=timer("joint_sgd_block4"), **base_kw, **JOINT_SGD)
+    joint_cut = {blocks: kg.fit(
+        graph, "transe", "sgd", epochs=JOINT_EPOCHS, block_epochs=blocks,
+        callback=timer(f"joint_cut_block{blocks}"), **base_kw, **JOINT_SGD)
+        for blocks in (4, 2)}
     runs["joint_bgd"] = kg.fit(graph, "transe", "bgd",
                                epochs=FAMILY_BGD_EPOCHS,
                                callback=timer("joint_bgd"), **base_kw,
@@ -2295,14 +2357,20 @@ def model_family_path(torch, graph, joint_graph):
     info.update(launches=launches, launches_predicted=predicted,
                 served=served, metrics=metrics,
                 server_parity_answers=parity_answers,
-                loss_history={k: v.loss_history for k, v in runs.items()})
-    per_block = {"joint_sgd_block4": 4, "joint_sgd_block2": 2}
+                loss_history={k: v.loss_history for k, v in runs.items()},
+                joint_cut_loss_history={b: r.loss_history
+                                        for b, r in joint_cut.items()})
+    per_block = {"joint_sgd_block4": 4, "joint_cut_block4": 4,
+                 "joint_cut_block2": 2}
     info["epoch_s"] = {
         k: [(t1 - t0) / per_block.get(k, 1) for t0, t1 in zip(m, m[1:])]
         for k, m in marks.items()}
-    for label, res in runs.items():
+    for label, res in list(runs.items()) + [
+            (f"joint_cut_block{b}", r) for b, r in joint_cut.items()]:
         if not all(t.is_cuda for t in res.params.values()):
             fail(f"{label}: a trained table is not on the card")
+        if not all(map(math.isfinite, res.loss_history)):
+            fail(f"{label}: non-finite loss {res.loss_history}")
 
     # a same-seed rerun of FAMILY_RERUN_STEPS steps of each model through
     # the engine's epoch function, and its profile
@@ -2358,8 +2426,7 @@ def model_family_path(torch, graph, joint_graph):
             "loss": [card.loss_history[0], host.loss_history[0]],
             "loss_bitwise": card.loss_history == host.loss_history}
     info["bitwise"] = {
-        "joint_block4_vs_block2": same_run(runs["joint_sgd_block4"],
-                                           runs["joint_sgd_block2"]),
+        "joint_block4_vs_block2": same_run(joint_cut[4], joint_cut[2]),
         **{f"rerun_{k}": v for k, v in info["rerun_bitwise"].items()}}
     info["phase_s"] = time.perf_counter() - t_phase
     print("model family " + json.dumps(info), flush=True)
@@ -2763,7 +2830,8 @@ def async_cells(torch, info):
 
 def stale_sharded_path(torch, graph, cut):
     """Bounded staleness and sharded tables (item 10 of the module
-    docstring), the sharded pairs of (c) on ``cut``.  Returns the path's
+    docstring), the runs of (a) held bitwise against another and the
+    sharded pairs of (c) on ``cut``.  Returns the path's
     info and its launches of each kernel."""
     import numpy as np
 
@@ -2786,8 +2854,8 @@ def stale_sharded_path(torch, graph, cut):
         return lambda epoch, loss: marks[label].append(
             (epoch, time.perf_counter()))
 
-    def stale_fit(label, S, blocks=STALE_EPOCHS, **kw):
-        return kg.fit(graph, "transe", "sgd", epochs=STALE_EPOCHS,
+    def stale_fit(label, S, blocks=STALE_EPOCHS, on=graph, **kw):
+        return kg.fit(on, "transe", "sgd", epochs=STALE_EPOCHS,
                       block_epochs=blocks, staleness=S,
                       callback=timer(label), **dict(stale_kw, **kw))
 
@@ -2813,16 +2881,22 @@ def stale_sharded_path(torch, graph, cut):
     ts.transe_score.launches = 0         # --- stale and sharded path ---
     ts.transe_score_bwd.launches = 0
     rank_topk.rank_counts.launches = 0
-    # (a) staleness at FB15k width, beside the synchronous run
-    runs["sync"] = kg.fit(graph, "transe", "sgd", epochs=STALE_EPOCHS,
+    # (a) staleness at FB15k width: S = 1 and 2, whose losses are checked,
+    # over the whole split; the runs held bitwise against another (the
+    # synchronous run, S = 0, blocks of 2, the sparse transport) on the
+    # cut split, beside a twin of S = 1 there
+    runs["s1"] = stale_fit("s1", 1)
+    runs["s2"] = stale_fit("s2", 2)
+    runs["sync"] = kg.fit(cut, "transe", "sgd", epochs=STALE_EPOCHS,
                           block_epochs=STALE_EPOCHS, callback=timer("sync"),
                           **stale_kw)
-    runs["s0"] = stale_fit("s0", 0)
-    runs["s1"] = stale_fit("s1", 1)
-    runs["s1_block2"] = stale_fit("s1_block2", 1, blocks=2)
-    runs["s2"] = stale_fit("s2", 2)
-    runs["s1_sparse"] = stale_fit("s1_sparse", 1, merge_transport="sparse")
-    card_epochs = 6 * STALE_EPOCHS
+    runs["s0"] = stale_fit("s0", 0, on=cut)
+    runs["s1_cut"] = stale_fit("s1_cut", 1, on=cut)
+    runs["s1_block2"] = stale_fit("s1_block2", 1, blocks=2, on=cut)
+    runs["s1_sparse"] = stale_fit("s1_sparse", 1, merge_transport="sparse",
+                                  on=cut)
+    card_epochs = 2 * STALE_EPOCHS
+    cut_epochs = 5 * STALE_EPOCHS
     blocks = {}
     for label, S, transport in (("sync", 0, "dense"), ("s1", 1, "dense"),
                                 ("s1_sparse", 1, "sparse")):
@@ -2879,9 +2953,8 @@ def stale_sharded_path(torch, graph, cut):
          **base_kw)
     runs["s1_sparse_sharded"] = stale_fit(
         "s1_sparse_sharded", 1, merge_transport="sparse",
-        table_sharding="sharded")
-    cut_epochs = 2 * (2 + 2 + 4 + 1)
-    card_epochs += STALE_EPOCHS
+        table_sharding="sharded", on=cut)
+    cut_epochs += 2 * (2 + 2 + 4 + 1) + STALE_EPOCHS
     kb = pairs["sgd_host_average"][1].kb
     evals = {}
     for label, kw in (("sharded", dict(table_sharding="sharded",
@@ -2966,8 +3039,8 @@ def stale_sharded_path(torch, graph, cut):
                                 np.array_equal(a.energies, b.energies))
     info["bitwise"] = {
         "s0_vs_sync": same_run(runs["s0"], runs["sync"]),
-        "s1_block6_vs_block2": same_run(runs["s1"], runs["s1_block2"]),
-        "s1_sparse_vs_dense": same_run(runs["s1_sparse"], runs["s1"]),
+        "s1_block6_vs_block2": same_run(runs["s1_cut"], runs["s1_block2"]),
+        "s1_sparse_vs_dense": same_run(runs["s1_sparse"], runs["s1_cut"]),
         "s1_sync_checked_vs_fit": sync_checked["s1"]["losses"]
         == runs["s1"].loss_history[:2],
         "s1_sparse_sync_checked_vs_fit": sync_checked["s1_sparse"][
@@ -2989,7 +3062,8 @@ def stale_sharded_path(torch, graph, cut):
         == scale_evals["replicated"] == scale_evals["replicated_plain"],
         "async_cpu_vs_card": all(v for k, v in info["async"][
             "cpu_vs_card"].items() if k != "losses")}
-    info["stale_differs_from_sync"] = not same_run(runs["s1"], runs["sync"])
+    info["stale_differs_from_sync"] = not same_run(runs["s1_cut"],
+                                                   runs["sync"])
     info["phase_s"] = time.perf_counter() - t_phase
     print("stale and sharded " + json.dumps(info), flush=True)
 
@@ -4199,16 +4273,19 @@ def lm_card_against_cpu(torch, arch):
             "cpu": lm_agreement(torch, got.cpu(), on_host, LM_FP32_TOL)}
 
 
-def lm_launcher(argv, n_tokens, ok, label):
+def lm_launcher(argv, n_tokens, ok, label, started=None):
     """``python -m repro_torch.launch.serve argv`` in a process of its
-    own: its exit code, seconds and two printed lines, checked into
-    ``ok`` (``n_tokens`` generated, 16 ids shown)."""
+    own (or the one ``started`` already runs): its exit code, seconds and
+    two printed lines, checked into ``ok`` (``n_tokens`` generated, 16
+    ids shown)."""
     import re
 
-    with tempfile.TemporaryDirectory() as logdir:
-        started = _start([("serve", [sys.executable, "-m",
-                                     "repro_torch.launch.serve"] + argv)],
-                         logdir)
+    if started is None:
+        with tempfile.TemporaryDirectory() as logdir:
+            rc, out, seconds = _join(_start([("serve", [
+                sys.executable, "-m", "repro_torch.launch.serve"] + argv)],
+                logdir), LM_LAUNCHER_S)["serve"]
+    else:
         rc, out, seconds = _join(started, LM_LAUNCHER_S)["serve"]
     lines = out.strip().splitlines()[-2:]
     m1 = re.match(r"^generated (\d+) tokens in (\d+\.\d\d)s "
@@ -4932,6 +5009,602 @@ def lm_recurrent_path(torch):
                  "serving path, where no kernel lies")
     return info, launches
 
+
+# ---------------------------------------------------------------------------
+# phase 17: LM serving for the encoder-decoder (whisper-base)
+# ---------------------------------------------------------------------------
+
+LM_SHAPES.update({
+    "whisper-base": dict(n_layers=6, n_encoder_layers=6, d_model=512,
+                         n_heads=8, d_ff=2048, vocab_size=51865,
+                         decoder_len=448),
+    "smollm-135m": dict(n_layers=30, d_model=576, n_heads=9, n_kv_heads=3,
+                        d_ff=1536, vocab_size=49152),
+})
+ENC_PARAMS = 70_627_840
+ENC_FRAMES = 1500           # whisper's 30 s window after the conv stub
+ENC_A = dict(batch=4, prompt=16, new=32)
+# 384 + 64 = decoder_len: the prompt and the decode steps fill the self-KV
+# cache (L + GEN_MARGIN slots) exactly, and one step more raises
+ENC_LONG = dict(prompt=384, steps=64)
+ENC_LAUNCHER = ["--arch", "whisper-base", "--batch", "4", "--prompt-len",
+                "16", "--max-new", "16"]
+
+
+def start_lm_launchers():
+    """Start phase 17's serve launcher and phase 18's train launcher, once
+    for both phases, each in a process of its own: they run beside the
+    phases' in-process parts, and each phase joins its own.  Returns
+    ``{"serve": started, "train": started}``."""
+    if not _LM_LAUNCHERS:
+        import atexit
+        import shutil
+
+        logdir = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+        for label, module, argv in (
+                ("serve", "repro_torch.launch.serve", ENC_LAUNCHER),
+                ("train", "repro_torch.launch.train", TRAIN_LAUNCHER)):
+            _LM_LAUNCHERS[label] = _start(
+                [(label, [sys.executable, "-m", module] + argv)], logdir)
+        # a phase that fails before joining its launcher leaves none
+        # running
+        atexit.register(lambda: [_join(started, 0) for started in
+                                 _LM_LAUNCHERS.values()
+                                 if started[1][0][2].poll() is None])
+        atexit.register(shutil.rmtree, logdir, True)
+    return _LM_LAUNCHERS
+
+
+_LM_LAUNCHERS = {}
+
+
+def encdec_frames(torch, cfg, B, seed, frames=None):
+    """Seeded standard-normal post-conv frames (B, frames, d) on the card
+    (``ENC_FRAMES`` of them by default)."""
+    frames = ENC_FRAMES if frames is None else frames
+    return torch.randn((B, frames, cfg.d_model), device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(
+                           seed))
+
+
+def encdec_steps(torch, task, params, frames, toks, Lp, steps):
+    """Prefill ``toks[:, :Lp]`` against ``frames``, then decode ``steps``
+    tokens teacher-forced, synchronizing after each: the logits of every
+    call (B, steps + 1, V), the prefill's seconds, each step's ms and the
+    caches."""
+    (caches, logits), prefill_s = wall(torch, lambda: task.prefill(
+        params, {"frames": frames, "tokens": toks[:, :Lp]}))
+    out, step_ms = [logits[:, 0]], []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits, caches = task.decode_step(params, {
+            "tokens": toks[:, Lp + t:Lp + t + 1], "pos": Lp + t}, caches)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1), prefill_s, step_ms, caches
+
+
+def encdec_forward_logits(torch, params, frames, toks, last):
+    """The teacher-forced forward over ``toks`` against ``frames``: logits
+    at the last ``last`` positions (B, last, V)."""
+    B, L = toks.shape
+    positions = torch.arange(L, dtype=torch.int32, device=DEVICE)[
+        None].expand(B, L)
+    with torch.no_grad():
+        memory = params.encode(frames)
+        hidden, _ = params.decode_stack(toks, positions, memory)
+        return params.logits(hidden[:, -last:])
+
+
+def encdec_card_against_cpu(torch):
+    """whisper-base at reduced width on the card: decode against its
+    teacher-forced forward, and against the same parameters' decode on
+    the CPU (``LM_REDUCED_RUN``'s wave over 64 frames)."""
+    from repro_torch.models.encdec import EncDecLM
+
+    R = LM_REDUCED_RUN
+    cfg = lm_config("whisper-base").reduced()
+    task, params, _ = lm_params(torch, "whisper-base", cfg, published=False)
+    frames = encdec_frames(torch, cfg, R["batch"], 4, frames=64)
+    toks = torch.as_tensor(lm_prompts(cfg, R["batch"],
+                                      R["prompt"] + R["steps"], 4),
+                           device=DEVICE)
+    got, _, _, _ = encdec_steps(torch, task, params, frames, toks,
+                                R["prompt"], R["steps"])
+    want = encdec_forward_logits(torch, params, frames, toks,
+                                 R["steps"] + 1)
+    host = EncDecLM(cfg, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in
+                          params.state_dict().items()})
+    on_host, _, _, _ = encdec_steps(torch, type(task)(cfg, "cpu"), host,
+                                    frames.cpu(), toks.cpu(), R["prompt"],
+                                    R["steps"])
+    return {"forward": lm_agreement(torch, got, want, LM_FP32_TOL),
+            "cpu": lm_agreement(torch, got.cpu(), on_host, LM_FP32_TOL)}
+
+
+def lm_encdec_path(torch):
+    """LM serving for the encoder-decoder (item 17 of the module
+    docstring).  Returns the path's info and its launches of each kernel
+    (none lies on it: 0 expected)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.serve import engine as engine_lib
+
+    arch = "whisper-base"
+    t_phase = time.perf_counter()
+    card = smi_line()
+    info = {"card": card, "part_s": {}, "free_s": []}
+    ok = {}
+    marks = [t_phase]
+
+    def part_done(label):
+        """Keep the seconds since the last part ended, freeing included."""
+        marks.append(time.perf_counter())
+        info["part_s"][label] = marks[-1] - marks[-2]
+
+    launchers = start_lm_launchers()
+    rank_topk.rank_counts.launches = 0     # --- LM encoder-decoder path ---
+    ts.transe_score.launches = 0
+    ts.transe_score_bwd.launches = 0
+
+    # (a) the serving wave at full width and depth
+    torch.cuda.reset_peak_memory_stats()
+    task, params, init_s = lm_params(torch, arch, lm_config(arch))
+    cfg = task.cfg
+    a = {"params": sum(p.numel() for p in params.parameters()),
+         "init_s": init_s, "layers": [len(params.enc), len(params.dec)]}
+    ok["a_params"] = a["params"] == ENC_PARAMS
+    ok["a_layers"] = a["layers"] == [cfg.n_encoder_layers, cfg.n_layers]
+    B, Lp, n = ENC_A["batch"], ENC_A["prompt"], ENC_A["new"]
+    frames = encdec_frames(torch, cfg, B, 2)
+    with torch.no_grad():
+        memory, a["encode_s"] = wall(torch, lambda: params.encode(frames))
+    ok["a_encoder_output"] = tuple(memory.shape) == (
+        B, ENC_FRAMES, cfg.d_model) and memory.dtype == cfg.dtype and \
+        bool(torch.isfinite(memory).all())
+    del memory
+    eng = engine_lib.Engine(task, params)
+    prompts = lm_prompts(cfg, B, Lp, 0)
+    extra = {"frames": frames}
+    gcfg = engine_lib.GenerateConfig(max_new_tokens=n)
+    ids, a["generate_first_s"] = wall(torch, lambda: eng.generate(
+        prompts, gcfg, extra_batch=extra))
+    again, a["generate_s"] = wall(torch, lambda: eng.generate(
+        prompts, gcfg, extra_batch=extra))
+    a["tokens_per_s"] = B * n / a["generate_s"]
+    ok["a_ids_shape"] = ids.shape == (B, n) and bool(
+        ((ids >= 0) & (ids < cfg.vocab_size)).all())
+    ok["a_generate_deterministic"] = bool((ids == again).all())
+    profiled = {}
+    for label, new_tokens in (("prefill", 1), ("wave", 1 + LM_PROFILE_STEPS)):
+        prof = profile_busy(torch, lambda: eng.generate(
+            prompts, engine_lib.GenerateConfig(max_new_tokens=new_tokens),
+            extra_batch=extra))
+        profiled[label] = {k: prof[k] for k in (
+            "wall_s", "device_busy_s", "idle_share", "launches", "top")}
+    a["generate_profile"] = profiled
+    a["launches_a_token"] = (profiled["wave"]["launches"]
+                             - profiled["prefill"]["launches"]) \
+        / LM_PROFILE_STEPS
+    # the same wave by hand, and against the teacher-forced forward
+    toks = torch.as_tensor(np.concatenate([prompts, ids], 1), device=DEVICE)
+    logits, a["prefill_s"], step_ms, _ = encdec_steps(
+        torch, task, params, frames, toks, Lp, n - 1)
+    a["decode_ms"] = sum(step_ms) / len(step_ms)
+    ok["a_ids_are_the_argmax"] = bool(
+        (logits.argmax(-1).cpu().numpy() == ids).all())
+    ok["a_finite"] = bool(torch.isfinite(logits).all())
+    a["bf16"] = lm_agreement(torch, logits, encdec_forward_logits(
+        torch, params, frames, toks[:, :Lp + n - 1], n), LM_BF16_TOL)
+    ok["a_decode_matches_forward"] = a["bf16"]["max_abs_err"] <= LM_BF16_TOL
+    ok["a_ids_agree_past_tol"] = a["bf16"]["ids_differ_past_tol"] == 0
+    a["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del eng, logits
+    info["a"] = a
+    print(f"lm_encdec (a) {arch} on {card}: {a['params']:,} parameters "
+          f"({cfg.n_encoder_layers} + {cfg.n_layers} layers), init "
+          f"{init_s:.2f} s; B={B} x {ENC_FRAMES} frames: encode "
+          f"{a['encode_s']:.4f} s; {Lp}-token prompts: prefill "
+          f"{a['prefill_s']:.4f} s, decode {a['decode_ms']:.2f} ms a step, "
+          f"generate {n} tokens {a['generate_s']:.3f} s "
+          f"({a['tokens_per_s']:.1f} tok/s; profiled: idle share "
+          f"{profiled['wave']['idle_share']:.3f}, "
+          f"{a['launches_a_token']:.0f} launches a decode step), peak "
+          f"{a['peak_gb']:.2f} GB; decode against the forward: max abs err "
+          f"{a['bf16']['max_abs_err']:.4g} (tolerance {LM_BF16_TOL}) on "
+          f"logits up to {a['bf16']['max_abs_logit']:.3g}", flush=True)
+    part_done("a")
+
+    # (b) B = 1: a prompt and decode steps that fill decoder_len; one more
+    # step raises
+    torch.cuda.reset_peak_memory_stats()
+    Ll, steps = ENC_LONG["prompt"], ENC_LONG["steps"]
+    long = torch.as_tensor(lm_prompts(cfg, 1, Ll + steps + 1, 1),
+                           device=DEVICE)
+    f1 = encdec_frames(torch, cfg, 1, 3)
+    logits, b_prefill_s, step_ms, caches = encdec_steps(
+        torch, task, params, f1, long, Ll, steps)
+    b = {"prefill_s": b_prefill_s, "decode_ms": sum(step_ms) / steps,
+         "cache_slots": caches[0].self_kv.k.shape[1]}
+    ok["b_fills_decoder_len"] = Ll + steps == cfg.decoder_len == \
+        b["cache_slots"] == Ll + task.GEN_MARGIN
+    try:
+        task.decode_step(params, {"tokens": long[:, -1:], "pos": Ll + steps},
+                         caches)
+        ok["b_step_past_the_cache_raises"] = False
+    except ValueError as e:
+        ok["b_step_past_the_cache_raises"] = "GEN_MARGIN" in str(e)
+    b["bf16"] = lm_agreement(torch, logits[:, -REC_COMPARED:],
+                             encdec_forward_logits(
+                                 torch, params, f1, long[:, :Ll + steps],
+                                 REC_COMPARED), LM_BF16_TOL)
+    b["bf16"]["finite"] = bool(torch.isfinite(logits).all())
+    ok["b_decode_matches_forward"] = b["bf16"]["max_abs_err"] <= LM_BF16_TOL
+    ok["b_ids_agree_past_tol"] = b["bf16"]["ids_differ_past_tol"] == 0
+    ok["b_finite"] = b["bf16"]["finite"]
+    b["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    info["b"] = b
+    print(f"lm_encdec (b) on {card}: 1 x {Ll} prompt: prefill "
+          f"{b['prefill_s']:.4f} s, {steps} decode steps "
+          f"{b['decode_ms']:.2f} ms a step into {b['cache_slots']} slots "
+          f"(step {steps + 1} raises: "
+          f"{ok['b_step_past_the_cache_raises']}), peak {b['peak_gb']:.2f} "
+          f"GB; the last {REC_COMPARED} steps against the forward: max abs "
+          f"err {b['bf16']['max_abs_err']:.4g} on logits up to "
+          f"{b['bf16']['max_abs_logit']:.3g}", flush=True)
+    part_done("b")
+
+    # (c) fp32 activations: the wave's prefill and 8 decode steps, and the
+    # long prompt's first 8, against the forward; then reduced width on
+    # the card against the CPU
+    c = {}
+    params.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    for key, f, t, L0 in (("wave", frames, toks, Lp), ("long", f1, long, Ll)):
+        got, _, _, _ = encdec_steps(torch, task, params, f,
+                                    t[:, :L0 + REC_COMPARED], L0,
+                                    REC_COMPARED)
+        want = encdec_forward_logits(torch, params, f,
+                                     t[:, :L0 + REC_COMPARED],
+                                     REC_COMPARED + 1)
+        c[f"fp32_{key}"] = lm_agreement(torch, got, want, LM_FP32_TOL)
+        ok[f"c_fp32_{key}_decode_matches_forward"] = \
+            c[f"fp32_{key}"]["max_abs_err"] <= LM_FP32_TOL
+    params.cfg = cfg
+    del task, params, toks, long, frames, f1, caches, got, want
+    info["free_s"].append(lm_free(torch))
+    c["reduced"] = encdec_card_against_cpu(torch)
+    ok["c_reduced_decode_matches_forward"] = \
+        c["reduced"]["forward"]["max_abs_err"] <= LM_FP32_TOL
+    ok["c_reduced_card_matches_cpu"] = \
+        c["reduced"]["cpu"]["max_abs_err"] <= LM_FP32_TOL
+    info["c"] = c
+    print(f"lm_encdec (c) on {card}: fp32 decode against the forward (B={B}"
+          f" x {Lp} and 1 x {Ll}, {REC_COMPARED} steps) and the reduced "
+          f"card against the CPU, tolerance {LM_FP32_TOL}, max abs err: "
+          + json.dumps({"wave": c["fp32_wave"]["max_abs_err"],
+                        "long": c["fp32_long"]["max_abs_err"],
+                        "reduced_forward":
+                            c["reduced"]["forward"]["max_abs_err"],
+                        "reduced_cpu": c["reduced"]["cpu"]["max_abs_err"]}),
+          flush=True)
+    info["free_s"].append(lm_free(torch))
+    part_done("c")
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+
+    # (d) the serve launcher at whisper-base's full width, in a process of
+    # its own (started with the phase)
+    info["d_launcher"] = lm_launcher(ENC_LAUNCHER, 4 * 16, ok, "lm_encdec",
+                                     launchers["serve"])
+    part_done("d")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["ok"] = ok
+    print(f"lm_encdec took {info['phase_s']:.1f} s on {smi_line()} (by "
+          f"part: {json.dumps(info['part_s'])})", flush=True)
+    print("lm_encdec " + json.dumps(info), flush=True)
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        fail(f"lm_encdec checks failed: {failed}")
+    for name, count in launches.items():
+        if count != 0:
+            fail(f"{name} launched {count} times on the LM encoder-decoder "
+                 "path, where no kernel lies")
+    return info, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: LM training (smollm-135m and whisper-base)
+# ---------------------------------------------------------------------------
+
+TRAIN_LM = dict(batch=8, seq=512, steps=16)
+# adamw at the launcher's defaults (warmup steps // 20, cosine decay over
+# the run) but --lr 1e-3: at the default 3e-3 the loss at smollm's full
+# width rises from step 5 and stays above its start for 32 steps, in the
+# reference too; at 1e-3 the mean of the last 4 of 16 steps lay 0.0127
+# below the first 4's (10.8977 against 10.9104) on an H100 80GB HBM3 at
+# 700 W (tools/lm_lr_probe.py; PERF.md §6)
+TRAIN_LR = 1e-3
+TRAIN_RESUME_AT = 4         # the checkpoint a resumed run starts from
+TRAIN_FAIL_AT = 6           # the step whose batch the injector fails
+TRAIN_ENC = dict(batch=4, tokens=448)
+TRAIN_LAUNCHER = ["--arch", "smollm-135m", "--steps", "4"]
+TRAIN_LAUNCHER_S = 180
+# a resumed run against the uninterrupted one, where not bitwise: the
+# reference's own tolerance (tests/test_fault_tolerance.py)
+TRAIN_RESUME_TOL = dict(rtol=1e-6, atol=1e-7)
+# microbatches=2 against 1 in fp32: the loss, and each gradient relative
+# to its largest entry (TF32 off)
+TRAIN_MB_TOL = 1e-4
+
+
+def train_launcher(ok):
+    """``python -m repro_torch.launch.train`` on ``TRAIN_LAUNCHER`` in a
+    process of its own (started with phase 17, else now), joined: its
+    exit code, seconds and last line, checked into ``ok`` (the
+    reference's ``final loss: X (start Y)``)."""
+    import re
+
+    rc, out, seconds = _join(start_lm_launchers()["train"],
+                             TRAIN_LAUNCHER_S)["train"]
+    lines = out.strip().splitlines()
+    last = lines[-1] if lines else ""
+    ok["c_launcher_exit_0"] = rc == 0
+    ok["c_launcher_line"] = bool(re.match(
+        r"^final loss: \d+\.\d{4} \(start \d+\.\d{4}\)$", last))
+    if rc != 0:
+        print(out[-4000:], flush=True)
+    print(f"lm_train (c) python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_LAUNCHER)}: exit {rc} in {seconds:.1f} s: "
+          f"{last!r}", flush=True)
+    return {"rc": rc, "seconds": seconds, "lines": lines[-3:]}
+
+
+def same_params(torch, a, b):
+    """Max abs difference of two named-parameter dicts, and whether they
+    are the same bits."""
+    err = max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
+              for k in a)
+    return {"max_abs_err": err,
+            "bitwise": all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a),
+            "within_tol": all(torch.allclose(a[k].float().cpu(),
+                                             b[k].float().cpu(),
+                                             **TRAIN_RESUME_TOL) for k in a)}
+
+
+def lm_train_path(torch):
+    """LM training (item 18 of the module docstring).  Returns the path's
+    info and its launches of each kernel (none lies on it: 0 expected)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.models import registry
+    from repro_torch.train import ft, loop, losses
+    from repro_torch.train import optimizer as opt_lib
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    info = {"card": card, "part_s": {}, "free_s": []}
+    ok = {}
+    marks = [t_phase]
+
+    def part_done(label):
+        """Keep the seconds since the last part ended, freeing included."""
+        marks.append(time.perf_counter())
+        info["part_s"][label] = marks[-1] - marks[-2]
+
+    rank_topk.rank_counts.launches = 0     # --- LM training path ---
+    ts.transe_score.launches = 0
+    ts.transe_score_bwd.launches = 0
+
+    # (a) smollm-135m at full width and depth through Trainer on the
+    # token pipeline, adamw at the launcher's defaults (but TRAIN_LR) for
+    # 16 steps
+    arch = "smollm-135m"
+    cfg = lm_config(arch)
+    task, params, _ = lm_params(torch, arch, cfg)
+    del params
+    Bt, Lt, steps = TRAIN_LM["batch"], TRAIN_LM["seq"], TRAIN_LM["steps"]
+    opt_cfg = opt_lib.OptConfig(name="adamw", learning_rate=TRAIN_LR,
+                                warmup_steps=max(steps // 20, 1),
+                                decay_steps=steps)
+
+    def trainer(n, d, ckpt_every):
+        # decay_steps stays the 16-step run's, so a shorter run is the
+        # first n steps of that run
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=Lt, global_batch=Bt, seed=0))
+        return loop.Trainer(task, pipe, opt_cfg, loop.TrainConfig(
+            steps=n, log_every=0, ckpt_every=ckpt_every, ckpt_dir=d))
+
+    a = {}
+    # the 16-step run: its loss checked to fall
+    torch.cuda.reset_peak_memory_stats()
+    full = trainer(steps, None, 0)
+    (params, state), a["run_s"] = wall(
+        torch, lambda: full.run(seed=0, resume=False))
+    a["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    h = full.history
+    a["history"] = h
+    a["loss_first4"] = float(np.mean(h[:4]))
+    a["loss_last4"] = float(np.mean(h[-4:]))
+    ok["a_loss_finite"] = bool(np.isfinite(h).all())
+    ok["a_loss_fell"] = a["loss_last4"] < a["loss_first4"]
+    # one more step, profiled, and two timed
+    step_fn = full.step_fn
+    batch = full.pipeline.batch(steps)
+    prof = profile_busy(torch, lambda: step_fn(params, state, batch))
+    a["step_profile"] = {k: prof[k] for k in (
+        "wall_s", "device_busy_s", "idle_share", "launches", "top")}
+    _, two_s = wall(torch, lambda: [step_fn(params, state, batch)
+                                    for _ in range(2)])
+    a["step_s"] = two_s / 2
+    a["tokens_per_s"] = Bt * Lt / a["step_s"]
+    # chunked cross entropy against the full one: peak memory of a
+    # forward and backward at this shape (ce_chunk 1,024 >= L is one
+    # chunk, recomputed in the backward), and at a 128-token chunk
+    a["ce_peak_gb"] = {}
+    chunked = losses.chunked_cross_entropy
+    for label, t, fn in (
+            ("chunked", task, chunked),
+            ("chunk128", registry.make_task(
+                dataclasses.replace(cfg, ce_chunk=128), DEVICE), chunked),
+            ("full", task, lambda hh, y, u, chunk:
+                losses.full_cross_entropy(hh, y, u))):
+        losses.chunked_cross_entropy = fn
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loop.value_and_grad(t, params, batch)
+            torch.cuda.synchronize()
+            a["ce_peak_gb"][label] = (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9
+        finally:
+            losses.chunked_cross_entropy = chunked
+    del params, state, step_fn
+    info["free_s"].append(lm_free(torch))
+    # 8 steps uninterrupted, against 4 steps and a checkpoint, a failure
+    # injected at step 4 and a fresh Trainer resumed from that checkpoint
+    # to 8 (ft.run_with_recovery)
+    at = TRAIN_RESUME_AT
+    unbroken = trainer(2 * at, None, 0)
+    p_u, _ = unbroken.run(seed=0, resume=False)
+    p_u = {k: v.clone() for k, v in loop.named_params(p_u).items()}
+    injector = ft.FailureInjector(fail_at=(at,))
+    tries, restarts = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        def make_loop():
+            tr = trainer(2 * at, tmp, at)
+            tries.append(tr)
+            batch_of = tr.pipeline.batch
+
+            def batch_fn(step):
+                injector.maybe_fail(step)
+                return batch_of(step)
+
+            tr.pipeline.batch = batch_fn
+            return lambda: tr.run(seed=0)
+
+        (p_f, _), a["recovery_s"] = wall(torch, lambda: ft.run_with_recovery(
+            make_loop, max_restarts=2,
+            on_restart=lambda n, e: restarts.append(str(e))))
+    a["restarts"] = restarts
+    a["tries_steps"] = [len(t.history) for t in tries]
+    ok["a_recovered_once"] = len(restarts) == 1 and \
+        "injected failure" in restarts[0]
+    ok["a_resumed_from_step_4"] = a["tries_steps"] == [at, at]
+    ok["a_resumed_losses_equal"] = tries[-1].history == \
+        unbroken.history[at:] == h[at:2 * at]
+    a["resume"] = same_params(torch, loop.named_params(p_f), p_u)
+    ok["a_resume_equals_uninterrupted"] = a["resume"]["within_tol"]
+    info["a"] = a
+    print(f"lm_train (a) {arch} on {card}: B={Bt} x {Lt}, adamw, {steps} "
+          f"steps in {a['run_s']:.2f} s; "
+          f"a step {a['step_s']:.4f} s ({a['tokens_per_s']:.0f} tok/s; "
+          f"profiled: idle share {a['step_profile']['idle_share']:.3f}, "
+          f"{a['step_profile']['launches']} launches), peak "
+          f"{a['peak_gb']:.2f} GB; loss {h[0]:.4f} -> {h[-1]:.4f} (mean of "
+          f"the first 4 {a['loss_first4']:.4f}, the last 4 "
+          f"{a['loss_last4']:.4f}); a forward and backward's peak over the "
+          f"parameters: " + json.dumps(a["ce_peak_gb"]) + f"; "
+          f"{len(restarts)} restart(s) after a failure at step {at}, the "
+          f"tries' steps {a['tries_steps']}, in {a['recovery_s']:.2f} s; "
+          f"resumed against uninterrupted at step {2 * at}: "
+          + json.dumps(a["resume"]), flush=True)
+    del task, full, unbroken, tries, p_u, p_f
+    info["free_s"].append(lm_free(torch))
+    part_done("a")
+
+    # (b) whisper-base at full width: a step of make_train_step on
+    # EncDecTask.loss (1,500 frames, 448 tokens, B = 4, train_microbatches
+    # 2), then microbatches 2 against 1 on the same batch in fp32
+    arch = "whisper-base"
+    cfg = lm_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    task, params, _ = lm_params(torch, arch, cfg)
+    B, L = TRAIN_ENC["batch"], TRAIN_ENC["tokens"]
+    batch = {"frames": encdec_frames(torch, cfg, B, 5),
+             "tokens": torch.as_tensor(lm_prompts(cfg, B, L, 5),
+                                       device=DEVICE)}
+    b = {"microbatches": cfg.train_microbatches}
+    step_fn = loop.make_train_step(task, opt_lib.OptConfig(name="adamw"),
+                                   cfg.train_microbatches)
+    state = opt_lib.init(loop.named_params(params),
+                         opt_lib.OptConfig(name="adamw"))
+    (_, state, m), b["first_step_s"] = wall(
+        torch, lambda: step_fn(params, state, batch))
+    prof = profile_busy(torch, lambda: step_fn(params, state, batch))
+    b["step_profile"] = {k: prof[k] for k in (
+        "wall_s", "device_busy_s", "idle_share", "launches", "top")}
+    _, b["step_s"] = wall(torch, lambda: step_fn(params, state, batch))
+    b["tokens_per_s"] = B * L / b["step_s"]
+    b["loss"] = float(m["loss"])
+    b["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ok["b_loss_finite"] = bool(np.isfinite(b["loss"]))
+    params.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    l1, g1 = loop.loss_and_grads(task, params, batch, 1)
+    l2, g2 = loop.loss_and_grads(task, params, batch, cfg.train_microbatches)
+    params.cfg = cfg
+    b["fp32_loss"] = [float(l1), float(l2)]
+    b["zero_or_nonfinite_grads"] = [
+        k for k, g in g1.items()
+        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    ok["b_every_grad_finite_nonzero"] = not b["zero_or_nonfinite_grads"] \
+        and len(g1) == sum(1 for _ in params.parameters())
+    b["mb_loss_err"] = abs(float(l2) - float(l1))
+    b["mb_grad_rel_err"] = max(
+        float((g2[k] - g1[k]).abs().max() / g1[k].abs().max()) for k in g1)
+    ok["b_microbatches_match"] = b["mb_loss_err"] <= TRAIN_MB_TOL and \
+        b["mb_grad_rel_err"] <= TRAIN_MB_TOL
+    info["b"] = b
+    print(f"lm_train (b) {arch} on {card}: B={B} x {ENC_FRAMES} frames x "
+          f"{L} tokens, microbatches {b['microbatches']}: a step "
+          f"{b['step_s']:.4f} s ({b['tokens_per_s']:.0f} tok/s; first "
+          f"{b['first_step_s']:.3f} s; profiled: idle share "
+          f"{b['step_profile']['idle_share']:.3f}, "
+          f"{b['step_profile']['launches']} launches), peak "
+          f"{b['peak_gb']:.2f} GB, loss {b['loss']:.4f}; fp32 microbatches "
+          f"2 against 1: loss {b['fp32_loss']}, max grad err "
+          f"{b['mb_grad_rel_err']:.3g} of each gradient's largest entry "
+          f"(tolerance {TRAIN_MB_TOL}); zero or non-finite gradients: "
+          f"{b['zero_or_nonfinite_grads']}", flush=True)
+    del task, params, state, step_fn, batch, g1, g2
+    info["free_s"].append(lm_free(torch))
+    part_done("b")
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+
+    # (c) the training launcher at smollm-135m's full width, in a process
+    # of its own
+    info["c_launcher"] = train_launcher(ok)
+    part_done("c")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["ok"] = ok
+    print(f"lm_train took {info['phase_s']:.1f} s on {smi_line()} (by "
+          f"part: {json.dumps(info['part_s'])})", flush=True)
+    print("lm_train " + json.dumps(info), flush=True)
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        fail(f"lm_train checks failed: {failed}")
+    for name, count in launches.items():
+        if count != 0:
+            fail(f"{name} launched {count} times on the LM training path, "
+                 "where no kernel lies")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -5003,6 +5676,9 @@ def main():
     lm_info, lm_launches = phase("lm_serving", lm_serving_path, torch)
     moe_info, moe_launches = phase("lm_moe", lm_moe_path, torch)
     rec_info, rec_launches = phase("lm_recurrent", lm_recurrent_path, torch)
+    enc_info, enc_launches = phase("lm_encdec", lm_encdec_path, torch)
+    train_lm_info, train_lm_launches = phase("lm_train", lm_train_path,
+                                             torch)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 phase_s=phase_s, depth_cut={
                     "divisor": DEPTH_CUT, "train": len(cut.train),
@@ -5014,7 +5690,8 @@ def main():
                 model_family=family_info, sparse_transport=sparse_info,
                 stale_sharded=stale_info, online=online_info,
                 entry_points=entry_info, shard_map=shard_info,
-                lm_serving=lm_info, lm_moe=moe_info, lm_recurrent=rec_info)
+                lm_serving=lm_info, lm_moe=moe_info, lm_recurrent=rec_info,
+                lm_encdec=enc_info, lm_train=train_lm_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -5041,7 +5718,8 @@ def main():
         + stale_launches["rank_counts"] + online_launches["rank_counts"]
         + entry_launches["rank_counts"] + shard_launches["rank_counts"]
         + lm_launches["rank_counts"] + moe_launches["rank_counts"]
-        + rec_launches["rank_counts"],
+        + rec_launches["rank_counts"] + enc_launches["rank_counts"]
+        + train_lm_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -5057,7 +5735,9 @@ def main():
                              "shard_map": shard_launches["rank_counts"],
                              "lm_serving": lm_launches["rank_counts"],
                              "lm_moe": moe_launches["rank_counts"],
-                             "lm_recurrent": rec_launches["rank_counts"]},
+                             "lm_recurrent": rec_launches["rank_counts"],
+                             "lm_encdec": enc_launches["rank_counts"],
+                             "lm_train": train_lm_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -5089,7 +5769,8 @@ def main():
             + sparse_launches[kname] + stale_launches[kname]
             + online_launches[kname] + entry_launches[kname]
             + shard_launches[kname] + lm_launches[kname]
-            + moe_launches[kname] + rec_launches[kname],
+            + moe_launches[kname] + rec_launches[kname]
+            + enc_launches[kname] + train_lm_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
@@ -5103,7 +5784,9 @@ def main():
                                  "shard_map": shard_launches[kname],
                                  "lm_serving": lm_launches[kname],
                                  "lm_moe": moe_launches[kname],
-                                 "lm_recurrent": rec_launches[kname]},
+                                 "lm_recurrent": rec_launches[kname],
+                                 "lm_encdec": enc_launches[kname],
+                                 "lm_train": train_lm_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -5131,7 +5814,8 @@ def main():
                                    "sparse_transport", "stale_sharded",
                                    "online", "entry_points", "shard_map",
                                    "lm_serving", "lm_moe",
-                                   "lm_recurrent")}),
+                                   "lm_recurrent", "lm_encdec",
+                                   "lm_train")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

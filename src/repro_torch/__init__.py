@@ -30,10 +30,13 @@ server); the ``--kg`` launcher (``python -m repro_torch.launch.train``);
 and the ``shard_map`` backend over ``torch.distributed``
 (``kg.fit(backend="shard_map", mesh=...)``: the workers split over the
 ranks of a ``DeviceMesh``, the Reduce a collective,
-``parallel/util.py``); and LM serving for the zoo's dense, moe and vlm
-families (``models``, ``configs``, ``serve.engine``: prefill and KV-cache
-or MLA latent-cache decode, the scatter MoE FFN; ``python -m
-repro_torch.launch.serve``).  The
+``parallel/util.py``); LM serving for the whole zoo (``models``,
+``configs``, ``serve.engine``: prefill and KV-cache, MLA latent-cache or
+recurrent-state decode, the scatter MoE FFN, whisper's encoder-decoder;
+``python -m repro_torch.launch.serve``); and LM training on one device
+(``train``: chunked cross entropy, SGD, AdamW and Adafactor, the
+``Trainer`` with checkpoints and supervised restart, over the synthetic
+token stream; ``python -m repro_torch.launch.train --arch``).  The
 reference's two Pallas kernels are hand-written CUDA kernels for Hopper:
 the entity-ranking sweep (``kernels/rank_topk.py``) and TransE's
 training step, forward and backward (``kernels/transe_score.py``).  What

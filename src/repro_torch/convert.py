@@ -57,7 +57,8 @@ def kb_from_reference(
 
 
 def lm_params_from_reference(params, cfg, device=None):
-    """A port ``DecoderLM`` holding the reference's LM parameters.
+    """A port ``DecoderLM`` (or, for an encoder-decoder config,
+    ``EncDecLM``) holding the reference's LM parameters.
 
     ``params`` is the reference ``DecoderLM.init``'s pytree with every leaf
     turned into a numpy array: ``embed``, ``ln_f`` and one ``seg{s}`` per
@@ -67,25 +68,40 @@ def lm_params_from_reference(params, cfg, device=None):
     (recurrentgemma-9b's trailing (rec, rec) segment: layers 36 and 37);
     a MoE FFN's padded expert rows, and an SSM or RG-LRU mixer's leaves
     (the block-diagonal (nb, drb, drb) gates included), are copied as
-    they are.  Values are
-    copied in ``cfg.param_dtype`` onto ``device`` (default: the GPU;
-    raises without one unless ``device`` is given)."""
+    they are.  The reference ``EncDecLM.init``'s pytree holds ``embed``,
+    ``enc`` and ``dec`` (each stacked over its layers) and the final norms
+    ``ln_enc`` and ``ln_dec``; layer ``i`` of a stack becomes the port's
+    ``enc[i]`` or ``dec[i]``.  Values are copied in ``cfg.param_dtype``
+    onto ``device`` (default: the GPU; raises without one unless
+    ``device`` is given).  Any pytree of the reference's structure comes
+    across, its gradients too."""
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.transformer import DecoderLM
-
-    model = DecoderLM(cfg, device)
 
     def load(dst, src):
         dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
     def load_layer(dst, src, rep):
-        """Copy repeat ``rep`` of a segment's stacked dict into ``dst``,
-        descending into nested dicts (a MoE FFN's ``shared`` MLP)."""
+        """Copy repeat ``rep`` of a segment's stacked dict into ``dst``
+        (``rep=None``: an unstacked dict), descending into nested dicts (a
+        MoE FFN's ``shared`` MLP, a block's norms)."""
         for key, val in src.items():
             if isinstance(val, dict):
                 load_layer(getattr(dst, key), val, rep)
             else:
-                load(getattr(dst, key), val[rep])
+                load(getattr(dst, key), val if rep is None else val[rep])
 
+    if cfg.encoder_decoder:
+        model = EncDecLM(cfg, device)
+        load_layer(model.embed, params["embed"], None)
+        for stack in ("enc", "dec"):
+            for i, block in enumerate(getattr(model, stack)):
+                load_layer(block, params[stack], i)
+        for norm in ("ln_enc", "ln_dec"):
+            load_layer(getattr(model, norm), params[norm], None)
+        return model
+
+    model = DecoderLM(cfg, device)
     for name, arr in params["embed"].items():
         load(model.embed[name], arr)
     load(model.ln_f, params["ln_f"])

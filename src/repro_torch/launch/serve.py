@@ -6,8 +6,10 @@
 A port of ``repro.launch.serve``: the reference's flags, defaults and two
 printed lines, plus ``--device`` (default ``cuda``).  Parameters come from
 a ``torch.Generator`` seeded with ``--seed``; prompts from numpy's
-``default_rng(seed)``, as in the reference.  Archs the port has no layers
-for raise ``NotImplementedError`` naming their ROADMAP item.
+``default_rng(seed)``, as in the reference; an encoder-decoder arch's
+audio frames (B, 64, d_model) are a standard normal draw from a
+``torch.Generator`` seeded with 2 (the reference's ``PRNGKey(2)``), so
+its ids differ from the reference's.
 """
 from __future__ import annotations
 
@@ -55,6 +57,11 @@ def main(argv=None) -> np.ndarray:
         extra["patch_embeds"] = vlm_stub.synthetic_patch_embeds(
             torch.Generator(device=device).manual_seed(1), args.batch,
             cfg.vision_tokens, cfg.d_model, cfg.dtype)
+    if cfg.encoder_decoder:
+        extra["frames"] = torch.randn(
+            (args.batch, 64, cfg.d_model),
+            generator=torch.Generator(device=device).manual_seed(2),
+            device=device).to(cfg.dtype)
 
     gcfg = engine_lib.GenerateConfig(
         max_new_tokens=args.max_new, temperature=args.temperature,

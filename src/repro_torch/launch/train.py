@@ -1,7 +1,9 @@
-"""Training launcher of the port (port of ``repro.launch.train``'s KG path).
+"""Training launcher of the port (port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --kg transe \
         --kg-paradigm sgd --kg-workers 4 --kg-epochs 30
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+        --reduced --steps 5 [--device cpu]
 
 KG embedding runs route through the ``repro_torch.kg`` facade: any
 registered scoring model on the synthetic KG (or a TSV dataset,
@@ -11,8 +13,12 @@ update (``--kg-update``) and open-loop traffic through the live server
 (``--kg-serve``).  Every ``--kg*`` flag keeps the reference launcher's
 default, choices and help.  ``--device`` (default ``cuda``) places the
 run; ``--device cpu`` runs it on the CPU, through the kernels' plain
-versions.  The LM training path (``--arch`` and its flags) is ROADMAP.md
-item 16e: its flags are accepted and refused.
+versions.  ``--arch`` trains a token LM of the zoo on the synthetic
+Markov stream (``data/tokens.py``) through ``train/loop.Trainer`` on one
+device, with the reference's flags, defaults and last line (``final
+loss: X (start Y)``); an encoder-decoder or vision arch exits with the
+reference's text, and ``--mesh pod|multi-pod`` (the LM mesh) raises,
+naming ROADMAP.md item 16f.
 """
 from __future__ import annotations
 
@@ -395,7 +401,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Run the launcher on ``argv``; a ``--kg`` run returns its
-    ``TrainResult``."""
+    ``TrainResult``, an ``--arch`` run its ``Trainer``."""
     ap = build_parser()
     args = ap.parse_args(argv)
 
@@ -403,7 +409,48 @@ def main(argv=None):
         return _run_kg(args)
     if not args.arch:
         ap.error("--arch is required unless --kg is given")
-    raise not_ported("the LM launcher (LM training)", "16e")
+    return _run_lm(args)
+
+
+def _run_lm(args):
+    """The token-LM path: ``Trainer`` on one device.  Returns the
+    trainer (its ``history`` the loss of every step)."""
+    import torch
+
+    from repro_torch import configs, resolve_device
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import registry
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optimizer as opt_lib
+
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch, reduced=args.reduced)
+    task = registry.make_task(cfg, device)
+    if cfg.encoder_decoder or cfg.vision_tokens:
+        raise SystemExit(
+            "this CLI trains token-LM archs; see examples/ for the "
+            "multimodal training drivers")
+    if args.mesh in ("pod", "multi-pod") or (
+            args.mesh == "single" and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise not_ported(f"--mesh {args.mesh} (the LM mesh)", "16f")
+
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        global_batch=args.batch, seed=args.seed))
+    opt_cfg = opt_lib.OptConfig(
+        name=args.optimizer,
+        learning_rate=args.lr if args.lr is not None else 3e-3,
+        warmup_steps=max(args.steps // 20, 1), decay_steps=args.steps)
+    tcfg = loop_lib.TrainConfig(
+        steps=args.steps, microbatches=args.microbatches,
+        log_every=max(args.steps // 20, 1),
+        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
+    trainer = loop_lib.Trainer(task, pipe, opt_cfg, tcfg)
+    trainer.run(seed=args.seed)
+    print(f"final loss: {trainer.history[-1]:.4f} "
+          f"(start {trainer.history[0]:.4f})")
+    return trainer
 
 
 if __name__ == "__main__":

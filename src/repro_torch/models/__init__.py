@@ -1,12 +1,13 @@
-"""The LM zoo's dense, moe, ssm, hybrid and vlm families (a port of
-``repro.models``): config-assembled decoder-only models with GQA or MLA
+"""The LM zoo (a port of ``repro.models``): config-assembled decoder-only
+models of the dense, moe, ssm, hybrid and vlm families, with GQA or MLA
 latent attention, local and global layers, Mamba-2 SSD and RG-LRU
-recurrent mixers, dense or mixture-of-experts FFNs, and a stubbed vision
-prefix.  The encoder-decoder (ROADMAP item 16d) is not ported yet and
-raises, naming its item."""
+recurrent mixers, dense or mixture-of-experts FFNs and a stubbed vision
+prefix, and the audio family's encoder-decoder (whisper, its conv
+frontend a stub)."""
 from repro_torch.models import (  # noqa: F401
     attention,
     common,
+    encdec,
     moe,
     registry,
     rglru,

@@ -182,7 +182,8 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # serving takes no gradient; LM training (item 16e) will ask for one
+    # serving takes no gradient; LM training asks for one where it takes
+    # it (``train/loop.value_and_grad``)
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -207,6 +208,10 @@ def embed_init(generator, shape, dtype, device=None):
 
 def zeros_init(shape, dtype, device):
     return _param(torch.zeros(shape, dtype=dtype, device=device))
+
+
+def ones_init(shape, dtype, device):
+    return _param(torch.ones(shape, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """Uniform Task API over the LM zoo, and the assigned shape cells.  A port
-of ``repro.models.registry``'s serving half.
+of ``repro.models.registry``.
 
 A Task exposes:
+  * ``loss(params, batch)`` -> the training loss, an fp32 scalar with an
+    autograd graph through ``params``
   * ``prefill(params, batch) -> (caches, logits)``
   * ``decode_step(params, batch, caches) -> (logits, caches)``
 
-``params`` is the ``DecoderLM`` that ``init`` returns: the port's
-parameters live in the module.  Both run without autograd.  ``loss`` (LM
-training) is ROADMAP item 16e, ``input_specs`` (the dry-run's stand-ins)
-16f, and the encoder-decoder task 16d.
+``params`` is the module that ``init`` returns (a ``DecoderLM``, or an
+``EncDecLM`` for the encoder-decoder task): the port's parameters live in
+the module.  ``prefill`` and ``decode_step`` run without autograd.
+``input_specs`` (the dry-run's stand-ins) is ROADMAP item 16f.
 """
 from __future__ import annotations
 
@@ -19,8 +21,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.train import losses
 from repro_torch.util import not_ported
+
+AUX_COEF = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +78,26 @@ class DecoderTask:
 
     # -- train --------------------------------------------------------------
 
-    def loss(self, params, batch):
-        raise not_ported("DecoderTask.loss (LM training)", "16e")
+    def loss(self, params: DecoderLM, batch) -> torch.Tensor:
+        """The mean next-token cross entropy over the text positions plus
+        ``AUX_COEF`` times the summed MoE auxiliary loss.  batch: tokens
+        (B, L) and, for a vlm config, patch_embeds (B, n_vis, d)."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        patch = batch.get("patch_embeds")
+        if patch is not None:
+            patch = torch.as_tensor(patch, device=self.device)
+        B, Lt = tokens.shape
+        n_vis = patch.shape[1] if patch is not None else 0
+        L = Lt + n_vis
+        positions = torch.arange(L, dtype=torch.int32,
+                                 device=self.device)[None].expand(B, L)
+        hidden, _, aux = params.forward(tokens, positions,
+                                        patch_embeds=patch)
+        labels = losses.shift_labels(tokens)
+        ce = losses.chunked_cross_entropy(
+            hidden[:, n_vis:], labels, params.logits,
+            chunk=self.cfg.ce_chunk)
+        return ce + AUX_COEF * aux
 
     # -- serve --------------------------------------------------------------
 
@@ -117,7 +141,78 @@ class DecoderTask:
         raise not_ported("DecoderTask.input_specs (the dry-run)", "16f")
 
 
-def make_task(cfg: ModelConfig, device=None) -> DecoderTask:
-    if cfg.encoder_decoder:
-        raise not_ported(f"{cfg.name}: the encoder-decoder task", "16d")
-    return DecoderTask(cfg, device)
+# ---------------------------------------------------------------------------
+# encoder-decoder task (whisper)
+# ---------------------------------------------------------------------------
+
+class EncDecTask:
+    """The encoder-decoder task on ``device`` (default: the GPU; raises
+    without one unless ``device`` is given).  batch: frames (B, S, d),
+    the post-conv audio embeddings, and tokens (B, L)."""
+
+    # cache headroom prefill leaves for subsequent decode steps (the
+    # reference's literal 64)
+    GEN_MARGIN = 64
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = None
+
+    def init(self, generator: torch.Generator) -> EncDecLM:
+        """An ``EncDecLM`` on the task's device, every parameter drawn
+        from ``generator`` (a generator of that device's type)."""
+        self.model = EncDecLM(self.cfg, self.device).init(generator)
+        return self.model
+
+    def _inputs(self, batch):
+        frames = torch.as_tensor(batch["frames"], device=self.device)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        B, L = tokens.shape
+        positions = torch.arange(L, dtype=torch.int32,
+                                 device=self.device)[None].expand(B, L)
+        return frames, tokens, positions
+
+    def loss(self, params: EncDecLM, batch) -> torch.Tensor:
+        """The mean next-token cross entropy of the decoder, teacher
+        forced against the encoded frames."""
+        frames, tokens, positions = self._inputs(batch)
+        memory = params.encode(frames)
+        hidden, _ = params.decode_stack(tokens, positions, memory)
+        return losses.chunked_cross_entropy(
+            hidden, losses.shift_labels(tokens), params.logits,
+            chunk=self.cfg.ce_chunk)
+
+    @torch.no_grad()
+    def prefill(self, params: EncDecLM, batch):
+        """Encode the frames, project every layer's cross k/v once, and
+        run the prompt into self-KV caches of ``L + GEN_MARGIN`` slots;
+        returns (caches, the last position's logits (B, 1, V))."""
+        frames, tokens, positions = self._inputs(batch)
+        memory = params.encode(frames)
+        caches = params.init_caches(memory,
+                                    tokens.shape[1] + self.GEN_MARGIN)
+        hidden, caches = params.decode_stack(tokens, positions,
+                                             caches=caches)
+        return caches, params.logits(hidden[:, -1:])
+
+    @torch.no_grad()
+    def decode_step(self, params: EncDecLM, batch, caches):
+        """One token with existing caches.  batch: tokens (B, 1), pos (a
+        Python int, checked on the host).  Raises ``ValueError`` where
+        ``pos`` falls past the self-KV cache."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        pos = int(batch["pos"])
+        positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
+                               device=self.device)
+        hidden, caches = params.decode_stack(tokens, positions,
+                                             caches=caches, cache_index=pos)
+        return params.logits(hidden), caches
+
+    def input_specs(self, shape_name: str):
+        raise not_ported("EncDecTask.input_specs (the dry-run)", "16f")
+
+
+def make_task(cfg: ModelConfig, device=None):
+    return EncDecTask(cfg, device) if cfg.encoder_decoder else \
+        DecoderTask(cfg, device)

@@ -9,7 +9,9 @@ config's FFN is ``moe.apply_moe`` except on a ``:dense`` layer
 layers, as the reference's scan sums it.  An ``ssm`` layer (mamba2's SSD
 mixer, no FFN) or a ``rec`` layer (recurrentgemma's RG-LRU block) keeps
 a recurrent state in place of a KV cache (``ssm.SSMCache``,
-``rglru.RGLRUCache``).
+``rglru.RGLRUCache``).  Where ``cfg.remat`` is set and autograd records
+(LM training), each block runs under ``torch.utils.checkpoint``, so the
+backward recomputes a layer's activations instead of keeping them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, common, moe as moe_lib, rglru, ssm
@@ -187,11 +190,19 @@ class DecoderLM(nn.Module):
         x = constrain_batch(x, cfg.sharding_profile)
         aux_total = 0.0
         new_caches = []
+        # the reference jax.checkpoints each scan body; a cached (serving)
+        # forward runs without autograd and writes its caches in place
+        remat = cfg.remat and caches is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             cache_i = caches[i] if caches is not None else None
-            x, nc, aux_i = apply_block(
-                block, x, positions, cfg, block.kind, cache=cache_i,
-                cache_index=cache_index, decode=decode)
+            if remat:
+                x, nc, aux_i = checkpoint(
+                    apply_block, block, x, positions, cfg, block.kind,
+                    use_reentrant=False)
+            else:
+                x, nc, aux_i = apply_block(
+                    block, x, positions, cfg, block.kind, cache=cache_i,
+                    cache_index=cache_index, decode=decode)
             x = constrain_batch(x, cfg.sharding_profile)
             new_caches.append(nc)
             aux_total = aux_total + aux_i

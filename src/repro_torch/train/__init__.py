@@ -1,2 +1,2 @@
-"""Persistence (``checkpoint.py``); the training loop comes with the
-training slice."""
+"""Training substrate: optimizers, losses, the LM loop, checkpointing,
+fault tolerance."""

@@ -1,15 +1,19 @@
 """Checkpoints in the reference's on-disk format (port of
-``repro.train.checkpoint``: full saves of a params tree, synchronous or
-through :class:`AsyncSaver`, and delta chains; no optimizer state).
+``repro.train.checkpoint``: full saves of a params tree and, for LM
+training, its optimizer state, synchronous or through
+:class:`AsyncSaver`, and delta chains).
 
 Layout:  ``<dir>/step_<N>/arrays.npz`` + ``manifest.json``, written to a
 ``.tmp`` sibling then ``os.rename``d, so a crash mid-write never leaves a
 half-readable "latest" checkpoint.  ``arrays.npz`` keys are
 ``params::<path>`` with ``/``-joined dict keys (``params::params/ent``),
 exactly as the reference writes them: artifacts cross between the two
-packages both ways.  Arrays are stored as full host values; ``restore``
-rebuilds nested dicts of numpy arrays (or, given a template, CPU tensors of
-the template's dtypes), and the caller places them on a device.
+packages both ways.  An optimizer state is stored beside the params as
+``opt::<path>`` (``opt::m/embed.table``), and the manifest's ``has_opt``
+says whether one was saved.  Arrays are stored as full host values;
+``restore`` rebuilds nested dicts of numpy arrays (or, given a template,
+CPU tensors of the template's dtypes), and the caller places them on a
+device.
 
 bfloat16: numpy has no such type without ``ml_dtypes``, and the reference
 saves a bf16 table as its raw 2-byte values, which ``np.load`` reads back
@@ -92,11 +96,13 @@ def save(
     ckpt_dir: str,
     step: int,
     params,
+    opt_state=None,
     extra: Optional[Dict[str, Any]] = None,
     keep: int = 3,
 ) -> str:
-    """Synchronous atomic save of the tree ``params``, keeping the newest
-    ``keep`` steps.  Returns the committed directory."""
+    """Synchronous atomic save of the tree ``params`` (and the tree
+    ``opt_state``, where given), keeping the newest ``keep`` steps.
+    Returns the committed directory."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
@@ -104,10 +110,15 @@ def save(
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    arrays = {f"params::{k}": v
-              for k, v in _flatten_with_paths(params).items()}
+    arrays = {}
+    for name, tree in (("params", params), ("opt", opt_state)):
+        if tree is None:
+            continue
+        for k, v in _flatten_with_paths(tree).items():
+            arrays[f"{name}::{k}"] = v
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
-    manifest = {"step": step, "extra": extra or {}, "has_opt": False}
+    manifest = {"step": step, "extra": extra or {},
+                "has_opt": opt_state is not None}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -141,14 +152,15 @@ class AsyncSaver:
             err, self.last_error = self.last_error, None
             raise err
 
-    def save_async(self, ckpt_dir: str, step: int, params,
+    def save_async(self, ckpt_dir: str, step: int, params, opt_state=None,
                    extra: Optional[Dict[str, Any]] = None, keep: int = 3):
         self.wait()
         host_params = _to_host(params)
+        host_opt = None if opt_state is None else _to_host(opt_state)
 
         def run():
             try:
-                save(ckpt_dir, step, host_params, extra, keep)
+                save(ckpt_dir, step, host_params, host_opt, extra, keep)
             except Exception as e:                    # raised by wait()
                 self.last_error = e
 
@@ -318,13 +330,13 @@ def _nest_flat(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return out
 
 
-def _from_template(d: str, z, template) -> Dict[str, Any]:
-    """The stored arrays at ``template``'s leaf paths, each checked
-    against its template leaf and cast to the leaf's dtype as a CPU
-    tensor."""
+def _from_template(d: str, z, template, prefix: str) -> Dict[str, Any]:
+    """The stored ``prefix::`` arrays at ``template``'s leaf paths, each
+    checked against its template leaf and cast to the leaf's dtype as a
+    CPU tensor."""
     flat = {}
     for path, leaf in _leaves(template):
-        key = f"params::{path}"
+        key = f"{prefix}::{path}"
         if key not in z.files:
             raise KeyError(
                 f"checkpoint {d} has no array {key!r} (stored: "
@@ -350,10 +362,16 @@ def restore(
     step: Optional[int] = None,
     expect: Optional[Dict[str, Any]] = None,
     params_template=None,
-) -> Tuple[int, Any, Dict[str, Any]]:
-    """Restore ``(step, params, extra)`` (stored optimizer state is not
-    read).  ``step=None`` takes the latest committed step; ``expect``
-    compares manifest ``extra`` fields (:func:`validate_extra`).  A delta
+    opt_template=None,
+) -> Tuple:
+    """Restore ``(step, params, extra)``, or, given ``opt_template``,
+    ``(step, params, opt, extra)`` as the reference's ``restore`` returns
+    it: ``opt`` the stored optimizer state read at ``opt_template``'s
+    paths as the params are read at ``params_template``'s, or None for a
+    checkpoint saved without one (``has_opt`` false, as every KG
+    checkpoint is).  ``step=None`` takes the latest committed step;
+    ``expect`` compares manifest ``extra`` fields (:func:`validate_extra`).
+    A delta
     step is refused: no resume ever starts from one, and
     ``KnowledgeBase.load_chain`` replays a chain.
 
@@ -379,6 +397,13 @@ def restore(
         validate_extra(extra, expect, d)
     if params_template is None:
         tree, _ = load_tree(ckpt_dir, step)
+    else:
+        with np.load(os.path.join(d, "arrays.npz")) as z:
+            tree = _from_template(d, z, params_template, "params")
+    if opt_template is None:
         return step, tree, extra
-    with np.load(os.path.join(d, "arrays.npz")) as z:
-        return step, _from_template(d, z, params_template), extra
+    opt = None
+    if manifest.get("has_opt"):
+        with np.load(os.path.join(d, "arrays.npz")) as z:
+            opt = _from_template(d, z, opt_template, "opt")
+    return step, tree, opt, extra

@@ -1104,3 +1104,123 @@ def test_short_local_cache_grows_on_the_card(cuda):
             None].expand(2, -1))
         forward = model.logits(hidden[:, 4:]).cpu()
     torch.testing.assert_close(on_card, forward, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# whisper-base's encoder-decoder and LM training: no kernel lies on them;
+# the card against the CPU and against itself
+# ---------------------------------------------------------------------------
+
+def _on_card(arch, device):
+    """The reduced arch's task and seeded model on the CPU, and the same
+    parameters in a task and model on ``device``."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cfg = configs.get_config(arch, reduced=True)
+    host_task = registry.make_task(cfg, "cpu")
+    host = host_task.init(torch.Generator().manual_seed(0))
+    model = type(host)(cfg, device)
+    model.load_state_dict(host.state_dict())
+    return cfg, (host_task, host), (registry.make_task(cfg, device), model)
+
+
+def _frames(cfg, B, S, seed=3):
+    return torch.randn((B, S, cfg.d_model),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.cuda
+def test_encdec_decode_on_the_card_matches_forward_and_cpu(cuda):
+    """Reduced whisper-base, fp32, TF32 off: each decode step's logits
+    equal the card's teacher-forced forward and the CPU's decode within
+    1e-4, and a step past the self-KV cache raises."""
+    cfg, (host_task, host), (task, model) = _on_card("whisper-base", cuda)
+    frames = _frames(cfg, 2, 24)
+    toks = torch.randint(0, cfg.vocab_size, (2, 14),
+                         generator=torch.Generator().manual_seed(2))
+    Lp = 8
+
+    def run(t, m, device):
+        caches, logits = t.prefill(m, {"frames": frames.to(device),
+                                       "tokens": toks[:, :Lp].to(device)})
+        out = [logits[:, 0]]
+        for s in range(toks.shape[1] - Lp):
+            logits, caches = t.decode_step(m, {
+                "tokens": toks[:, Lp + s:Lp + s + 1].to(device),
+                "pos": Lp + s}, caches)
+            out.append(logits[:, 0])
+        return torch.stack(out, 1).cpu(), caches
+
+    on_card, caches = run(task, model, cuda)
+    on_host, _ = run(host_task, host, "cpu")
+    positions = torch.arange(toks.shape[1], device=cuda)[None].expand(2, -1)
+    with torch.no_grad():
+        hidden, _ = model.decode_stack(toks.to(cuda), positions,
+                                       model.encode(frames.to(cuda)))
+        forward = model.logits(hidden[:, Lp - 1:]).cpu()
+    torch.testing.assert_close(on_card, forward, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(on_card, on_host, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="GEN_MARGIN"):
+        task.decode_step(model, {"tokens": toks[:, :1].to(cuda),
+                                 "pos": Lp + task.GEN_MARGIN}, caches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-moe-a2.7b",
+                                  "deepseek-v2-236b", "mamba2-130m",
+                                  "recurrentgemma-9b", "whisper-base"])
+def test_lm_loss_and_grads_on_the_card_match_cpu(cuda, arch):
+    """Reduced width, fp32, TF32 off: ``task.loss`` and every gradient on
+    the card against the same parameters' on the CPU (the loss within
+    1e-5, each gradient within 1e-4 of its largest entry): the MoE, MLA,
+    SSD and RG-LRU gradients, remat and the chunked cross entropy."""
+    from repro_torch.train import loop
+
+    cfg, (host_task, host), (task, model) = _on_card(arch, cuda)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(4))}
+    if cfg.encoder_decoder:
+        batch["frames"] = _frames(cfg, 2, 16)
+    want, want_g = loop.value_and_grad(host_task, host, batch)
+    got, got_g = loop.value_and_grad(task, model, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert sorted(got_g) == sorted(want_g)
+    for name, g in want_g.items():
+        torch.testing.assert_close(
+            got_g[name].cpu(), g, rtol=0,
+            atol=1e-4 * max(float(g.abs().max()), 1e-30), msg=name)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """Reduced smollm-135m, adamw: 8 steps uninterrupted against 4 steps,
+    a checkpoint and a fresh ``Trainer`` resumed to 8, bitwise (the
+    embedding's backward accumulates in one order on the card too)."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import registry
+    from repro_torch.train import loop, optimizer
+
+    cfg = configs.get_config("smollm-135m", reduced=True)
+
+    def trainer(steps, d):
+        return loop.Trainer(
+            registry.make_task(cfg, cuda),
+            TokenPipeline(TokenPipelineConfig(
+                vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                seed=3)),
+            optimizer.OptConfig(name="adamw", learning_rate=1e-3,
+                                warmup_steps=2, decay_steps=100),
+            loop.TrainConfig(steps=steps, log_every=0, ckpt_every=4,
+                             ckpt_dir=d))
+
+    whole = trainer(8, str(tmp_path / "a"))
+    p_a, _ = whole.run(seed=0, resume=False)
+    trainer(4, str(tmp_path / "b")).run(seed=0, resume=False)
+    resumed = trainer(8, str(tmp_path / "b"))
+    p_b, _ = resumed.run(seed=0, resume=True)
+    assert resumed.history == whole.history[4:]
+    for (name, a), (_, b) in zip(p_a.named_parameters(),
+                                 p_b.named_parameters()):
+        assert a.is_cuda and torch.equal(a, b), name

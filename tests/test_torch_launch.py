@@ -12,6 +12,7 @@ smoke run of each example at a tiny size.
 """
 import argparse
 import os
+import re
 import runpy
 import subprocess
 import sys
@@ -132,13 +133,40 @@ def test_read_delta_exit_texts_match_the_reference(tmp_path, text, start):
     assert _exit_text(port_train._read_delta, str(path)) == want
 
 
-def test_arch_is_item_16():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        port_train.main(["--arch", "smollm-135m", "--reduced", "--steps",
-                         "5"])
+FINAL_LINE = re.compile(r"^final loss: (\d+\.\d{4}) \(start (\d+\.\d{4})\)$")
+
+
+def test_arch_is_item_16(capsys):
+    """``--arch`` (item 16e) trains: the reference's last line, in the
+    reference's form (the two packages' inits differ, so the numbers
+    do), one logged line every ``steps // 20`` steps, and the history
+    the trainer returns.  ``[]`` still exits with code 2, and the LM
+    mesh (item 16f) raises."""
+    argv = ["--arch", "smollm-135m", "--reduced", "--steps", "5"]
+    trainer = port_train.main(argv + DEVICE)
+    port_lines = capsys.readouterr().out.strip().splitlines()
+    ref_train.main(argv)
+    ref_lines = capsys.readouterr().out.strip().splitlines()
+    assert len(port_lines) == len(ref_lines) == 6
+    m = FINAL_LINE.match(port_lines[-1])
+    assert m and FINAL_LINE.match(ref_lines[-1]), (port_lines, ref_lines)
+    assert float(m.group(1)) == round(trainer.history[-1], 4)
+    assert float(m.group(2)) == round(trainer.history[0], 4)
+    for p, r in zip(port_lines[:-1], ref_lines[:-1]):
+        assert p.split(":")[0] == r.split(":")[0]        # "step N"
     with pytest.raises(SystemExit) as got:
         port_train.main([])
     assert got.value.code == 2
+    with pytest.raises(NotImplementedError, match="item 16f"):
+        port_train.main(argv + DEVICE + ["--mesh", "pod"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_multimodal_archs_exit_with_the_reference_text(arch):
+    argv = ["--arch", arch, "--reduced", "--steps", "1"]
+    want = _exit_text(ref_train.main, argv)
+    assert want.startswith("this CLI trains token-LM archs")
+    assert _exit_text(port_train.main, argv + DEVICE) == want
 
 
 def _direct_fit(graph, **kw):

@@ -79,16 +79,28 @@ def test_recurrent_archs_hold_the_reference_parameters_at_full_width(
         assert not any(hasattr(b, "ffn") for b in model.layers)
 
 
+def test_encdec_holds_the_reference_parameters_at_full_width():
+    """whisper-base: 6 encoder and 6 decoder layers (each decoder layer
+    with its cross attention), LayerNorm scales and biases, the tied
+    51,865-row embedding."""
+    model = _holds_the_reference_parameters("whisper-base", 70_627_840)
+    assert (len(model.enc), len(model.dec)) == (6, 6)
+    assert tuple(model.dec[0].cross_attn["wq"].shape) == (512, 8, 64)
+    assert tuple(model.enc[0].mlp["wi"].shape) == (512, 2048)
+    assert "wg" not in model.enc[0].mlp
+
+
 def _holds_the_reference_parameters(arch, n_params):
     import collections
 
     import jax
 
     from repro.models import registry as ref_registry
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.transformer import DecoderLM
 
     cfg = port_configs.get_config(arch)
-    model = DecoderLM(cfg, "meta")
+    model = (EncDecLM if cfg.encoder_decoder else DecoderLM)(cfg, "meta")
     got = collections.Counter(tuple(p.shape) for p in model.parameters())
     ref_cfg = ref_configs.get_config(arch)
     shapes = jax.eval_shape(ref_registry.make_task(ref_cfg).init,
@@ -96,7 +108,8 @@ def _holds_the_reference_parameters(arch, n_params):
     want = collections.Counter()
     for name, tree in shapes.items():
         for leaf in jax.tree_util.tree_leaves(tree):
-            if name.startswith("seg"):          # stacked over the repeats
+            # stacked over the repeats, or over an encoder-decoder's layers
+            if name.startswith("seg") or name in ("enc", "dec"):
                 want[tuple(leaf.shape[1:])] += leaf.shape[0]
             else:
                 want[tuple(leaf.shape)] += 1

@@ -452,6 +452,31 @@
    kernels' counters are zeroed before (a) and read after (b): none lies
    on this path (0 expected).
 
+19. The LM mesh and the cross-pod merge (``lm_mesh_path``): (a)
+   ``core/local_sgd.outer_merge`` over 2 gloo ranks sharing the card
+   (``python3 chip_smoke.py --mesh-rank SPEC RANK``), each pod holding
+   smollm-135m's parameter tree (the seeded init plus a pod-seeded step):
+   average without and with int8 compression, with outer momentum, with
+   a dead pod, random and miniloss_global with and without one, every
+   merged tree bitwise against the same formulas over all pods' trees in
+   one process; (b) the expert-parallel MoE dispatch
+   (``models/moe._apply_moe_shardmap``) of one qwen2-moe-a2.7b MoE layer
+   at full width (d 2,048, 60 experts padded to 64, top-4, ffn 1,408) in
+   fp32 over 4 gloo ranks (a 2 x 2 (data, model) mesh) sharing the card,
+   B = 4 x 128 tokens, at cf = E / K: each rank's rows within
+   ``MESH_MOE_TOL`` of the scatter path on the whole batch, the dispatch
+   taken, a call's time and its collectives' wire bytes (both ranks
+   groups start together and run beside (c)); (c) ``train.loop.Trainer``
+   over a one-rank NCCL mesh (``launch.mesh.make_mesh_for_devices(1)``)
+   against the mesh-less ``Trainer``: smollm-135m at full width and depth,
+   4 adamw steps of 8 x 512 tokens, losses and parameters bitwise; (d)
+   ``python -m repro_torch.launch.dryrun --arch smollm-135m --shape
+   train_4k`` on the (16, 16) and (2, 16, 16) meshes, each in a process
+   of its own that sees no card (started with phase 17): exit 0, status
+   ok, peak under 16 GB a device, the analytic model FLOPs, traced FLOPs
+   above 0.  The kernels' counters are zeroed before (c) and read after
+   it: none lies on this path (0 expected).
+
 Prints the card's name and power limit, one JSON line with the kernel table
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device, outside a checkout of the repository, or when
@@ -5032,25 +5057,37 @@ ENC_LAUNCHER = ["--arch", "whisper-base", "--batch", "4", "--prompt-len",
 
 
 def start_lm_launchers():
-    """Start phase 17's serve launcher and phase 18's train launcher, once
-    for both phases, each in a process of its own: they run beside the
-    phases' in-process parts, and each phase joins its own.  Returns
-    ``{"serve": started, "train": started}``."""
+    """Start phase 17's serve launcher, phase 18's train launcher and phase
+    19's two production dry-runs, once for all three phases, each in a
+    process of its own: they run beside the phases' in-process parts, and
+    each phase joins its own.  Returns ``{"serve": started, "train":
+    started, "dryrun16": started, "dryrun2x16": started, "dryrun_dir":
+    the dry-runs' output directory}``."""
     if not _LM_LAUNCHERS:
         import atexit
         import shutil
 
         logdir = tempfile.mkdtemp(prefix="chip_smoke_lm_")
-        for label, module, argv in (
-                ("serve", "repro_torch.launch.serve", ENC_LAUNCHER),
-                ("train", "repro_torch.launch.train", TRAIN_LAUNCHER)):
-            _LM_LAUNCHERS[label] = _start(
-                [(label, [sys.executable, "-m", module] + argv)], logdir)
+        records = os.path.join(logdir, "dryrun")
+        _LM_LAUNCHERS["dryrun_dir"] = records
+        # the dry-runs see no card (CUDA_VISIBLE_DEVICES empty)
+        dryrun = ["env", "CUDA_VISIBLE_DEVICES=", sys.executable, "-m",
+                  "repro_torch.launch.dryrun", "--arch", "smollm-135m",
+                  "--shape", "train_4k", "--out", records]
+        for label, argv in (
+                ("serve", [sys.executable, "-m", "repro_torch.launch.serve"]
+                 + ENC_LAUNCHER),
+                ("train", [sys.executable, "-m", "repro_torch.launch.train"]
+                 + TRAIN_LAUNCHER),
+                ("dryrun16", dryrun),
+                ("dryrun2x16", dryrun + ["--multi-pod"])):
+            _LM_LAUNCHERS[label] = _start([(label, argv)], logdir)
         # a phase that fails before joining its launcher leaves none
         # running
-        atexit.register(lambda: [_join(started, 0) for started in
-                                 _LM_LAUNCHERS.values()
-                                 if started[1][0][2].poll() is None])
+        atexit.register(lambda: [_join(started, 0) for label, started in
+                                 _LM_LAUNCHERS.items()
+                                 if label != "dryrun_dir"
+                                 and started[1][0][2].poll() is None])
         atexit.register(shutil.rmtree, logdir, True)
     return _LM_LAUNCHERS
 
@@ -5605,6 +5642,480 @@ def lm_train_path(torch):
     return info, launches
 
 
+MESH_OUTER_RANKS = 2
+MESH_OUTER_CASES = (
+    ("average-none", dict(strategy="average", compress="none")),
+    ("average-int8", dict(strategy="average", compress="int8")),
+    ("average-int8-mom", dict(strategy="average", compress="int8",
+                              outer_momentum=0.9)),
+    ("average-int8-live", dict(strategy="average", compress="int8"), True),
+    ("average-none-live", dict(strategy="average", compress="none"), True),
+    ("random", dict(strategy="random", compress="none")),
+    ("random-live", dict(strategy="random", compress="none"), True),
+    ("miniloss", dict(strategy="miniloss_global", compress="none")),
+    ("miniloss-live", dict(strategy="miniloss_global", compress="none"),
+     True),
+)
+MESH_MOE = dict(arch="qwen2-moe-a2.7b", batch=4, seq=128)
+MESH_MOE_TOL = 1e-5
+MESH_MOE_REPS = 5
+MESH_TRAIN = dict(batch=8, seq=512, steps=4)
+MESH_RANK_S = 300           # every mesh rank's bound
+MESH_DRYRUN_S = 600         # the dry-run subprocesses' bound (started early)
+MESH_DRYRUN_GB = 16.0
+MESH_REDUCED = False        # a CPU rehearsal's reduced widths, in the ranks
+
+
+def mesh_config(arch, reduced=False, **overrides):
+    """``arch``'s full-width config (reduced in a CPU rehearsal)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch, reduced=reduced),
+                               **overrides)
+
+
+def mesh_outer_params(torch, pod: int, reduced=False):
+    """Pod ``pod``'s smollm-135m parameter tree on the card: the seeded
+    init (the shared anchor) plus a pod-seeded step of 1e-3."""
+    from repro_torch.models import registry
+    from repro_torch.train import loop
+
+    cfg = mesh_config("smollm-135m", reduced)
+    model = registry.make_task(cfg, DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(0))
+    anchor = {k: v.clone() for k, v in loop.named_params(model).items()}
+    del model
+    gen = torch.Generator(device=DEVICE).manual_seed(100 + pod)
+    params = {k: a + 1e-3 * torch.randn(a.shape, generator=gen,
+                                        device=DEVICE)
+              for k, a in anchor.items()}
+    return anchor, params
+
+
+def mesh_outer_expected(torch, case, pods, anchor, losses, draws, live):
+    """The merge of every pod's tree computed in one process, the
+    reference's formulas over the pod axis in pod order: (merged,
+    momentum or None)."""
+    from repro_torch.core import local_sgd
+
+    cfg = local_sgd.OuterConfig(**case)
+    M = len(pods)
+    lv = [torch.tensor(float(x), device=DEVICE) for x in live]
+    n_live = torch.clamp_min(sum(lv[1:], lv[0]), 1.0)
+    if cfg.strategy == "average":
+        mom0 = {k: torch.zeros_like(a) for k, a in anchor.items()} \
+            if cfg.outer_momentum > 0 else None
+        merged, mom = {}, None if mom0 is None else {}
+        for k, a in anchor.items():
+            deltas = [p[k] - a for p in pods]
+            if cfg.compress == "none":
+                parts = [d * lv[i] for i, d in enumerate(deltas)]
+                mean = sum(parts[1:], parts[0]) / n_live
+            else:
+                amax = [torch.max(torch.abs(d)) * lv[i]
+                        for i, d in enumerate(deltas)]
+                gmax = torch.stack(amax).max()
+                scale = gmax / 127.0 + 1e-12
+                qs = [torch.where(lv[i] > 0, torch.clamp(torch.round(
+                    d / scale), -127, 127).to(torch.int8),
+                    torch.zeros_like(d, dtype=torch.int8)).to(torch.int32)
+                    for i, d in enumerate(deltas)]
+                acc = sum(qs[1:], qs[0])
+                dt = a.dtype
+                mean = acc.to(dt) * scale.to(dt) / n_live
+            if mom0 is not None:
+                mu = cfg.outer_momentum
+                mom[k] = mu * mom0[k] + mean
+                step = mu * mom[k] + mean
+            else:
+                step = mean
+            merged[k] = a + cfg.outer_lr * step
+        return merged, mom
+    W = M
+    pri = [float(draws[i]) if cfg.strategy == "random"
+           else -float(losses[i]) for i in range(M)]
+    score = [(pri[i] if live[i] > 0 else float("-inf")) * W - i
+             for i in range(M)]
+    win = max(range(M), key=lambda i: (score[i], -i))
+    return {k: pods[win][k].clone() for k in anchor}, None
+
+
+def mesh_rank(spec_path, rank):
+    """One gloo rank of phase 19, run as ``python3 chip_smoke.py
+    --mesh-rank SPEC RANK`` by ``lm_mesh_path``: (a) ``outer_merge`` over a
+    ("pod",) mesh, every case against the one-process formula on all
+    pods' trees; (b) the expert-parallel MoE dispatch over a (data, model)
+    mesh against the scatter path on the whole batch.  Writes its
+    results to the spec's output prefix."""
+    import faulthandler
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    faulthandler.enable()       # a crash prints its Python stack
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    global DEVICE
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    # a rank that hangs shows where, before its bound kills it
+    faulthandler.dump_traceback_later(spec["bound_s"] - 20, exit=True)
+    DEVICE = spec["device"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    else:                      # a rehearsal on the CPU: nothing to sync
+        torch.cuda.synchronize = lambda: None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], spec["M"]),
+        world_size=spec["M"], rank=rank,
+        timeout=timedelta(seconds=SHARD_COLLECTIVE_S))
+    try:
+        out = (_mesh_outer_rank if spec["suite"] == "outer"
+               else _mesh_moe_rank)(torch, spec, rank, init_device_mesh)
+    finally:
+        dist.destroy_process_group()
+    name = f"{spec['out']}.rank{rank}"
+    with open(name + ".tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(name + ".tmp", name)
+
+
+def _mesh_outer_rank(torch, spec, rank, init_device_mesh):
+    from repro_torch.core import local_sgd
+
+    M = spec["M"]
+    mesh = init_device_mesh(DEVICE, (M,), mesh_dim_names=("pod",))
+    pods = []
+    for pod in range(M):
+        anchor, params = mesh_outer_params(torch, pod, spec["reduced"])
+        pods.append(params)
+    losses = [2.0 + 0.25 * ((3 * i) % M) for i in range(M)]
+    draws = [((7 * i + 3) % 11) / 11.0 for i in range(M)]
+    dead = [1.0] * (M - 1) + [0.0]
+    res = {"n_params": sum(t.numel() for t in anchor.values())}
+    for label, case, *live in MESH_OUTER_CASES:
+        cfg = local_sgd.OuterConfig(**case)
+        live = dead if live else [1.0] * M
+        t0 = time.perf_counter()
+        merged, new = local_sgd.outer_merge(
+            pods[rank], local_sgd.OuterState.init(anchor, cfg), cfg,
+            mesh=mesh, local_loss=losses[rank], draw=draws[rank],
+            liveness=live[rank] if live != [1.0] * M else None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        want, want_mom = mesh_outer_expected(torch, case, pods, anchor,
+                                             losses, draws, live)
+        bits = all(bits_equal(merged[k], want[k]) for k in want)
+        if want_mom is not None:
+            bits = bits and all(bits_equal(new.momentum[k], want_mom[k])
+                                for k in want_mom)
+        res[label] = {"bitwise": bits, "seconds": seconds,
+                      "max_abs_err": max_err([merged[k] for k in want],
+                                             list(want.values()))}
+    return res
+
+
+def mesh_moe_inputs(torch, cfg, seed=0):
+    """One MoE layer's parameters at ``cfg``'s width and a batch of
+    tokens' activations, seeded, on the card (fp32)."""
+    from repro_torch.models import moe
+
+    p = moe.init_moe(torch.Generator(device=DEVICE).manual_seed(seed), cfg,
+                     DEVICE)
+    x = torch.randn((MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model),
+                    generator=torch.Generator(device=DEVICE).manual_seed(
+                        seed + 1), device=DEVICE)
+    return p, x
+
+
+def _mesh_moe_rank(torch, spec, rank, init_device_mesh):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.parallel import util as par
+    from repro_torch.roofline import hlo_cost
+
+    mesh = init_device_mesh(DEVICE, (2, 2), mesh_dim_names=("data", "model"))
+    base = mesh_config(MESH_MOE["arch"], spec["reduced"])
+    cfg = dataclasses.replace(base, dtype=torch.float32,
+                              capacity_factor=base.n_experts / base.top_k,
+                              sharding_profile="fsdp_tp")
+    p, x = mesh_moe_inputs(torch, cfg)
+    with torch.no_grad():
+        want, want_aux = moe._apply_moe_scatter(p, x, cfg)
+    # this rank's block of experts, whole over data: what
+    # parallel.util.local_params hands the dispatch under fsdp_tp.  Cut by
+    # hand: DTensor's gathers are functional collectives, which crash on
+    # CUDA tensors over gloo (a SIGSEGV in wait_tensor, torch 2.11 on the
+    # H100); they ran in the CPU tests and over NCCL in (c)
+    e_loc = moe.padded_experts(cfg) // 2
+    j = mesh.get_local_rank("model")
+    with torch.no_grad():
+        for name in ("wi", "wg", "wo"):
+            block = getattr(p, name)[j * e_loc:(j + 1) * e_loc].clone()
+            setattr(p, name, torch.nn.Parameter(block, requires_grad=False))
+    rows = x.shape[0] // 2
+    lo = mesh.get_local_rank("data") * rows
+    x_loc = x[lo:lo + rows].contiguous()
+    calls = []
+    real = moe._apply_moe_shardmap
+
+    def dispatch():
+        with par.use_mesh(mesh, ("data",), cfg.sharding_profile), \
+                torch.no_grad():
+            return moe.apply_moe(p, x_loc, cfg)
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    moe._apply_moe_shardmap = counted
+    try:
+        out, aux = dispatch()
+    finally:
+        moe._apply_moe_shardmap = real
+    mode = hlo_cost.CostMode()
+    with mode:
+        dispatch()
+    cost = hlo_cost.analyze(mode)
+    times = []
+    for _ in range(MESH_MOE_REPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append(time.perf_counter() - t0)
+    return {"calls": len(calls), "e_loc": int(p.wi.shape[0]),
+            "max_abs_err": max_err([out], [want[lo:lo + rows]]),
+            "aux_err": abs(float(aux) - float(want_aux)),
+            "call_ms": 1e3 * min(times), "call_ms_all": [1e3 * t for t in
+                                                         times],
+            "wire_bytes": cost.coll_wire_bytes,
+            "collectives": {k: [cost.coll_counts[k], cost.coll_by_op[k]]
+                            for k in cost.coll_by_op},
+            "flops": cost.flops, "bytes": cost.bytes_accessed,
+            "tokens": int(x_loc.shape[0] * x_loc.shape[1])}
+
+
+def mesh_dryrun_check(ok, label, rc, out, seconds, records_dir, tag):
+    """A production dry-run subprocess's record checked as the slow test
+    checks it: exit 0, ``status`` ok, the peak under 16 GB, the model
+    FLOPs the analytic count and traced FLOPs positive."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.roofline import analysis
+
+    path = os.path.join(records_dir, tag, "smollm-135m__train_4k.json")
+    rec = {}
+    if rc == 0 and os.path.exists(path):
+        with open(path) as f:
+            rec = json.load(f)
+    else:
+        print(out[-4000:], flush=True)
+    want = analysis.model_flops(configs.get_config("smollm-135m"),
+                                registry.SHAPES["train_4k"])
+    ok[f"d_{label}_exit_0"] = rc == 0
+    ok[f"d_{label}_ok"] = rec.get("status") == "ok"
+    ok[f"d_{label}_peak_under_16gb"] = rec.get("memory", {}).get(
+        "peak_per_device_gb", 1e9) < MESH_DRYRUN_GB
+    ok[f"d_{label}_model_flops"] = rec.get("roofline", {}).get(
+        "model_flops") == want
+    ok[f"d_{label}_flops"] = rec.get("hlo_cost", {}).get("flops", 0) > 0
+    return {"rc": rc, "seconds": seconds,
+            "record": {k: rec.get(k) for k in (
+                "status", "memory", "hlo_cost", "roofline", "lower_s",
+                "compile_s", "depth_traced")}}
+
+
+def lm_mesh_path(torch):
+    """The LM mesh (item 19 of the module docstring).  Returns the path's
+    info and its launches of each kernel (none lies on it: 0 expected)."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import rank_topk, transe_score as ts
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import registry
+    from repro_torch.parallel import util as par
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt_lib
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    info = {"card": card, "part_s": {}}
+    ok = {}
+    marks = [t_phase]
+
+    def part_done(label):
+        marks.append(time.perf_counter())
+        info["part_s"][label] = marks[-1] - marks[-2]
+
+    rank_topk.rank_counts.launches = 0     # --- LM mesh path ---
+    ts.transe_score.launches = 0
+    ts.transe_score_bwd.launches = 0
+
+    # (a) and (b): the gloo rank groups, started together, sharing the card
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    cmds = []
+    specs = {}
+    for suite, M in (("outer", MESH_OUTER_RANKS), ("moe", 4)):
+        spec = {"suite": suite, "M": M, "device": DEVICE,
+                "reduced": MESH_REDUCED, "bound_s": MESH_RANK_S,
+                "store": os.path.join(tmp.name, f"store_{suite}"),
+                "out": os.path.join(tmp.name, f"res_{suite}")}
+        specs[suite] = spec
+        path = os.path.join(tmp.name, f"spec_{suite}")
+        with open(path, "wb") as f:
+            pickle.dump(spec, f)
+        cmds += [(f"{suite}{r}", [sys.executable, os.path.join(
+            ROOT, "chip_smoke.py"), "--mesh-rank", path, str(r)])
+            for r in range(M)]
+    started = _start(cmds, tmp.name)
+
+    # (c) Trainer over a one-rank NCCL mesh against the mesh-less Trainer,
+    # smollm-135m at full width, bitwise
+    arch = "smollm-135m"
+    cfg = lm_config(arch)
+    c = {}
+    Bt, Lt, steps = MESH_TRAIN["batch"], MESH_TRAIN["seq"], \
+        MESH_TRAIN["steps"]
+    opt_cfg = opt_lib.OptConfig(name="adamw", learning_rate=TRAIN_LR,
+                                warmup_steps=1, decay_steps=steps)
+
+    def train(mesh):
+        task = registry.make_task(cfg, DEVICE)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=Lt, global_batch=Bt, seed=0))
+        tr = loop.Trainer(task, pipe, opt_cfg, loop.TrainConfig(
+            steps=steps, log_every=0), mesh=mesh)
+        (params, _), seconds = wall(torch, lambda: tr.run(seed=0,
+                                                          resume=False))
+        return tr.history, par.full_tree(loop.named_params(params)), seconds
+
+    h0, p0, c["plain_s"] = train(None)
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(tmp.name, "nccl"), 1),
+        world_size=1, rank=0, timeout=timedelta(seconds=SHARD_COLLECTIVE_S))
+    try:
+        mesh = make_mesh_for_devices(1, device=DEVICE)
+        h1, p1, c["mesh_s"] = train(mesh)
+    finally:
+        dist.destroy_process_group()
+    c["history"], c["mesh_history"] = h0, h1
+    ok["c_losses_bitwise"] = h0 == h1
+    ok["c_params_bitwise"] = set(p0) == set(p1) and all(
+        bits_equal(p0[k], p1[k]) for k in p0)
+    ok["c_params_on_card"] = all(t.device.type == torch.device(DEVICE).type
+                                 for t in p1.values())
+    c["max_abs_err"] = max_err([p1[k] for k in p0], list(p0.values()))
+    info["c"] = c
+    print(f"lm_mesh (c) {arch} Trainer over a one-rank NCCL (1, 1) mesh on "
+          f"{card}: {steps} steps of {Bt} x {Lt} tokens, losses {h1} "
+          f"against {h0}, max param err {c['max_abs_err']}; "
+          f"{c['mesh_s']:.2f} s against {c['plain_s']:.2f} s", flush=True)
+    del p0, p1
+    lm_free(torch)
+    part_done("c")
+    launches = {"rank_counts": rank_topk.rank_counts.launches,
+                "transe_score": ts.transe_score.launches,
+                "transe_score_bwd": ts.transe_score_bwd.launches}
+    # --- end ---
+
+    joined = _join(started, MESH_RANK_S)
+    res = {}
+    for suite, spec in specs.items():
+        res[suite] = []
+        for r in range(spec["M"]):
+            rc, out, seconds = joined[f"{suite}{r}"]
+            ok[f"rank_{suite}{r}_exit_0"] = rc == 0
+            name = f"{spec['out']}.rank{r}"
+            if rc != 0 or not os.path.exists(name):
+                print(out[-4000:], flush=True)
+                res[suite].append(None)
+                continue
+            with open(name, "rb") as f:
+                res[suite].append(pickle.load(f))
+    tmp.cleanup()
+    a = {"ranks": MESH_OUTER_RANKS}
+    for r, got in enumerate(res["outer"]):
+        for label, *_ in MESH_OUTER_CASES:
+            cell = (got or {}).get(label, {})
+            ok[f"a_{label}_rank{r}_bitwise"] = bool(cell.get("bitwise"))
+        a[f"rank{r}"] = got
+    info["a"] = a
+    if res["outer"][0]:
+        print(f"lm_mesh (a) outer_merge over {MESH_OUTER_RANKS} gloo ranks "
+              f"on {card}, smollm-135m's {res['outer'][0]['n_params']:,} "
+              f"parameters: " + ", ".join(
+                  f"{label} {res['outer'][0][label]['seconds']:.3f} s "
+                  f"bitwise={res['outer'][0][label]['bitwise']}"
+                  for label, *_ in MESH_OUTER_CASES), flush=True)
+    b = {"ranks": res["moe"]}
+    for r, got in enumerate(res["moe"]):
+        got = got or {}
+        ok[f"b_rank{r}_expert_parallel"] = got.get("calls") == 1
+        ok[f"b_rank{r}_matches_scatter"] = got.get(
+            "max_abs_err", 1e9) <= MESH_MOE_TOL and got.get(
+            "aux_err", 1e9) <= MESH_MOE_TOL
+    info["b"] = b
+    if res["moe"][0]:
+        g = res["moe"][0]
+        print(f"lm_mesh (b) qwen2-moe-a2.7b MoE layer (d 2048, 64 padded "
+              f"experts, top-4, ffn 1408) over a 2 x 2 gloo mesh on {card}: "
+              f"{g['tokens']} tokens a rank, {g['e_loc']} experts a rank, "
+              f"max err {max(x['max_abs_err'] for x in res['moe'] if x)} "
+              f"against the scatter path, a call {g['call_ms']:.2f} ms "
+              f"(best of {MESH_MOE_REPS}), {g['wire_bytes']:.0f} wire bytes "
+              f"a call ({g['collectives']})", flush=True)
+    part_done("ab")
+
+    # (d) the production dry-runs, started with phase 17
+    runs = start_lm_launchers()
+    d = {}
+    for label, tag in (("dryrun16", "pod16x16"),
+                       ("dryrun2x16", "pod2x16x16")):
+        rc, out, seconds = _join(runs[label], MESH_DRYRUN_S)[label]
+        d[label] = mesh_dryrun_check(ok, label, rc, out, seconds,
+                                     _LM_LAUNCHERS["dryrun_dir"], tag)
+        r = d[label]["record"]
+        if r.get("status") == "ok":
+            print(f"lm_mesh (d) dry-run smollm-135m x train_4k on {tag}: "
+                  f"{seconds:.1f} s, peak {r['memory']['peak_per_device_gb']}"
+                  f" GB a device, {r['hlo_cost']['flops']:.4g} FLOPs a "
+                  f"device, bottleneck {r['roofline']['bottleneck']} "
+                  "(modelled on the H100 SXM data sheet, not measured)",
+                  flush=True)
+    info["d"] = d
+    part_done("d")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["ok"] = ok
+    print(f"lm_mesh took {info['phase_s']:.1f} s on {smi_line()} (by part: "
+          f"{json.dumps(info['part_s'])})", flush=True)
+    failed = [k for k, v in ok.items() if not v]
+    if failed:
+        fail(f"lm_mesh checks failed: {failed}")
+    for name, count in launches.items():
+        if count != 0:
+            fail(f"{name} launched {count} times on the LM mesh path, "
+                 "where no kernel lies")
+    return info, launches
+
+
 def main():
     import torch
 
@@ -5679,6 +6190,7 @@ def main():
     enc_info, enc_launches = phase("lm_encdec", lm_encdec_path, torch)
     train_lm_info, train_lm_launches = phase("lm_train", lm_train_path,
                                              torch)
+    mesh_info, mesh_launches = phase("lm_mesh", lm_mesh_path, torch)
     info.update(build_s=build_s, graph=graph_info, training=train_info,
                 phase_s=phase_s, depth_cut={
                     "divisor": DEPTH_CUT, "train": len(cut.train),
@@ -5691,7 +6203,8 @@ def main():
                 stale_sharded=stale_info, online=online_info,
                 entry_points=entry_info, shard_map=shard_info,
                 lm_serving=lm_info, lm_moe=moe_info, lm_recurrent=rec_info,
-                lm_encdec=enc_info, lm_train=train_lm_info)
+                lm_encdec=enc_info, lm_train=train_lm_info,
+                lm_mesh=mesh_info)
     init_rank = init_metrics["entity_filtered"]["mean_rank"]
     trained_rank = info["metrics"]["entity_filtered"]["mean_rank"]
     print(f"filtered mean rank: init {init_rank}, SGD-trained "
@@ -5719,7 +6232,7 @@ def main():
         + entry_launches["rank_counts"] + shard_launches["rank_counts"]
         + lm_launches["rank_counts"] + moe_launches["rank_counts"]
         + rec_launches["rank_counts"] + enc_launches["rank_counts"]
-        + train_lm_launches["rank_counts"],
+        + train_lm_launches["rank_counts"] + mesh_launches["rank_counts"],
         "launches_by_path": {"serving": launches,
                              "eval_resume": phase_launches["rank_counts"],
                              "device_pipeline":
@@ -5737,7 +6250,8 @@ def main():
                              "lm_moe": moe_launches["rank_counts"],
                              "lm_recurrent": rec_launches["rank_counts"],
                              "lm_encdec": enc_launches["rank_counts"],
-                             "lm_train": train_lm_launches["rank_counts"]},
+                             "lm_train": train_lm_launches["rank_counts"],
+                             "lm_mesh": mesh_launches["rank_counts"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "count_mismatches": sum(c["count_mismatches"] for c in cases),
         "ms": main_case["ms"], "call_ms": main_case["call_ms"],
@@ -5770,7 +6284,8 @@ def main():
             + online_launches[kname] + entry_launches[kname]
             + shard_launches[kname] + lm_launches[kname]
             + moe_launches[kname] + rec_launches[kname]
-            + enc_launches[kname] + train_lm_launches[kname],
+            + enc_launches[kname] + train_lm_launches[kname]
+            + mesh_launches[kname],
             "launches_by_path": {"training": n,
                                  "eval_resume": phase_launches[kname],
                                  "device_pipeline": device_launches[kname],
@@ -5786,7 +6301,8 @@ def main():
                                  "lm_moe": moe_launches[kname],
                                  "lm_recurrent": rec_launches[kname],
                                  "lm_encdec": enc_launches[kname],
-                                 "lm_train": train_lm_launches[kname]},
+                                 "lm_train": train_lm_launches[kname],
+                                 "lm_mesh": mesh_launches[kname]},
             "kernels": list(TRANSE_KERNELS[key]),
             "max_abs_err": max(c[f"{key}_max_abs_err"] for c in ts_cases),
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
@@ -5815,7 +6331,7 @@ def main():
                                    "online", "entry_points", "shard_map",
                                    "lm_serving", "lm_moe",
                                    "lm_recurrent", "lm_encdec",
-                                   "lm_train")}),
+                                   "lm_train", "lm_mesh")}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -5826,5 +6342,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-rank"]:
         shard_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

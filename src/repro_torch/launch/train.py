@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.util import not_ported
 
 
 def _run_kg(args):
@@ -413,9 +412,12 @@ def main(argv=None):
 
 
 def _run_lm(args):
-    """The token-LM path: ``Trainer`` on one device.  Returns the
-    trainer (its ``history`` the loss of every step)."""
-    import torch
+    """The token-LM path: ``Trainer``, over a mesh with ``--mesh pod`` /
+    ``multi-pod`` (every one of 256 / 512 ranks runs this, its process
+    group initialised first; raises ``ValueError`` without them) or
+    ``single`` on a process group of several ranks, else on one device.
+    Returns the trainer (its ``history`` the loss of every step)."""
+    import torch.distributed as dist
 
     from repro_torch import configs, resolve_device
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
@@ -430,10 +432,18 @@ def _run_lm(args):
         raise SystemExit(
             "this CLI trains token-LM archs; see examples/ for the "
             "multimodal training drivers")
-    if args.mesh in ("pod", "multi-pod") or (
-            args.mesh == "single" and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise not_ported(f"--mesh {args.mesh} (the LM mesh)", "16f")
+    mesh = None
+    if args.mesh in ("pod", "multi-pod"):
+        from repro_torch.launch.mesh import make_production_mesh
+
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi-pod",
+                                    device=device.type)
+    elif args.mesh == "single" and dist.is_available() \
+            and dist.is_initialized() and dist.get_world_size() > 1:
+        from repro_torch.launch.mesh import make_mesh_for_devices
+
+        mesh = make_mesh_for_devices(dist.get_world_size(),
+                                     device=device.type)
 
     pipe = TokenPipeline(TokenPipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
@@ -446,7 +456,7 @@ def _run_lm(args):
         steps=args.steps, microbatches=args.microbatches,
         log_every=max(args.steps // 20, 1),
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
-    trainer = loop_lib.Trainer(task, pipe, opt_cfg, tcfg)
+    trainer = loop_lib.Trainer(task, pipe, opt_cfg, tcfg, mesh=mesh)
     trainer.run(seed=args.seed)
     print(f"final loss: {trainer.history[-1]:.4f} "
           f"(start {trainer.history[0]:.4f})")

@@ -20,13 +20,14 @@ from typing import List, NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, common
 from repro_torch.models.common import (
     ModelConfig, layer_norm, ones_init, sinusoidal_at, sinusoidal_positions,
     zeros_init)
+from repro_torch.parallel import util as par
+from repro_torch.parallel.util import constrain_batch
 
 
 def _init_ln(cfg: ModelConfig, device) -> nn.ParameterDict:
@@ -84,7 +85,8 @@ def _enc_block(p: EncBlock, x, positions, cfg: ModelConfig):
                                        kind="global", causal=False)
     x = x + out
     h = _ln(p.ln2, x, cfg)
-    return x + common.apply_mlp(p.mlp, h, cfg)
+    x = x + common.apply_mlp(p.mlp, h, cfg)
+    return constrain_batch(x, cfg.sharding_profile)
 
 
 def _dec_block(p: DecBlock, x, positions, cfg: ModelConfig, memory=None,
@@ -108,7 +110,13 @@ def _dec_block(p: DecBlock, x, positions, cfg: ModelConfig, memory=None,
     x = x + out
     h = _ln(p.ln2, x, cfg)
     x = x + common.apply_mlp(p.mlp, h, cfg)
+    x = constrain_batch(x, cfg.sharding_profile)
     return x, (None if cache is None else DecCache(new_self, cache.cross_kv))
+
+
+def _local(fn, block, *args, **kw):
+    with par.local_params(block):
+        return fn(block, *args, **kw)
 
 
 def _memory_positions(memory: torch.Tensor) -> torch.Tensor:
@@ -150,9 +158,12 @@ class EncDecLM(nn.Module):
         return self
 
     def _remat(self, fn, *args, **kw):
+        """``fn(block, ...)`` on the block's local parameters, under
+        ``torch.utils.checkpoint`` where ``cfg.remat`` is set and autograd
+        records."""
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False, **kw)
-        return fn(*args, **kw)
+            return par.remat(_local, fn, *args, **kw)
+        return _local(fn, *args, **kw)
 
     # -- encoder ------------------------------------------------------------
 
@@ -168,7 +179,8 @@ class EncDecLM(nn.Module):
                                  device=frames.device)[None].expand(B, S)
         for block in self.enc:
             x = self._remat(_enc_block, block, x, positions, cfg)
-        return _ln(self.ln_enc, x, cfg)
+        with par.local_params(self.ln_enc):
+            return _ln(self.ln_enc, x, cfg)
 
     # -- decoder ------------------------------------------------------------
 
@@ -180,7 +192,8 @@ class EncDecLM(nn.Module):
         serving from caches).  Returns (hidden, new_caches): the caches
         one a layer, None without ``caches``."""
         cfg = self.cfg
-        x = common.embed_tokens(self.embed, tokens, cfg)
+        with par.local_params(self.embed):
+            x = common.embed_tokens(self.embed, tokens, cfg)
         x = x + sinusoidal_at(positions, cfg.d_model).to(cfg.dtype)
         mem_pos = None if memory is None else _memory_positions(memory)
         new_caches = []
@@ -190,10 +203,11 @@ class EncDecLM(nn.Module):
                 x, _ = self._remat(_dec_block, block, x, positions, cfg,
                                    memory, mem_pos)
             else:
-                x, nc = _dec_block(block, x, positions, cfg, cache=cache,
-                                   cache_index=cache_index)
+                x, nc = _local(_dec_block, block, x, positions, cfg,
+                               cache=cache, cache_index=cache_index)
                 new_caches.append(nc)
-        x = _ln(self.ln_dec, x, cfg)
+        with par.local_params(self.ln_dec):
+            x = _ln(self.ln_dec, x, cfg)
         return x, (new_caches if caches is not None else None)
 
     def init_caches(self, memory: torch.Tensor,
@@ -203,11 +217,16 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         B = memory.shape[0]
         mem_pos = _memory_positions(memory)
-        return [DecCache(
-            attention.init_kv_cache(cfg, B, length, "global", self.device),
-            attention.project_cross_kv(block.cross_attn, memory, mem_pos,
-                                       cfg))
-            for block in self.dec]
+        out = []
+        for block in self.dec:
+            with par.local_params(block.cross_attn):
+                out.append(DecCache(
+                    attention.init_kv_cache(cfg, B, length, "global",
+                                            self.device),
+                    attention.project_cross_kv(block.cross_attn, memory,
+                                               mem_pos, cfg)))
+        return out
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return common.unembed(self.embed, hidden, self.cfg)
+        with par.local_params(self.embed):
+            return common.unembed(self.embed, hidden, self.cfg)

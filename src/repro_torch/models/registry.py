@@ -10,7 +10,9 @@ A Task exposes:
 ``params`` is the module that ``init`` returns (a ``DecoderLM``, or an
 ``EncDecLM`` for the encoder-decoder task): the port's parameters live in
 the module.  ``prefill`` and ``decode_step`` run without autograd.
-``input_specs`` (the dry-run's stand-ins) is ROADMAP item 16f.
+``input_specs(shape_name)`` gives a stand-in for every input of a shape
+cell as tensors on the ``meta`` device (shape and dtype, no storage), the
+reference's ``ShapeDtypeStruct``s: what the dry-run traces.
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.train import losses
-from repro_torch.util import not_ported
 
 AUX_COEF = 0.01
 
@@ -138,7 +139,22 @@ class DecoderTask:
     # -- specs --------------------------------------------------------------
 
     def input_specs(self, shape_name: str):
-        raise not_ported("DecoderTask.input_specs (the dry-run)", "16f")
+        """{"batch": ...} (and, for a decode cell, "caches": one per
+        layer, from ``init_caches``) as ``meta`` tensors."""
+        cfg = self.cfg
+        cell = SHAPES[shape_name]
+        n_vis = cfg.vision_tokens
+        if cell.kind in ("train", "prefill"):
+            batch = {"tokens": _meta((cell.batch, cell.seq - n_vis),
+                                     torch.int32)}
+            if n_vis:
+                batch["patch_embeds"] = _meta(
+                    (cell.batch, n_vis, cfg.d_model), cfg.dtype)
+            return {"batch": batch}
+        batch = {"tokens": _meta((cell.batch, 1), torch.int32),
+                 "pos": _meta((), torch.int32)}
+        caches = DecoderLM(cfg, "meta").init_caches(cell.batch, cell.seq)
+        return {"batch": batch, "caches": caches}
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +226,29 @@ class EncDecTask:
         return params.logits(hidden), caches
 
     def input_specs(self, shape_name: str):
-        raise not_ported("EncDecTask.input_specs (the dry-run)", "16f")
+        """{"batch": ...} (and, for a decode cell, "caches": the self-KV
+        caches of the cell's length and the cross k/v over an encoder
+        memory of ``min(seq, 4 * decoder_len)`` frames) as ``meta``
+        tensors."""
+        cfg = self.cfg
+        cell = SHAPES[shape_name]
+        if cell.kind in ("train", "prefill"):
+            return {"batch": {
+                "frames": _meta((cell.batch, cell.seq, cfg.d_model),
+                                cfg.dtype),
+                "tokens": _meta((cell.batch, cfg.decoder_len), torch.int32),
+            }}
+        batch = {"tokens": _meta((cell.batch, 1), torch.int32),
+                 "pos": _meta((), torch.int32)}
+        memory = _meta((cell.batch, min(cell.seq, 4 * cfg.decoder_len),
+                        cfg.d_model), cfg.dtype)
+        with torch.no_grad():
+            caches = EncDecLM(cfg, "meta").init_caches(memory, cell.seq)
+        return {"batch": batch, "caches": caches}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def make_task(cfg: ModelConfig, device=None):

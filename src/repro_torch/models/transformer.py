@@ -19,16 +19,12 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, common, moe as moe_lib, rglru, ssm
 from repro_torch.models.common import ModelConfig, rms_norm, zeros_init
-
-
-def constrain_batch(x: torch.Tensor, profile: str) -> torch.Tensor:
-    """The identity on one device (the LM mesh is ROADMAP item 16f)."""
-    return x
+from repro_torch.parallel import util as par
+from repro_torch.parallel.util import constrain_batch
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +124,13 @@ def apply_block(p, x, positions, cfg: ModelConfig, kind: str,
     return x, new_cache, aux
 
 
+def _apply_local(p, *args, **kw):
+    """``apply_block`` on the layer's local parameters (a no-op swap
+    without an ambient mesh)."""
+    with par.local_params(p):
+        return apply_block(p, *args, **kw)
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -184,7 +187,8 @@ class DecoderLM(nn.Module):
         layer (None without ``caches``), aux the summed MoE auxiliary loss
         (0.0 without MoE)."""
         cfg = self.cfg
-        x = common.embed_tokens(self.embed, tokens, cfg)
+        with par.local_params(self.embed):
+            x = common.embed_tokens(self.embed, tokens, cfg)
         if patch_embeds is not None:
             x = torch.cat([patch_embeds.to(cfg.dtype), x], dim=1)
         x = constrain_batch(x, cfg.sharding_profile)
@@ -196,18 +200,19 @@ class DecoderLM(nn.Module):
         for i, block in enumerate(self.layers):
             cache_i = caches[i] if caches is not None else None
             if remat:
-                x, nc, aux_i = checkpoint(
-                    apply_block, block, x, positions, cfg, block.kind,
-                    use_reentrant=False)
+                x, nc, aux_i = par.remat(
+                    _apply_local, block, x, positions, cfg, block.kind)
             else:
-                x, nc, aux_i = apply_block(
+                x, nc, aux_i = _apply_local(
                     block, x, positions, cfg, block.kind, cache=cache_i,
                     cache_index=cache_index, decode=decode)
             x = constrain_batch(x, cfg.sharding_profile)
             new_caches.append(nc)
             aux_total = aux_total + aux_i
-        x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        with par.local_params(self, exclude=(self.embed, self.layers)):
+            x = rms_norm(x, self.ln_f, cfg.norm_eps)
         return x, (new_caches if caches is not None else None), aux_total
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return common.unembed(self.embed, hidden, self.cfg)
+        with par.local_params(self.embed):
+            return common.unembed(self.embed, hidden, self.cfg)

@@ -1,6 +1,7 @@
 """The ``shard_map`` backend's mesh and collectives, over
-``torch.distributed`` (port of ``repro.parallel.util``'s ``worker_map``
-and ``all_gather_deltas``).
+``torch.distributed`` (port of ``repro.parallel.util``: ``worker_map``,
+``all_gather_deltas``, ``constrain`` and ``constrain_batch``), and the
+LM mesh's ambient context and parameter gathering.
 
 In JAX one process drives a mesh of devices through ``shard_map``; in
 PyTorch the idiom is SPMD over processes: every rank calls the same
@@ -25,12 +26,18 @@ on them, so several ranks sharing one card run the same code over gloo.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import contextvars
+import dataclasses
+import functools
+import math
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 AXIS = "workers"
+AxisLike = Union[None, str, Tuple[str, ...]]
 
 
 def workers_mesh(M: int, device="cuda"):
@@ -121,13 +128,15 @@ def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     return out.to(dtype) if dtype == torch.bool else out
 
 
-def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
-    """The ranks' ``x`` reduced elementwise (``op``: 'sum', 'max' or
-    'min'), out of place; the sum adds in the backend's order."""
+def all_reduce(x: torch.Tensor, mesh, op: str = "sum",
+               axis: str = AXIS) -> torch.Tensor:
+    """The ranks' ``x`` reduced elementwise over the mesh dimension
+    ``axis`` (``op``: 'sum', 'max' or 'min'), out of place; the sum adds
+    in the backend's order."""
     out = x.clone().contiguous()
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
            "min": dist.ReduceOp.MIN}
-    dist.all_reduce(out, op=ops[op], group=mesh.get_group(AXIS))
+    dist.all_reduce(out, op=ops[op], group=mesh.get_group(axis))
     return out
 
 
@@ -197,3 +206,302 @@ def worker_map(fn: Callable, *, backend: str, mesh=None) -> Callable:
                       for w in range(lo, hi)])
         return tree_map(lambda t: all_gather(t, mesh), outs)
     return run
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh: an ambient (data, model) / (pod, data, model) DeviceMesh
+# ---------------------------------------------------------------------------
+#
+# The reference traces the LM under ``with mesh:`` and lets GSPMD place
+# every activation.  The port runs SPMD over ranks: every rank runs the
+# model on its own shard of the batch (``data_shardings``), as a
+# ``shard_map`` body would.  Parameters rest as DTensors placed by
+# ``param_shardings``; :func:`local_params` all-gathers a module's
+# parameters where they are used (within a layer, so under
+# ``torch.utils.checkpoint`` the backward gathers them again) into local
+# tensors whose gradients flow back to the resting placements: partial
+# sums over the mesh dims the batch is cut over (a reduce-scatter into a
+# sharded parameter), whole over the others.  A MoE FFN's routed experts
+# stay cut over ``model`` for the expert-parallel dispatch
+# (``models/moe._apply_moe_shardmap``).
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    mesh: object
+    batch_axes: Tuple[str, ...] = ()   # mesh dims the rank's batch is cut over
+    profile: str = "dp"
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, batch_axes: Sequence[str] = (), profile: str = "dp"):
+    """Make ``mesh`` the ambient LM mesh inside the block (the reference's
+    ``with mesh:``): ``batch_axes`` names the mesh dims this rank's batch
+    is cut over, ``profile`` the config's sharding profile."""
+    token = _MESH.set(MeshContext(mesh, tuple(batch_axes), profile))
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def mesh_context() -> Optional[MeshContext]:
+    return _MESH.get()
+
+
+def ambient_mesh():
+    """The ambient LM ``DeviceMesh``, or None."""
+    ctx = _MESH.get()
+    return None if ctx is None else ctx.mesh
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _under(ctx: MeshContext, fn, *args, **kw):
+    token = _MESH.set(ctx)
+    try:
+        return fn(*args, **kw)
+    finally:
+        _MESH.reset(token)
+
+
+def remat(fn, *args, **kw):
+    """``torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+    **kw)``, its recompute run under the ambient mesh of the forward: the
+    backward that recomputes may run on autograd's device thread, where
+    the forward's context is not set."""
+    from torch.utils.checkpoint import checkpoint
+
+    ctx = _MESH.get()
+    if ctx is not None:
+        fn = functools.partial(_under, ctx, fn)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def constrain_batch(x: torch.Tensor, profile: str) -> torch.Tensor:
+    """Pin dim0 (batch) of an activation to the data-parallel axes."""
+    axes = ("pod", "data", "model") if profile == "dp" else ("pod", "data")
+    return constrain(x, (axes,) + (None,) * (x.dim() - 1))
+
+
+def constrain(x: torch.Tensor, axes: Sequence[AxisLike]) -> torch.Tensor:
+    """Redistribute a DTensor activation to ``axes`` (one entry a dim),
+    keeping only the mesh's axes and, of a group, the longest prefix that
+    divides the dim.  The identity without an ambient mesh, and on a plain
+    tensor: under the port's mesh a plain activation is already this
+    rank's shard of the batch."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = ambient_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    from repro_torch.parallel.sharding import placements
+
+    names = set(mesh.mesh_dim_names)
+    spec = []
+    for dim, ax in zip(x.shape, tuple(axes) + (None,) * (x.dim() - len(axes))):
+        if ax is None:
+            spec.append(None)
+            continue
+        group = tuple(a for a in ((ax,) if isinstance(ax, str) else ax)
+                      if a in names)
+        kept, size = [], 1
+        for a in group:
+            nxt = size * mesh_axis_size(mesh, a)
+            if dim % nxt != 0:
+                break
+            kept.append(a)
+            size = nxt
+        spec.append(tuple(kept) if kept and size > 1 else None)
+    return x.redistribute(mesh, placements(tuple(spec), mesh))
+
+
+def keeps_model_shard(owner, name: str, placement_on_model) -> bool:
+    """Whether :func:`local_params` leaves ``owner.name`` cut over
+    ``model``: a MoE FFN's routed-expert tensor resting as ``Shard(0)``
+    over ``model`` (its padded experts divide the axis), under a ``tp`` or
+    ``fsdp_tp`` profile, where the batch is cut over every data-parallel
+    axis and they number more than one: the reference's condition for
+    its ``shard_map`` dispatch (``moe.apply_moe``)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models.moe import MoEParams
+
+    ctx = _MESH.get()
+    if (ctx is None or ctx.profile == "dp"
+            or not isinstance(owner, MoEParams)
+            or name not in ("wi", "wg", "wo")
+            or placement_on_model != Shard(0)):
+        return False
+    dp = [a for a in ("pod", "data") if a in ctx.mesh.mesh_dim_names]
+    return (all(a in ctx.batch_axes for a in dp)
+            and math.prod(mesh_axis_size(ctx.mesh, a) for a in dp) > 1)
+
+
+def _gather(p, owner, name: str, ctx: MeshContext) -> torch.Tensor:
+    from torch.distributed.tensor import Partial, Replicate
+
+    target, grads = [], []
+    for axis, pl in zip(ctx.mesh.mesh_dim_names, p.placements):
+        if axis == "model" and keeps_model_shard(owner, name, pl):
+            target.append(pl)
+            grads.append(pl)
+            continue
+        target.append(Replicate())
+        grads.append(Partial() if axis in ctx.batch_axes else Replicate())
+    return p.redistribute(ctx.mesh, target).to_local(
+        grad_placements=grads)
+
+
+@contextlib.contextmanager
+def local_params(*modules, exclude=()):
+    """Inside the block, every DTensor parameter held directly by
+    ``modules`` or their submodules (not under ``exclude``) reads as this
+    rank's local working copy: all-gathered, or its block of experts (see
+    :func:`keeps_model_shard`).  A no-op without an ambient mesh."""
+    from torch.distributed.tensor import DTensor
+
+    ctx = _MESH.get()
+    if ctx is None:
+        yield
+        return
+    skip = {id(m) for e in exclude for m in e.modules()}
+    swapped = []
+    try:
+        for module in modules:
+            for mod in module.modules():
+                if id(mod) in skip:
+                    continue
+                for name, p in list(mod._parameters.items()):
+                    if isinstance(p, DTensor):
+                        mod._parameters[name] = _gather(p, mod, name, ctx)
+                        swapped.append((mod, name, p))
+        yield
+    finally:
+        for mod, name, p in reversed(swapped):
+            mod._parameters[name] = p
+
+
+def distribute_module(module: torch.nn.Module, specs, mesh) -> None:
+    """Replace every parameter of ``module`` by a DTensor placed on
+    ``mesh`` by its spec (``specs[name]``); each rank keeps its own block
+    of the tensor it holds, with no communication (every rank holds the
+    same full values)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel.sharding import placements
+
+    for mod_name, mod in module.named_modules():
+        for name, p in list(mod._parameters.items()):
+            full = f"{mod_name}.{name}" if mod_name else name
+            dt = distribute_tensor(p.detach(), mesh,
+                                   placements(specs[full], mesh),
+                                   src_data_rank=None)
+            mod._parameters[name] = torch.nn.Parameter(
+                dt, requires_grad=p.requires_grad)
+
+
+def distribute_tree(tree, specs, mesh):
+    """A tree of tensors placed on ``mesh`` by a tree of specs of the same
+    structure (each rank keeps its block, no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel.sharding import placements
+
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return distribute_tensor(tree, mesh, placements(specs, mesh),
+                             src_data_rank=None)
+
+
+def full_tree(tree):
+    """Every DTensor of a tree all-gathered into a whole local tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: full_tree(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+def batch_shards(ctx: Optional[MeshContext]) -> int:
+    """How many distinct shards the batch is cut into on the mesh."""
+    if ctx is None:
+        return 1
+    return math.prod(mesh_axis_size(ctx.mesh, a) for a in ctx.batch_axes)
+
+
+# ---------------------------------------------------------------------------
+# collectives with gradients (the MoE dispatch's, inside one mesh dim)
+# ---------------------------------------------------------------------------
+
+def _sum(x, group):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _SumBoth(torch.autograd.Function):
+    """Sum over the group forward; the cotangents summed backward (each
+    rank's value feeds every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _SumForward(torch.autograd.Function):
+    """Sum over the group forward, the identity backward: the sum is
+    whole on every rank and the loss counts it once (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """The identity forward, the cotangents summed backward: a whole
+    tensor entering a computation cut over the group (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``jax.lax.psum`` over the mesh dims ``axes`` (one dim after the
+    other) of a value every rank feeds into its own loss: a sum forward
+    and backward."""
+    for a in axes:
+        x = _SumBoth.apply(x, mesh.get_group(a))
+    return x
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Sum over ``axis`` of partial results into a value whole on every
+    rank of it (gradient: the identity)."""
+    return _SumForward.apply(x, mesh.get_group(axis))
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``, whole on every rank of ``axis``, entering work cut over it
+    (gradient: summed over ``axis``)."""
+    return _SumBackward.apply(x, mesh.get_group(axis))

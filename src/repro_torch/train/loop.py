@@ -8,19 +8,33 @@ with fault tolerance left to ``train/ft.py``.  The parameters live in the
 task's module (``task.init``'s ``DecoderLM`` or ``EncDecLM``): a step
 takes the gradients of ``task.loss`` with respect to its named
 parameters, hands them to ``optimizer.apply`` as a dict of named tensors,
-and copies the new values back into the module.  The reference's mesh
-(``param_shardings``, the sharded ``jax.jit``) and its cross-pod outer
-loop (``TrainConfig.outer``, ``core/local_sgd.py``) are ROADMAP.md items
-16f and 16e's rest.
+and copies the new values back into the module.
+
+Over a mesh (``Trainer(mesh=...)``, the reference's sharded ``jax.jit``)
+every rank runs the same loop: the parameters and the optimizer state
+rest as DTensors placed by ``parallel.sharding.param_shardings`` /
+``opt_shardings``, the batch is cut by ``data_shardings`` (each rank
+computes on its rows), and each layer gathers its parameters where it
+uses them (``parallel.util.local_params``).  Each rank's loss is its
+rows' mean over the number of batch shards, so the gradients, reduced
+back onto the parameters' placements, are the global batch's; the
+optimizer runs on the DTensors.  ``TrainConfig.outer`` (the cross-pod
+merge, ``core/local_sgd.py``) is declared and not called, as in the
+reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import local_sgd
+from repro_torch.parallel import sharding as shard_lib
+from repro_torch.parallel import util as par
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 
@@ -33,6 +47,9 @@ class TrainConfig:
     ckpt_every: int = 50
     ckpt_dir: Optional[str] = None
     keep_ckpts: int = 3
+    # cross-pod MapReduce outer loop (None = plain synchronous DP); the
+    # reference's Trainer declares it and does not call it, nor does this
+    outer: Optional[local_sgd.OuterConfig] = None
 
 
 def named_params(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -43,13 +60,17 @@ def named_params(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
 def value_and_grad(task, params: torch.nn.Module, batch):
     """(loss, grads): ``task.loss(params, batch)`` detached, and its
     gradient with respect to every named parameter (zeros where the loss
-    does not reach one, as ``jax.grad`` gives)."""
+    does not reach one, as ``jax.grad`` gives).  Under a mesh whose batch
+    is cut into n shards, the gradient is taken of the loss over n (its
+    share of the global mean)."""
     names, leaves = zip(*params.named_parameters())
     for p in leaves:
         p.requires_grad_(True)
+    shards = par.batch_shards(par.mesh_context())
     with torch.enable_grad():
         loss = task.loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss if shards == 1 else loss / shards,
+                                    leaves, allow_unused=True)
     return loss.detach(), {
         k: torch.zeros_like(p) if g is None else g
         for k, p, g in zip(names, leaves, grads)}
@@ -85,22 +106,84 @@ def loss_and_grads(task, params: torch.nn.Module, batch,
 
 
 def make_train_step(task, opt_cfg: opt_lib.OptConfig,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1,
+                    param_shardings=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics):
     :func:`loss_and_grads`, then ``optimizer.apply``.  ``params`` is the
-    task's module, updated in place and returned."""
+    task's module, updated in place and returned.
 
-    def step(params, opt_state, batch):
-        loss, grads = loss_and_grads(task, params, batch, microbatches)
-        new, opt_state, metrics = opt_lib.apply(
-            named_params(params), grads, opt_state, opt_cfg)
-        with torch.no_grad():
-            for k, p in params.named_parameters():
-                p.copy_(new[k])
+    With ``param_shardings`` ({name: spec}) the step runs over a mesh:
+    the parameters and optimizer state are DTensors on it, ``batch`` is a
+    dict of DTensors cut by ``data_shardings`` (:func:`shard_batch`), and
+    each gradient is pinned to its parameter's placements.  The loss in
+    the metrics is the global batch's mean; each rank splits its own rows
+    into at most ``microbatches`` that divide them.  The step's two halves
+    are ``step.grads(params, batch) -> (loss, grads)`` and
+    ``step.update(params, opt_state, grads, loss)`` (the dry-run traces
+    them apart)."""
+
+    def grads(params, batch):
+        """(loss, grads) of the step: the global batch's mean loss."""
+        if param_shardings is None:
+            return loss_and_grads(task, params, batch, microbatches)
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        first = next(iter(batch.values()))
+        mesh = first.device_mesh
+        axes = tuple(a for a, pl in zip(mesh.mesh_dim_names,
+                                        first.placements) if pl.is_shard())
+        local = {k: v.to_local() for k, v in batch.items()}
+        # the rank splits its own rows: never into more microbatches than
+        # they divide into (the reference splits the global batch; the
+        # mean over microbatches is the same)
+        mb = math.gcd(microbatches, first.to_local().shape[0])
+        with par.use_mesh(mesh, axes, task.cfg.sharding_profile):
+            loss, grads = loss_and_grads(task, params, local, mb)
+            shards = par.batch_shards(par.mesh_context())
+        grads = {k: _pin(g, shard_lib.placements(param_shardings[k], mesh))
+                 for k, g in grads.items()}
+        loss = DTensor.from_local(
+            (loss / shards).reshape(()), mesh,
+            [Partial() if a in axes else Replicate()
+             for a in mesh.mesh_dim_names]).full_tensor()
+        return loss, grads
+
+    def update(params, opt_state, grads, loss):
+        """``optimizer.apply``, the new values copied into ``params``."""
+        with contextlib.ExitStack() as stack:
+            if param_shardings is not None:
+                from torch.distributed.tensor.experimental import \
+                    implicit_replication
+                stack.enter_context(implicit_replication())
+            new, opt_state, metrics = opt_lib.apply(
+                named_params(params), grads, opt_state, opt_cfg)
+            with torch.no_grad():
+                for k, p in params.named_parameters():
+                    p.copy_(new[k])
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    def step(params, opt_state, batch):
+        loss, g = grads(params, batch)
+        return update(params, opt_state, g, loss)
+
+    step.grads, step.update = grads, update
     return step
+
+
+def _pin(g, placements):
+    """A gradient on its parameter's placements (a redistribution only
+    where autograd left it elsewhere)."""
+    if tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(g.device_mesh, placements)
+
+
+def shard_batch(batch, specs, mesh):
+    """The global batch as DTensors cut by ``specs`` (``data_shardings``):
+    every rank keeps its rows of the full host batch, with no
+    communication."""
+    return par.distribute_tree(batch, specs, mesh)
 
 
 def _to_device(tree, device):
@@ -114,17 +197,60 @@ class Trainer:
     step loop over ``pipeline.batch(step)``, the loss history, logging,
     asynchronous checkpoints every ``ckpt_every`` steps and a final
     save.  A failure inside the loop waits for the checkpoint in flight
-    to commit before it propagates."""
+    to commit before it propagates.
+
+    With ``mesh`` (a ``DeviceMesh`` over ``("data", "model")`` or
+    ``("pod", "data", "model")``, ``launch/mesh.py``) every rank of the
+    mesh runs the loop: the parameters and optimizer state are placed by
+    the config's profile, each batch cut by ``data_shardings``; a
+    checkpoint holds the whole tensors, written by the mesh's first rank
+    (every rank restores from it)."""
 
     def __init__(self, task, pipeline, opt_cfg: opt_lib.OptConfig,
-                 train_cfg: TrainConfig):
+                 train_cfg: TrainConfig, mesh=None):
         self.task = task
         self.pipeline = pipeline
         self.opt_cfg = opt_cfg
         self.cfg = train_cfg
+        self.mesh = mesh
         self.saver = ckpt_lib.AsyncSaver()
-        self.step_fn = make_train_step(task, opt_cfg, train_cfg.microbatches)
+        self.step_fn = None
         self.history: list = []
+
+    def _build(self, params, opt_state):
+        """The step, and (over a mesh) the parameters and optimizer state
+        placed on it: returns (params, opt_state, batch specs or None)."""
+        if self.mesh is None:
+            self.step_fn = make_train_step(self.task, self.opt_cfg,
+                                           self.cfg.microbatches)
+            return params, opt_state, None
+        profile = self.task.cfg.sharding_profile
+        p_sh = shard_lib.param_shardings(params, self.mesh, profile)
+        o_sh = shard_lib.opt_shardings(opt_state, p_sh, self.mesh, profile)
+        b_sh = shard_lib.data_shardings(self.pipeline.batch(0), self.mesh,
+                                        profile)
+        self.step_fn = make_train_step(self.task, self.opt_cfg,
+                                       self.cfg.microbatches,
+                                       param_shardings=p_sh)
+        par.distribute_module(params, p_sh, self.mesh)
+        opt_state = par.distribute_tree(opt_state, o_sh, self.mesh)
+        return params, opt_state, b_sh
+
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.get_rank() == 0
+
+    def _save(self, step, params, opt_state, final: bool):
+        host_p = par.full_tree(named_params(params))
+        host_o = par.full_tree(opt_state)
+        if self._writer():
+            extra = {"pipeline": self.pipeline.state()}
+            if final:
+                ckpt_lib.save(self.cfg.ckpt_dir, step, host_p, host_o,
+                              extra=extra, keep=self.cfg.keep_ckpts)
+            else:
+                self.saver.save_async(self.cfg.ckpt_dir, step, host_p,
+                                      host_o, extra=extra,
+                                      keep=self.cfg.keep_ckpts)
 
     def run(self, seed: int = 0, resume: bool = True):
         """Train to ``cfg.steps``, from the latest checkpoint in
@@ -148,11 +274,16 @@ class Trainer:
                     p.copy_(stored[k])
             opt_state = _to_device(stored_opt, device)
             start = int(start)
+        params, opt_state, b_sh = self._build(params, opt_state)
 
         t0 = time.time()
         try:
             for step in range(start, cfg.steps):
                 batch = self.pipeline.batch(step)
+                if b_sh is not None:
+                    batch = shard_batch(_to_device(
+                        {k: torch.as_tensor(v) for k, v in batch.items()},
+                        device), b_sh, self.mesh)
                 params, opt_state, metrics = self.step_fn(params, opt_state,
                                                           batch)
                 loss = float(metrics["loss"])
@@ -163,10 +294,7 @@ class Trainer:
                           f"({dt / max(step + 1 - start, 1):.2f}s/step)")
                 if cfg.ckpt_dir and cfg.ckpt_every and \
                         (step + 1) % cfg.ckpt_every == 0:
-                    self.saver.save_async(
-                        cfg.ckpt_dir, step + 1, named_params(params),
-                        opt_state, extra={"pipeline": self.pipeline.state()},
-                        keep=cfg.keep_ckpts)
+                    self._save(step + 1, params, opt_state, final=False)
         except BaseException:
             # the checkpoint in flight commits before the failure goes on,
             # so a restart resumes from it, and never races its writer
@@ -175,8 +303,7 @@ class Trainer:
             raise
         if cfg.ckpt_dir:
             self.saver.wait()
-            ckpt_lib.save(cfg.ckpt_dir, cfg.steps, named_params(params),
-                          opt_state,
-                          extra={"pipeline": self.pipeline.state()},
-                          keep=cfg.keep_ckpts)
+            self._save(cfg.steps, params, opt_state, final=True)
+            if self.mesh is not None and self.mesh.size() > 1:
+                torch.distributed.barrier()     # the writer's save lands
         return params, opt_state

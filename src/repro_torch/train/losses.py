@@ -14,7 +14,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel import util as par
 
 IGNORE = -100
 
@@ -58,8 +59,7 @@ def chunked_cross_entropy(
     for c0 in range(0, hidden.shape[1], chunk):
         hc = hidden[:, c0:c0 + chunk].reshape(B * chunk, d)
         yc = labels[:, c0:c0 + chunk].reshape(B * chunk)
-        s, n = checkpoint(_chunk_loss, hc, yc, unembed_fn,
-                          use_reentrant=False)
+        s, n = par.remat(_chunk_loss, hc, yc, unembed_fn)
         total = total + s
         count = count + n
     return total / torch.clamp_min(count, 1.0)

@@ -62,14 +62,6 @@ def pairwise_mean(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return exact_div(pairwise_sum(x, dim), x.shape[dim])
 
 
-def not_ported(what: str, item) -> NotImplementedError:
-    """The error an option of the reference that the port lacks raises,
-    naming the ROADMAP.md item that ports it."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item {item})")
-
-
 def worker_offsets(ids: torch.Tensor, *sizes: int) -> tuple:
     """For stacked ``(W, B, c)`` ids, one ``(W, 1)`` offset ``w·N`` per
     table size ``N``: worker ``w``'s id plus its offset is its row of a

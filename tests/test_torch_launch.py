@@ -141,7 +141,8 @@ def test_arch_is_item_16(capsys):
     reference's form (the two packages' inits differ, so the numbers
     do), one logged line every ``steps // 20`` steps, and the history
     the trainer returns.  ``[]`` still exits with code 2, and the LM
-    mesh (item 16f) raises."""
+    mesh (item 16f) on one process raises ``ValueError`` in both
+    packages, the port's naming the 256 ranks a pod mesh needs."""
     argv = ["--arch", "smollm-135m", "--reduced", "--steps", "5"]
     trainer = port_train.main(argv + DEVICE)
     port_lines = capsys.readouterr().out.strip().splitlines()
@@ -157,8 +158,10 @@ def test_arch_is_item_16(capsys):
     with pytest.raises(SystemExit) as got:
         port_train.main([])
     assert got.value.code == 2
-    with pytest.raises(NotImplementedError, match="item 16f"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         port_train.main(argv + DEVICE + ["--mesh", "pod"])
+    with pytest.raises(ValueError):
+        ref_train.main(argv + ["--mesh", "pod"])
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])

@@ -390,7 +390,8 @@ def test_other_archs_name_their_item(arch, capsys):
 def test_task_training_and_specs_name_their_items():
     """LM training (item 16e) is ported: ``loss`` gives a finite scalar
     with a graph, and the launcher trains ``--arch``.  The dry-run's
-    ``input_specs`` (item 16f) still raises."""
+    ``input_specs`` (item 16f) gives the reference's shapes and dtypes as
+    ``meta`` tensors."""
     cfg = port_configs.get_config("smollm-135m", reduced=True)
     task = port_registry.make_task(cfg, "cpu")
     model = task.init(torch.Generator().manual_seed(0))
@@ -403,8 +404,16 @@ def test_task_training_and_specs_name_their_items():
     value = float(loss.detach())
     # finite, and near ln(V) at a random init
     assert abs(value - np.log(cfg.vocab_size)) < 0.5
-    with pytest.raises(NotImplementedError, match="item 16f"):
-        task.input_specs("train_4k")
+    specs = task.input_specs("train_4k")
+    ref_specs = ref_registry.make_task(
+        ref_configs.get_config("smollm-135m", reduced=True)).input_specs(
+        "train_4k")
+    assert set(specs) == set(ref_specs) == {"batch"}
+    assert set(specs["batch"]) == set(ref_specs["batch"]) == {"tokens"}
+    got, want = specs["batch"]["tokens"], ref_specs["batch"]["tokens"]
+    assert got.device.type == "meta"
+    assert tuple(got.shape) == tuple(want.shape) == (256, 4096)
+    assert got.dtype == torch.int32 and want.dtype == jnp.int32
     trainer = port_train.main(["--arch", "qwen3-4b", "--reduced", "--steps",
                                "2", "--batch", "2", "--seq", "16",
                                "--device", "cpu"])
